@@ -6,15 +6,17 @@ H100. It keeps the reference system's observable contract (the controller
 session, its typed event stream, PGM image IO, the 2-second alive-count
 ticker; reference: stubs/stubs.go, gol/event.go, gol/io.go) and the JAX
 package's bitboard layout word for word, and computes on the card through
-CUDA kernels written by hand (ops/whole_board.py, ops/tiled.py, with their
-sources in csrc/). It imports nothing of the JAX package.
+CUDA kernels written by hand (ops/whole_board.py, ops/batch_board.py,
+ops/tiled.py, with their sources in csrc/). It imports nothing of the JAX package.
 
 Package layout:
     ops/       the data planes, the bitboard and byte steps, the kernels'
                wrappers and plain torch versions, their build
     csrc/      the CUDA sources
     models/    life-like automaton rule family (B/S rulestrings)
-    engine/    the GoL engine (broker equivalent) + controller (distributor)
+    engine/    the GoL engine (broker equivalent) + controller (distributor),
+               the multi-universe session table
+    rpc/       the wire protocol, server, client and the broker process
     io/        PGM P5 codec, images/ -> out/ conventions
     events/    the 6-event observability stream
     utils/     Cell

@@ -1,9 +1,12 @@
 """Controller process entry point — the main.go equivalent.
 
 Flags mirror the reference (main.go:17-46): -t threads, -w width, -h
-height, -turns, -noVis, plus -rule (a B.../S... rulestring) and -device
-(default cuda; ``-device cpu`` runs on the CPU). ``-h`` is board height as
-in the reference, so argparse's auto-help is disabled; use --help.
+height, -turns, -noVis, -server (a broker's host:port, else the engine
+runs in process), plus -rule (a B.../S... rulestring) and -device (where
+an in-process session computes: default cuda; ``-device cpu`` runs on the
+CPU; with -server the broker's own -device decides). ``-h`` is board
+height as in the reference, so argparse's auto-help is disabled; use
+--help.
 
 The visualiser is not ported yet, so -noVis is required. The run drains
 the event stream and prints every event with a non-empty string as
@@ -78,12 +81,16 @@ def main(argv=None) -> int:
     parser.add_argument("-turns", type=int, default=10000000000)
     parser.add_argument("-noVis", action="store_true", default=False)
     parser.add_argument(
+        "-server", default="", help="broker address (empty: in-process engine)"
+    )
+    parser.add_argument(
         "-rule", default=None, metavar="B.../S...",
         help="life-like rulestring (default Conway B3/S23)",
     )
     parser.add_argument(
-        "-device", default="cuda",
-        help="where the board lives: cuda (default; fails without a card) or cpu",
+        "-device", default=None,
+        help="where an in-process session's board lives: cuda (default; "
+             "fails without a card) or cpu; not with -server",
     )
     args = parser.parse_args(argv)
     if not args.noVis:
@@ -99,28 +106,40 @@ def main(argv=None) -> int:
             rule = LifeRule.from_rulestring(args.rule)
         except ValueError as e:
             parser.error(str(e))
-    from .device import resolve_device
+    device = broker = None
+    if args.server:
+        if args.device is not None:
+            parser.error("-device is the broker's with -server")
+    else:
+        from .device import resolve_device
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        parser.error(str(e))
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as e:
+            parser.error(str(e))
 
     from . import Params, run
 
     params = Params(
         turns=args.turns, threads=args.t, image_width=args.w, image_height=args.h
     )
+    if args.server:
+        from .rpc.client import RemoteBroker
+
+        print("Server: ", args.server)
+        broker = RemoteBroker(args.server)
     events: "queue.Queue" = queue.Queue()
     keypresses: "queue.Queue" = queue.Queue()
     restore_tty = start_tty_keys(keypresses)
     consumer = threading.Thread(target=drain_events, args=(events,))
     consumer.start()
     try:
-        run(params, events, keypresses, rule=rule, device=device)
+        run(params, events, keypresses, broker=broker, rule=rule, device=device)
     finally:
         consumer.join()
         restore_tty()
+        if broker is not None:
+            broker.close()
     return 0
 
 

@@ -54,7 +54,8 @@ def iter_events(q: "queue.Queue", timeout: float | None = None):
 
 class InProcessBroker:
     """The broker surface (stubs/stubs.go verbs) served by a same-process
-    Engine — the session's backend (remote brokers are not ported yet)."""
+    Engine — the session's default backend (rpc.client.RemoteBroker is the
+    remote one)."""
 
     def __init__(self, engine: Engine):
         if not engine.config.final_world:
@@ -203,6 +204,7 @@ def run(
     events: "queue.Queue | None" = None,
     keypresses: "queue.Queue | None" = None,
     *,
+    broker=None,
     rule=None,
     engine_config: EngineConfig | None = None,
     emit_flips: bool = False,
@@ -219,9 +221,20 @@ def run(
 
     ``device`` places the engine's board: None is the CUDA card (and
     raises without one), ``"cpu"`` the CPU.
+
+    ``broker`` selects the backend: None for an in-process engine, or any
+    object with the stubs verb surface, e.g. ``rpc.client.RemoteBroker``
+    (the reference's ``-server``). A remote broker computes on its own
+    device and with the rule this session sends it, so ``device`` and
+    ``engine_config`` belong to the in-process engine only.
     """
     if events is None:
         events = queue.Queue()
+    if broker is not None and (device is not None or engine_config is not None):
+        raise ValueError(
+            "device and engine_config configure the in-process engine; a "
+            "remote broker computes on its own device"
+        )
     if engine_config is None:
         engine_config = EngineConfig(
             rule=rule if rule is not None else CONWAY, device=device
@@ -235,7 +248,13 @@ def run(
 
     ticker = None
     try:
-        broker = InProcessBroker(Engine(engine_config))
+        # a non-Conway rule rides along to a remote broker, which cannot
+        # otherwise know it; only when set, as the reference does
+        extra = {}
+        if broker is None:
+            broker = InProcessBroker(Engine(engine_config))
+        elif engine_config.rule.rulestring != CONWAY.rulestring:
+            extra["rule"] = engine_config.rule
         world = read_board(params, images_dir)
         ticker = _Ticker(params, events, keypresses, broker, out_dir, tick_seconds)
         ticker.start()
@@ -244,6 +263,7 @@ def run(
             world,
             emit=events.put if emit_flips else None,
             emit_flips=emit_flips,
+            **extra,
         )
         # join the ticker BEFORE the closing sequence so no stray
         # AliveCellsCount can interleave after StateChange{Quitting}

@@ -66,7 +66,8 @@ class RunResult:
 
     ``alive`` is derived on first access, from ``world`` when the run
     decoded one, else from the final plane state (a ``final_world=False``
-    run, whose byte raster never exists)."""
+    run, whose byte raster never exists), unless the caller hands the
+    cells over (a remote broker that ships them)."""
 
     __slots__ = ("turns_completed", "world", "_alive", "_state", "_plane")
 
@@ -76,10 +77,12 @@ class RunResult:
         world: Optional[np.ndarray],
         state=None,
         plane=None,
+        *,
+        alive: Optional[List[Cell]] = None,
     ):
         self.turns_completed = turns_completed
         self.world = world
-        self._alive: Optional[List[Cell]] = None
+        self._alive = alive
         self._state = state
         self._plane = plane
 

@@ -7,6 +7,9 @@
 * indivisible geometry -> None (the caller uses the roll stencil's
   byte plane, which handles every geometry).
 
+``auto_batch_plane`` picks the batched plane of a session table the same
+way: the bitboard batch when an axis divides by 32, else the byte batch.
+
 The JAX package sends packable boards of 4096^2 cells or more to its
 activity-sparse plane; the port has no sparse plane yet, so they go to
 the dense bitboard plane, with identical results.
@@ -42,3 +45,16 @@ def auto_plane(rule, shape: tuple[int, int], device):
     if fits(packed_shape(*shape, word_axis), device):
         return FusedBitPlane(rule, word_axis, device)
     return BitPlane(rule, word_axis, device)
+
+
+def auto_batch_plane(rule, shape: tuple[int, int], device):
+    """The batched data plane (ops/batched.py interface) for this
+    per-universe rule, geometry and device: the bitboard batch for a
+    32-divisible axis, the roll-stencil byte batch for every other
+    geometry. Always returns a plane."""
+    from .batched import BatchBitPlane, BatchBytePlane
+
+    word_axis = choose_word_axis(shape)
+    if word_axis is None:
+        return BatchBytePlane(rule, device)
+    return BatchBitPlane(rule, word_axis, device)

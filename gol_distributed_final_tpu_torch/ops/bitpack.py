@@ -14,7 +14,8 @@ falls out of ``torch.roll`` being cyclic), then the three 2-bit sums along
 the other axis add up to the 4-bitplane total T of the 3x3 neighbourhood
 INCLUDING the cell, and the rule is a set of equality tests on T. It is
 the plain version of the port's CUDA kernels (ops/whole_board.py,
-ops/tiled.py), which compute the same words.
+ops/batch_board.py, ops/tiled.py), which compute the same words. A
+leading batch axis steps each board on its own torus.
 
 torch has no unsigned 32-bit shifts on the CPU and no popcount, so:
 
@@ -52,9 +53,10 @@ def _wrap_int32(words: torch.Tensor) -> torch.Tensor:
 
 
 def pack(board, word_axis: int = 0, device=None) -> torch.Tensor:
-    """uint8 {0,255} board (numpy array or tensor) -> int32 bitboard on
-    ``device`` (default: the board's own). The packed spatial axis must
-    be divisible by 32."""
+    """uint8 {0,255} board ``[..., H, W]`` (numpy array or tensor) ->
+    int32 bitboard on ``device`` (default: the board's own); leading axes
+    are a batch of boards. The packed spatial axis must be divisible by
+    32."""
     if isinstance(board, torch.Tensor):
         b = board
     else:  # a copy: the engine hands out read-only arrays
@@ -62,15 +64,15 @@ def pack(board, word_axis: int = 0, device=None) -> torch.Tensor:
     if device is not None:
         b = b.to(device)
     bits = (b != 0).to(torch.int64)
-    h, w = bits.shape
+    *lead, h, w = bits.shape
     if word_axis == 1:
         if w % WORD:
             raise ValueError(f"width {w} not divisible by {WORD}")
-        words, dim, wshape = bits.reshape(h, w // WORD, WORD), 2, (1, 1, WORD)
+        words, dim, wshape = bits.reshape(*lead, h, w // WORD, WORD), -1, (WORD,)
     else:
         if h % WORD:
             raise ValueError(f"height {h} not divisible by {WORD}")
-        words, dim, wshape = bits.reshape(h // WORD, WORD, w), 1, (1, WORD, 1)
+        words, dim, wshape = bits.reshape(*lead, h // WORD, WORD, w), -2, (WORD, 1)
     weights = torch.tensor(
         [1 << j for j in range(WORD)], dtype=torch.int64, device=bits.device
     ).reshape(wshape)
@@ -78,16 +80,40 @@ def pack(board, word_axis: int = 0, device=None) -> torch.Tensor:
 
 
 def unpack(packed: torch.Tensor, word_axis: int = 0) -> torch.Tensor:
-    """int32 bitboard -> uint8 {0,255} board on the same device. ``>> j``
-    then ``& 1`` reads bit j whether the shift is arithmetic or not."""
+    """int32 bitboard ``[..., rows, cols]`` -> uint8 {0,255} board on the
+    same device. ``>> j`` then ``& 1`` reads bit j whether the shift is
+    arithmetic or not."""
     shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
+    *lead, rows, cols = packed.shape
     if word_axis == 1:
-        bits = (packed[:, :, None] >> shifts) & 1
-        board = bits.reshape(packed.shape[0], -1)
+        bits = (packed[..., None] >> shifts) & 1
+        board = bits.reshape(*lead, rows, cols * WORD)
     else:
-        bits = (packed[:, None, :] >> shifts[:, None]) & 1
-        board = bits.reshape(-1, packed.shape[1])
+        bits = (packed[..., None, :] >> shifts[:, None]) & 1
+        board = bits.reshape(*lead, rows * WORD, cols)
     return (board * 255).to(torch.uint8)
+
+
+def _require_batch(t, what: str):
+    if t.ndim != 3:
+        raise ValueError(f"{what} must be [B, ...] with 3 axes, got {tuple(t.shape)}")
+    return t
+
+
+def pack_batch(boards, word_axis: int = 0, device=None) -> torch.Tensor:
+    """uint8 {0,255} ``[B, H, W]`` (numpy array or tensor) -> int32
+    bitboards ``[B, H/32, W]`` (word_axis 0) or ``[B, H, W/32]``: every
+    universe of a session batch in one pass (the JAX package's
+    ``pack_device_batch``)."""
+    if not isinstance(boards, torch.Tensor):
+        boards = np.asarray(boards, np.uint8)
+    return pack(_require_batch(boards, "batch boards"), word_axis, device)
+
+
+def unpack_batch(packed: torch.Tensor, word_axis: int = 0) -> torch.Tensor:
+    """int32 ``[B, ...]`` bitboards -> uint8 ``[B, H, W]`` on the same
+    device (the JAX package's ``unpack_device_batch``)."""
+    return unpack(_require_batch(packed, "packed batch"), word_axis)
 
 
 def state_from_numpy(packed: np.ndarray, device) -> torch.Tensor:
@@ -111,8 +137,8 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
 
 
 def row_popcounts(packed: torch.Tensor) -> torch.Tensor:
-    """Alive cells per packed row as ``int32[rows]`` (a row covers at most
-    32 * W cells, so int32 holds it); totals fold in int64."""
+    """Alive cells per packed row as ``int32[..., rows]`` (a row covers at
+    most 32 * W cells, so int32 holds it); totals fold in int64."""
     return popcount(packed).sum(dim=-1).to(torch.int32)
 
 
@@ -257,6 +283,30 @@ def bit_step_n(
             packed, word_axis, birth_mask=birth_mask, survive_mask=survive_mask
         )
     return packed
+
+
+def bit_step_n_batch(
+    packed: torch.Tensor,
+    n: int,
+    word_axis: int = 0,
+    birth_mask: int = CONWAY_BIRTH_MASK,
+    survive_mask: int = CONWAY_SURVIVE_MASK,
+) -> torch.Tensor:
+    """n turns over a batch of independent bitboards ``int32[B, rows,
+    cols]``, each on its own torus (``bit_step`` rolls only the trailing
+    two axes): the plain version of the batched kernel
+    (ops/batch_board.py)."""
+    return bit_step_n(
+        _require_batch(packed, "packed batch"), n, word_axis, birth_mask, survive_mask
+    )
+
+
+def alive_count_packed_batch(packed: torch.Tensor) -> np.ndarray:
+    """Per-universe alive counts of ``int32[B, rows, cols]`` as
+    ``np.int64[B]``: one popcount reduction to ``int32[B, rows]`` on the
+    device, then a host int64 fold."""
+    pc = row_popcounts(_require_batch(packed, "packed batch")).cpu().numpy()
+    return pc.sum(axis=1, dtype=np.int64)
 
 
 def ops_per_word(birth_mask: int, survive_mask: int) -> int:

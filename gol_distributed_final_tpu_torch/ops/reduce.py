@@ -2,7 +2,8 @@
 ``calculateAliveCells``).
 
 * ``alive_count`` — the scalar behind the 2-second ``AliveCellsCount``
-  event, reduced on the board's device.
+  event, reduced on the board's device; ``alive_count_batch`` — one per
+  universe of a session batch.
 * ``alive_cells`` — the ``[]util.Cell`` payload of ``FinalTurnComplete``,
   produced row-major like the reference's nested loop so orderings agree.
 """
@@ -18,6 +19,13 @@ from ..utils.cell import Cell
 def alive_count(board: torch.Tensor) -> int:
     """Number of alive cells."""
     return int(torch.count_nonzero(board))
+
+
+def alive_count_batch(boards: torch.Tensor) -> torch.Tensor:
+    """Per-universe alive counts of a byte batch ``[B, H, W]`` as an int64
+    tensor ``[B]`` on the batch's device: one reduction for the whole
+    session batch, from which every session's count demuxes."""
+    return torch.count_nonzero(boards, dim=(-2, -1))
 
 
 def alive_cells(board) -> list[Cell]:

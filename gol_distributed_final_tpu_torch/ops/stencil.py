@@ -29,11 +29,12 @@ _NEIGHBOUR_OFFSETS = tuple(
 
 
 def neighbour_counts(board: torch.Tensor) -> torch.Tensor:
-    """Toroidal 8-neighbour count, ``uint8[H, W]`` with values in 0..8."""
+    """Toroidal 8-neighbour count, ``uint8[..., H, W]`` with values in
+    0..8; leading axes are a batch of boards, each its own torus."""
     ones = (board != 0).to(torch.uint8)
     total = torch.zeros_like(ones)
     for dy, dx in _NEIGHBOUR_OFFSETS:
-        total += torch.roll(ones, (dy, dx), dims=(0, 1))
+        total += torch.roll(ones, (dy, dx), dims=(-2, -1))
     return total
 
 
@@ -83,3 +84,19 @@ def step_n(
     for _ in range(int(n)):
         board = step(board, birth_mask=birth_mask, survive_mask=survive_mask)
     return board
+
+
+def step_n_batch(
+    boards: torch.Tensor,
+    n: int,
+    *,
+    birth_mask: int = CONWAY_BIRTH_MASK,
+    survive_mask: int = CONWAY_SURVIVE_MASK,
+) -> torch.Tensor:
+    """``n`` turns over a batch of independent universes ``uint8[B, H,
+    W]``, each on its own torus: the byte tier of the sessions batch, for
+    geometries with no axis divisible by 32 (the JAX package leaves its
+    vmapped counterpart to XLA)."""
+    if boards.dim() != 3:
+        raise ValueError(f"batch boards must be [B, H, W], got {tuple(boards.shape)}")
+    return step_n(boards, n, birth_mask=birth_mask, survive_mask=survive_mask)

@@ -9,6 +9,11 @@ It replaces the JAX package's Pallas kernel K1,
 What bounds it on the card and how the design meets that is written at
 the top of the CUDA source.
 
+The same CUDA kernel also serves the batched bitboard (K2,
+ops/batch_board.py): its grid runs over a batch of boards, and this
+module launches it with a batch of one. This module owns the library's
+binding and the gate both use.
+
 The gate is the port's own: the board's two shared-memory copies must fit
 the block's opt-in limit the card reports. The JAX package's
 ``fits_vmem`` budget does not apply. A board past the gate goes to the
@@ -42,7 +47,7 @@ _SIGNATURES = {
     "gol_max_smem_optin": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
     "gol_whole_board_step": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
     ],
 }
@@ -51,6 +56,23 @@ _SMEM_LIMIT: dict = {}
 
 def _lib():
     return _build.load("whole_board", _SIGNATURES)
+
+
+def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask) -> None:
+    """One launch over the boards of a contiguous int32 ``[batch, rows,
+    cols]`` tensor (the callers check it): ``out`` gets each board after n
+    turns and, unless ``counts`` is None, ``counts[batch, rows]`` its row
+    popcounts. Raises on a refused launch."""
+    batch, rows, cols = packed.shape
+    common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
+    with torch.cuda.device(packed.device):
+        err = _lib().gol_whole_board_step(
+            packed.data_ptr(), out.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            batch, rows, cols, word_axis, n, common, dead_only, live_only,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "whole-board kernel launch")
 
 
 def reset_counts() -> None:
@@ -85,6 +107,28 @@ def fits(shape: tuple[int, int], device) -> bool:
     return smem_bytes(shape) <= smem_limit(device)
 
 
+def check_launchable(packed: torch.Tensor, ndim: int, word_axis: int, what: str) -> None:
+    """Raise unless the kernel takes ``packed``: a contiguous int32 CUDA
+    tensor of ``ndim`` dimensions whose trailing two (one board) fit one
+    block's shared memory."""
+    if packed.device.type != "cuda":
+        raise ValueError(f"no {what} for device {packed.device}")
+    if packed.dtype != torch.int32 or packed.dim() != ndim or not packed.is_contiguous():
+        raise ValueError(
+            f"the {what} takes a contiguous {ndim}-D int32 bitboard tensor, got "
+            f"{packed.dtype} {tuple(packed.shape)} contiguous={packed.is_contiguous()}"
+        )
+    if word_axis not in (0, 1):
+        raise ValueError(f"word_axis must be 0 or 1, got {word_axis}")
+    board = tuple(packed.shape[-2:])
+    if not fits(board, packed.device):
+        raise ValueError(
+            f"packed board {board[0]}x{board[1]} needs {smem_bytes(board)} B of "
+            f"shared memory, past the block's {smem_limit(packed.device)} B: "
+            "it belongs to the tiled kernel"
+        )
+
+
 def step_n_plain(packed, n, word_axis=0, birth_mask=CONWAY_BIRTH_MASK,
                  survive_mask=CONWAY_SURVIVE_MASK):
     """The plain version of the counted kernel: ``(board after n turns,
@@ -113,34 +157,13 @@ def step_n(
         plain_calls += 1
         out, counts = step_n_plain(packed, n, word_axis, birth_mask, survive_mask)
         return (out, counts) if counted else out
-    if packed.device.type != "cuda":
-        raise ValueError(f"no whole-board kernel for device {packed.device}")
-    if packed.dtype != torch.int32 or packed.dim() != 2 or not packed.is_contiguous():
-        raise ValueError(
-            "the whole-board kernel takes a contiguous 2-D int32 bitboard, got "
-            f"{packed.dtype} {tuple(packed.shape)} contiguous={packed.is_contiguous()}"
-        )
-    if word_axis not in (0, 1):
-        raise ValueError(f"word_axis must be 0 or 1, got {word_axis}")
-    rows, cols = packed.shape
-    if not fits((rows, cols), packed.device):
-        raise ValueError(
-            f"packed board {rows}x{cols} needs {smem_bytes((rows, cols))} B of "
-            f"shared memory, past the block's {smem_limit(packed.device)} B: "
-            "it belongs to the tiled kernel"
-        )
+    check_launchable(packed, 2, word_axis, "whole-board kernel")
+    rows = packed.shape[0]
     out = torch.empty_like(packed)
     counts = (
         torch.empty(rows, dtype=torch.int32, device=packed.device) if counted else None
     )
-    common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
-    with torch.cuda.device(packed.device):
-        err = _lib().gol_whole_board_step(
-            packed.data_ptr(), out.data_ptr(),
-            None if counts is None else counts.data_ptr(),
-            rows, cols, word_axis, n, common, dead_only, live_only,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "whole-board kernel launch")
+    launch(packed[None], out[None], None if counts is None else counts[None],
+           n, word_axis, birth_mask, survive_mask)
     launches += 1
     return (out, counts) if counted else out

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on the card: each kernel against its plain
-torch version, and the session on the card against the golden fixtures.
+torch version, and the session on the card against the golden fixtures,
+in process and over loopback RPC (sessions and SessionRun).
 
 Every test here needs a CUDA card and skips without one. The file imports
 neither jax nor the JAX package, so it also runs on a host that has no
@@ -21,7 +22,7 @@ from gol_distributed_final_tpu_torch import Params, run
 from gol_distributed_final_tpu_torch.engine import Engine, EngineConfig
 from gol_distributed_final_tpu_torch.io.pgm import read_pgm
 from gol_distributed_final_tpu_torch.models import life
-from gol_distributed_final_tpu_torch.ops import bitpack, tiled, whole_board
+from gol_distributed_final_tpu_torch.ops import batch_board, bitpack, tiled, whole_board
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 RULES = (life.CONWAY, life.HIGHLIFE, life.SEEDS, life.DAY_AND_NIGHT)
@@ -106,3 +107,88 @@ def test_per_turn_counts_on_the_card(cuda_device):
     board = read_pgm(REPO_ROOT / "images" / "512x512.pgm")
     engine.run(Params(turns=300, image_width=512, image_height=512), board)
     assert [seen[t] for t in range(1, 301)] == [want[t] for t in range(1, 301)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 128, 512])
+def test_batched_kernel_matches_plain(cuda_device, size):
+    """K2: every universe of the batch equals the plain batched version,
+    counts included, for 4 rules and both packings; one launch a call."""
+    for word_axis in (0, 1):
+        packed = _words((5,) + bitpack.packed_shape(size, size, word_axis),
+                        size + word_axis, cuda_device)
+        before = batch_board.launches
+        for rule in RULES:
+            for n in (0, 1, 7, 100):
+                got = batch_board.step_n(
+                    packed, n, word_axis, rule.birth_mask, rule.survive_mask
+                )
+                want = batch_board.step_n_plain(
+                    packed, n, word_axis, rule.birth_mask, rule.survive_mask
+                )
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert batch_board.launches == before + len(RULES) * 4
+
+
+@pytest.mark.cuda
+def test_batched_kernel_refuses_a_universe_past_its_gate(cuda_device):
+    big = torch.zeros((2, 32, 1024), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="tiled kernel"):
+        batch_board.step_n(big, 1)
+
+
+@pytest.mark.cuda
+def test_sessions_over_loopback_rpc_on_the_card(cuda_device, tmp_path):
+    """A broker on the card: a -server session is golden through K1, and
+    concurrent SessionRuns equal their sequential whole-board runs through
+    K2, with no plain version run."""
+    import queue
+    import threading
+
+    from gol_distributed_final_tpu_torch.rpc import broker
+    from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker
+
+    server, service = broker.serve(port=0, device="cuda")
+    addr = f"127.0.0.1:{server.port}"
+    try:
+        whole_board.reset_counts()
+        batch_board.reset_counts()
+        remote = RemoteBroker(addr)
+        try:
+            run(Params(turns=100, image_width=64, image_height=64), queue.Queue(),
+                broker=remote, images_dir=REPO_ROOT / "images", out_dir=tmp_path,
+                tick_seconds=3600)
+        finally:
+            remote.close()
+        name = "64x64x100.pgm"
+        assert (tmp_path / name).read_bytes() == \
+            (REPO_ROOT / "check" / "images" / name).read_bytes()
+        rng = np.random.default_rng(3)
+        boards = np.where(rng.random((8, 128, 128)) < 0.3, 255, 0).astype(np.uint8)
+        budgets = [1, 5, 17, 64, 100, 129, 200, 333]
+        results = {}
+
+        def one(i):
+            rb = RemoteBroker(addr)
+            try:
+                results[i] = rb.session_run(
+                    Params(turns=budgets[i], image_width=128, image_height=128),
+                    boards[i], session_id=i + 1, timeout=120)
+            finally:
+                rb.close()
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert batch_board.launches > 0 and batch_board.plain_calls == 0
+        assert whole_board.launches > 0 and whole_board.plain_calls == 0
+        for i, budget in enumerate(budgets):
+            packed = bitpack.pack(boards[i], 0, cuda_device)
+            want = bitpack.unpack(whole_board.step_n(packed, budget), 0).cpu().numpy()
+            np.testing.assert_array_equal(results[i].world, want)
+    finally:
+        service.shutdown()

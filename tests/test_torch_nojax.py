@@ -5,10 +5,12 @@ planes catches a kernel failure to reroute it.
 """
 
 import ast
+import io
 import json
 import os
 import pathlib
 import queue
+import socket
 import subprocess
 import sys
 
@@ -73,9 +75,59 @@ def test_cli_session_imports_no_jax(tmp_path):
     np.testing.assert_array_equal(read_pgm(tmp_path / "out" / "64x64x10.pgm"), want)
 
 
+_BROKER_PROBE = """
+import json, runpy, sys
+sys.argv = ["gol_distributed_final_tpu_torch.rpc.broker"] + sys.argv[1:]
+runpy.run_module("gol_distributed_final_tpu_torch.rpc.broker", run_name="__main__")
+print("MODULES " + json.dumps(sorted(sys.modules)), flush=True)
+"""
+
+
+def test_broker_reading_reference_frames_imports_no_jax():
+    """A port broker unpickles frames that name the JAX package's classes
+    (gol_distributed_final_tpu.rpc.protocol.Request) and still never loads
+    that package, or jax."""
+    from gol_distributed_final_tpu.rpc import protocol as jproto
+    from test_torch_rpc import TIMEOUT, _Proc
+
+    proc = _Proc(["-c", _BROKER_PROBE, "-port", "0", "-device", "cpu"])
+    try:
+        line = proc.wait_for("broker listening on :")
+        port = int(line.rsplit(":", 1)[1].split()[0])
+        with socket.create_connection(("127.0.0.1", port), timeout=TIMEOUT) as sock:
+            sock.settimeout(TIMEOUT)
+            frames = []
+            for call_id, method, req in (
+                (1, jproto.Methods.RETRIEVE, jproto.Request(include_world=True)),
+                (2, jproto.Methods.SUPER_QUIT, jproto.Request()),
+            ):
+                frame = io.BytesIO()
+
+                class Capture:
+                    def sendall(self, data):
+                        frame.write(bytes(data))
+
+                envelope = {"id": call_id, "method": method, "request": req}
+                jproto.send_frame(Capture(), envelope)
+                frames.append(frame.getvalue())
+                sock.sendall(frames[-1])
+                reply = jproto.recv_frame(sock)
+                assert reply["id"] == call_id and "error" not in reply, reply
+                assert type(reply["result"]) is jproto.Response
+        assert b"gol_distributed_final_tpu.rpc.protocol" in frames[0]
+        assert b"Request" in frames[0]
+        line = proc.wait_for("MODULES ")
+        assert proc.proc.wait(timeout=TIMEOUT) == 0, "".join(proc.seen)
+    finally:
+        proc.stop()
+    modules = json.loads(line.split("MODULES ", 1)[1])
+    assert "gol_distributed_final_tpu_torch.rpc.protocol" in modules
+    assert [m for m in modules if _forbidden(m)] == []
+
+
 def _port_sources():
     files = sorted(PORT.rglob("*.py"))
-    assert files
+    assert PORT / "rpc" / "broker.py" in files and PORT / "rpc" / "protocol.py" in files
     return files + [REPO_ROOT / "chip_smoke.py"]
 
 
