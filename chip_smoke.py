@@ -11,7 +11,9 @@ through ``Engine.run``, a broker on loopback serving the controller's
 ``-server`` sessions and 256 concurrent ``SessionRun``s, and the sessions
 bench shape, 1000 x 128^2 x 100 turns, through ``SessionTable``), checks
 the results against the repository's golden fixtures and sequential
-references, and times the kernels with CUDA events. Any failed check
+references, drives the engine's step-function override (the nine golden
+sessions through ``pallas_step_n_fn`` and through ``fused_step_n``, which
+run the byte kernels), and times the kernels with CUDA events. Any failed check
 raises, so the exit code is non-zero and the closing JSON line is never
 printed. Without a CUDA device, or without the package beside it, it
 exits non-zero before printing any result.
@@ -22,10 +24,12 @@ Game of Life is integer-exact: every comparison is equality (tolerance 0).
 from __future__ import annotations
 
 import csv
+import gc
 import json
 import os
 import pathlib
 import queue
+import re
 import subprocess
 import sys
 import threading
@@ -67,6 +71,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int) -> tuple[float, int]:
+    """``(ms, launches)``: the mean device time of one launch of the CUDA kernel named ``kernel``,
+    from torch.profiler's trace of ``reps`` calls of ``fn()`` after a
+    warm-up: the kernel's own time. CUDA events around back-to-back calls
+    measure the host's launch rate instead once a kernel is shorter than
+    its wrapper's host work. The mean is over the launches the trace
+    holds, which may be fewer than the calls; their number comes back
+    with it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, traced = 0.0, 0
+    for ev in prof.key_averages():
+        if re.search(rf"::{kernel}[<(]", ev.key):
+            total_us += getattr(ev, "device_time_total", 0) or ev.cuda_time_total
+            traced += ev.count
+    check(traced > 0 and total_us > 0, f"the profiler saw no launch of {kernel}")
+    return total_us / traced / 1e3, traced
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
@@ -92,11 +122,12 @@ def main() -> int:
     from gol_distributed_final_tpu_torch.__main__ import main as controller_main
     from gol_distributed_final_tpu_torch.engine.sessions import SessionTable
     from gol_distributed_final_tpu_torch.ops import (
-        _build, batch_board, bitpack, tiled, whole_board,
+        _build, batch_board, bitpack, byte_board, byte_tiled, tiled, whole_board,
     )
     from gol_distributed_final_tpu_torch.ops.auto import auto_batch_plane, auto_plane
     from gol_distributed_final_tpu_torch.ops.batched import BatchBitPlane
-    from gol_distributed_final_tpu_torch.ops.fused import FusedBitPlane
+    from gol_distributed_final_tpu_torch.ops.fused import FusedBitPlane, fused_step_n
+    from gol_distributed_final_tpu_torch.ops.pallas_stencil import pallas_step_n_fn
     from gol_distributed_final_tpu_torch.ops.plane import BitPlane
     from gol_distributed_final_tpu_torch.rpc import broker
     from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker, RpcError
@@ -210,6 +241,51 @@ def main() -> int:
           f"cases (B in 1/7/300 at 64^2, 128^2 and 512^2, and B=1000 at 128^2; "
           f"4 rules, n in 1/7/100, both packings, counts)")
 
+    def random_bytes(shape):
+        return torch.from_numpy(
+            np.where(rng.random(shape) < 0.35, 255, 0).astype(np.uint8)
+        ).to(dev)
+
+    k5_err = 0
+    k5_cases = 0
+    # the step-function sessions' boards under the gate (16^2, 64^2), the
+    # timed 256^2 and the largest square the gate takes, 340^2
+    k5_shapes = ((16, 16), (24, 33), (64, 64), (128, 128), (256, 256), (340, 340))
+    check(byte_board.fits((340, 340), dev) and not byte_board.fits((341, 341), dev),
+          "340^2 is the largest square under the byte kernel's gate")
+    for shape in k5_shapes:
+        board = random_bytes(shape)
+        for rule in rules:
+            for n in (1, 7, 100):
+                got = byte_board.step_n(board, n, rule.birth_mask, rule.survive_mask)
+                want = byte_board.step_n_plain(board, n, rule.birth_mask, rule.survive_mask)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                check(err == 0, f"byte board {shape} {rule.name} n={n}: max abs err {err}")
+                k5_err = max(k5_err, err)
+                k5_cases += 1
+    print(f"phase 3 parity: whole-board byte kernel equals its plain version in "
+          f"{k5_cases} cases (16^2, 24x33, 64^2, 128^2, 256^2, 340^2; 4 rules, n in "
+          f"1/7/100)")
+
+    k6_err = 0
+    k6_cases = 0
+    # the JAX package's test shape, the 512^2 sessions' board, a wide board
+    for shape in ((64, 128), (512, 512), (4096, 4096)):
+        board = random_bytes(shape)
+        for rule in rules:
+            for k in (1, 8, 32):
+                args = (board, k, rule.birth_mask, rule.survive_mask)
+                got = byte_tiled.step_n(*args, turns_per_launch=k)
+                want = byte_tiled.step_n_plain(*args, turns_per_launch=k)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                check(err == 0, f"byte tiles {shape} {rule.name} k={k}: max abs err {err}")
+                k6_err = max(k6_err, err)
+                k6_cases += 1
+    print(f"phase 3 parity: byte-tile kernel equals its plain version in {k6_cases} "
+          f"cases (64x128, 512^2, 4096^2; 4 rules, one launch of 1/8/32 turns)")
+
     out_dir = REPO / "out" / "chip_smoke"
 
     # 5. per-turn alive counts of 512^2 for turns 1..10000, one turn per
@@ -238,10 +314,34 @@ def main() -> int:
           f"check/alive/512x512.csv ({per_turn_launches} one-turn whole-board "
           "launches, kept out of the main path's counts)")
 
+    # 5b. the same counts through the byte tiles: fused_step_n(board, 1) as
+    # the engine's step function, one turn per chunk, and the board after
+    # fused_step_n(board, 10000) (the K = 8 ladder) against the one reached
+    # one turn at a time. Checks of their own, out of the main path's counts.
+    seen.clear()
+    engine = Engine(EngineConfig(max_chunk=1, chunk_hook=record, step_n_fn=fused_step_n))
+    before = byte_tiled.launches
+    stepwise = engine.run(Params(turns=10_000, image_width=512, image_height=512), board512)
+    per_turn_launches = byte_tiled.launches - before
+    bad = [t for t in range(1, 10_001) if seen.get(t) != golden_counts[t]]
+    check(not bad, f"512^2 alive counts through fused_step_n differ at turns {bad[:5]}")
+    check(per_turn_launches == 10_000, f"one byte-tile launch per turn, got {per_turn_launches}")
+    before = byte_tiled.launches
+    laddered = fused_step_n(torch.from_numpy(board512.copy()).to(dev), 10_000)
+    ladder_launches = byte_tiled.launches - before
+    check(np.array_equal(laddered.cpu().numpy(), stepwise.world),
+          "512^2 after fused_step_n(board, 10000) differs from one turn at a time")
+    check(ladder_launches == 1250, f"the K = 8 ladder of 10000 turns: {ladder_launches}")
+    print("phase 5b alive: 512^2 per-turn alive counts for turns 1..10000 through "
+          "fused_step_n equal check/alive/512x512.csv (10000 one-turn byte-tile launches), "
+          "and fused_step_n(board, 10000) in 1250 8-turn launches equals the board "
+          "reached one turn at a time (kept out of the main path's counts)")
+
     # -- the main paths, every launch counted -----------------------------
     # each path runs with every count set to 0 just before it and read just
     # after; launches made to compare a kernel with a reference stay out
-    counted = {"whole_board": whole_board, "tiled": tiled, "batch_board": batch_board}
+    counted = {"whole_board": whole_board, "tiled": tiled, "batch_board": batch_board,
+               "byte_board": byte_board, "byte_tiled": byte_tiled}
     launches = dict.fromkeys(counted, 0)
     plain = dict.fromkeys(counted, 0)
 
@@ -366,12 +466,12 @@ def main() -> int:
             finally:
                 rb.close()
 
-        def watch():
+        def watch(tag_of):
             rb = RemoteBroker(addr)
             try:
                 k = 0
                 while not all_done.is_set():
-                    tag = 1 + (37 * k) % n_sess
+                    tag = tag_of(k)
                     k += 1
                     try:
                         snap = rb.retrieve(include_world=True, session_id=tag)
@@ -389,16 +489,23 @@ def main() -> int:
         threads = [threading.Thread(target=session, args=(i,)) for i in range(n_sess)]
         for t in threads:
             t.start()
-        watcher = threading.Thread(target=watch)
-        watcher.start()
+        # one watcher cycles through every session; two more ask the 64
+        # longest budgets, which are in flight the longest, so that some
+        # retrieves land mid-flight however slowly the host serves them
+        watchers = [threading.Thread(target=watch, args=(lambda k: 1 + (37 * k) % n_sess,))]
+        watchers += [threading.Thread(target=watch, args=(lambda k, j=j: n_sess - (2 * k + j) % 64,))
+                     for j in (0, 1)]
+        for w in watchers:
+            w.start()
         for t in threads:
             t.join(600)
         sessions_wall = time.monotonic() - t0
         all_done.set()
-        watcher.join(60)
+        for w in watchers:
+            w.join(60)
         got = close_window("256 SessionRuns", ("batch_board",))
         check(not errors, f"SessionRun failures: {errors[:3]}")
-        check(not any(t.is_alive() for t in threads) and not watcher.is_alive(),
+        check(not any(t.is_alive() for t in threads + watchers),
               "SessionRun threads still running")
     finally:
         service.shutdown()
@@ -497,6 +604,57 @@ def main() -> int:
           f"sessions/s (wall {batch_wall:.4f} s, {got['batch_board']} batched launches), "
           f"sequential {B8 / seq_wall:.6g} sessions/s (wall {seq_wall:.4f} s) {card_tag}")
 
+    # 12. the engine's step-function override: the nine golden sessions
+    # through pallas_step_n_fn (K5 under its gate, the roll stencil past
+    # it, as the JAX package does past its own) and through fused_step_n
+    # (K5's ladder under the gate, K6's past it), PGM bytes against
+    # check/images; then the 512^2 x 10000 session through fused_step_n
+    open_window()
+    step_fns = {"pallas_step_n_fn": pallas_step_n_fn(CONWAY), "fused_step_n": fused_step_n}
+    by_session = {}
+    for fn_name, step_fn in step_fns.items():
+        for size in (16, 64, 512):
+            for turns in (0, 1, 100):
+                before = (byte_board.launches, byte_tiled.launches)
+                run(Params(turns=turns, image_width=size, image_height=size),
+                    images_dir=REPO / "images", out_dir=out_dir, tick_seconds=3600,
+                    engine_config=EngineConfig(step_n_fn=step_fn))
+                name = f"{size}x{size}x{turns}.pgm"
+                written = (out_dir / name).read_bytes()
+                golden = (REPO / "check" / "images" / name).read_bytes()
+                check(written == golden,
+                      f"{fn_name} session {name}: PGM bytes differ from check/images")
+                by_session[fn_name, size, turns] = (byte_board.launches - before[0],
+                                                    byte_tiled.launches - before[1])
+    for (fn_name, size, turns), (k5, k6) in by_session.items():
+        if turns and size < 512:
+            check(k5 > 0 and k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
+        elif turns and fn_name == "fused_step_n":
+            check(k6 > 0 and k5 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
+        else:
+            check(k5 == k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
+    print("phase 12 step functions: {16,64,512}^2 x {0,1,100} PGMs through "
+          "pallas_step_n_fn and fused_step_n equal check/images byte for byte "
+          f"({byte_board.launches} whole-board byte launches at 16^2 and 64^2, "
+          f"{byte_tiled.launches} byte-tile launches at 512^2 through fused_step_n)")
+    # a host-bound wall: collect the earlier phases' garbage first, so a
+    # full collection of it does not land inside this session
+    gc.collect()
+    before = byte_tiled.launches
+    t0 = time.monotonic()
+    result = run(Params(turns=10_000, image_width=512, image_height=512),
+                 images_dir=REPO / "images", out_dir=out_dir, tick_seconds=3600,
+                 engine_config=EngineConfig(step_n_fn=fused_step_n))
+    fused_wall = time.monotonic() - t0
+    fused_session_launches = byte_tiled.launches - before
+    check(result.turns_completed == 10_000 and
+          result.alive_count == golden_counts[10_000],
+          "512^2 x 10000 session through fused_step_n: final alive count")
+    close_window("step-function sessions", ("byte_board", "byte_tiled"))
+    print(f"timing session 512^2 x 10000 through fused_step_n: wall {fused_wall:.3f} s, "
+          f"{10_000 * 512 * 512 / fused_wall:.4g} cell-updates/s, "
+          f"{fused_session_launches} byte-tile launches {card_tag}")
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -549,6 +707,53 @@ def main() -> int:
           f"ms ({k2_by}), {k2_ms / k2_bound_ms:.3g}x the bound; plain {k2_plain_ms:.3f} "
           f"ms {card_tag}")
 
+    ops_cell = bitpack.byte_ops_per_cell(CONWAY.birth_mask, CONWAY.survive_mask)
+    print(f"bound: {ops_cell} int32 instructions per cell per turn on the byte board "
+          "(Conway, ops/bitpack.py::byte_ops_per_cell)")
+
+    def byte_bound(cells, turns):
+        t_bytes = 2 * cells / HBM_BYTES_PER_S
+        t_ops = turns * cells * ops_cell / int32_rate
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+    # the byte kernels' ms is their device time from the profiler: at the
+    # shapes the step functions give them a launch can be shorter than its
+    # wrapper's host work, which CUDA events around back-to-back calls time
+    b256 = random_bytes((256, 256))
+    k5_ms, k5_traced = device_ms(lambda: byte_board.step_n(b256, 100), "byte_board_kernel",
+                                 reps=20)
+    k5_events_ms = cuda_ms(lambda: byte_board.step_n(b256, 100), reps=50)
+    k5_plain_ms = cuda_ms(lambda: byte_board.step_n_plain(b256, 100), reps=3, warmup=1)
+    k5_bound_ms, k5_by = byte_bound(b256.numel(), 100)
+    b64 = random_bytes((64, 64))
+    k5_small_ms, k5_small_traced = device_ms(lambda: byte_board.step_n(b64, 8),
+                                             "byte_board_kernel", reps=50)
+    k5_small_events_ms = cuda_ms(lambda: byte_board.step_n(b64, 8), reps=200)
+    print(f"timing whole-board byte 256^2: {k5_ms:.4f} ms of device time per n=100 "
+          f"launch ({k5_traced} traced; {k5_ms * 1e3 / 100:.3f} us/turn; events "
+          f"{k5_events_ms:.4f} ms per call), bound {k5_bound_ms:.5f} ms ({k5_by}), "
+          f"{k5_ms / k5_bound_ms:.3g}x the bound; plain {k5_plain_ms:.3f} ms; 64^2 n=8: "
+          f"{k5_small_ms:.4f} ms of device time ({k5_small_traced} traced; events "
+          f"{k5_small_events_ms:.4f} ms per call) {card_tag}")
+
+    k6_times = {}
+    for shape in ((512, 512), (4096, 4096)):
+        board = random_bytes(shape)
+
+        def launch8():
+            byte_tiled.step_n(board, 8, turns_per_launch=8)
+
+        one_launch, traced = device_ms(launch8, "byte_tiled_kernel", reps=20)
+        events_ms = cuda_ms(launch8, reps=20)
+        plain_ms = cuda_ms(lambda: byte_tiled.step_n_plain(board, 8, turns_per_launch=8),
+                           reps=2, warmup=1)
+        b_ms, b_by = byte_bound(board.numel(), 8)
+        k6_times[shape] = (one_launch, plain_ms, b_ms, b_by)
+        print(f"timing byte tiles {shape[0]}x{shape[1]}: {one_launch:.4f} ms of device "
+              f"time per 8-turn launch ({traced} traced; {one_launch * 1e3 / 8:.3f} "
+              f"us/turn; events {events_ms:.4f} ms per call), bound {b_ms:.5f} ms ({b_by}), "
+              f"{one_launch / b_ms:.3g}x the bound; plain {plain_ms:.3f} ms {card_tag}")
+
     # -- 7. the kernels line ----------------------------------------------
     big_shape = (512, 16384)
     kernels = [
@@ -591,6 +796,32 @@ def main() -> int:
             "bound_by": k2_by,
             "library_ms": None,
         },
+        {
+            "name": "byte_board",
+            "route": "cuda",
+            "source": "gol_distributed_final_tpu_torch/csrc/byte_board.cu",
+            "replaces": "gol_distributed_final_tpu/ops/pallas_stencil.py:125",
+            "launches": launches["byte_board"],
+            "max_abs_err": k5_err,
+            "ms": k5_ms,
+            "plain_ms": k5_plain_ms,
+            "bound_ms": k5_bound_ms,
+            "bound_by": k5_by,
+            "library_ms": None,
+        },
+        {
+            "name": "byte_tiled",
+            "route": "cuda",
+            "source": "gol_distributed_final_tpu_torch/csrc/byte_tiled.cu",
+            "replaces": "gol_distributed_final_tpu/ops/fused.py:342",
+            "launches": launches["byte_tiled"],
+            "max_abs_err": k6_err,
+            "ms": k6_times[512, 512][0],
+            "plain_ms": k6_times[512, 512][1],
+            "bound_ms": k6_times[512, 512][2],
+            "bound_by": k6_times[512, 512][3],
+            "library_ms": None,
+        },
     ]
     print("kernels: " + "; ".join(
         f"{k['name']} (replaces {k['replaces']}) launches={k['launches']} "
@@ -599,8 +830,10 @@ def main() -> int:
     ))
     print("units: whole_board ms = one counted launch of 100 turns at 512^2; "
           "tiled ms = one 8-turn launch at 16384^2; batch_board ms = one counted "
-          "launch of 100 turns over 1000 x 128^2; library_ms null: no single "
-          "PyTorch call computes a life-like turn")
+          "launch of 100 turns over 1000 x 128^2 (CUDA events); byte_board ms = one "
+          "launch of 100 turns at 256^2; byte_tiled ms = one 8-turn launch at 512^2 "
+          "(the profiler's device time); library_ms "
+          "null: no single PyTorch call computes a life-like turn")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

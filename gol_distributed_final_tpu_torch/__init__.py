@@ -7,7 +7,13 @@ session, its typed event stream, PGM image IO, the 2-second alive-count
 ticker; reference: stubs/stubs.go, gol/event.go, gol/io.go) and the JAX
 package's bitboard layout word for word, and computes on the card through
 CUDA kernels written by hand (ops/whole_board.py, ops/batch_board.py,
-ops/tiled.py, with their sources in csrc/). It imports nothing of the JAX package.
+ops/tiled.py for the bitboard, ops/byte_board.py and ops/byte_tiled.py for
+the byte board, with their sources in csrc/). It imports nothing of the
+JAX package.
+
+The engine takes a step function on the byte board as the JAX engine does:
+``run(params, engine_config=EngineConfig(step_n_fn=ops.fused_step_n))``,
+or ``ops.pallas_step_n_fn(rule)``.
 
 Package layout:
     ops/       the data planes, the bitboard and byte steps, the kernels'

@@ -119,6 +119,14 @@ class EngineConfig:
     checkpoint_every: int = 0
     # called between chunks as chunk_hook(engine, state, turn)
     chunk_hook: Optional[Callable] = None
+    # optional override: a (board, n) -> board step on the uint8 {0,255}
+    # board, e.g. ops/fused.fused_step_n or ops/pallas_stencil
+    # .pallas_step_n_fn(rule); it gets the board as a tensor on the
+    # engine's device and must return one of the same device, dtype and
+    # shape
+    step_n_fn: Optional[Callable] = None
+    # optional override: a full data plane (ops/plane.py interface)
+    plane: Optional[object] = None
     # where the board lives: None is the CUDA card (raises without one);
     # "cpu" runs the kernels' plain torch versions
     device: object = None
@@ -161,15 +169,23 @@ class Engine:
 
     # -- compute ----------------------------------------------------------
 
-    def _choose_plane(self, world_shape, plane, emit_flips):
-        """Per-run plane selection: explicit plane > auto bitboard (not
-        with per-cell flips, which diff byte boards every turn) > byte
-        stencil."""
+    def _choose_plane(self, world_shape, step_n_fn, plane, emit_flips):
+        """Per-run plane selection, in the JAX engine's order: explicit
+        plane > explicit step function > config plane > config step
+        function > auto bitboard (not with per-cell flips, which diff byte
+        boards every turn) > byte stencil. A step function wins even with
+        per-cell flips."""
         from ..ops.plane import BytePlane
 
         rule = self.config.rule
         if plane is not None:
             return plane
+        if step_n_fn is not None:
+            return BytePlane(rule, self.device, step_n_fn)
+        if self.config.plane is not None:
+            return self.config.plane
+        if self.config.step_n_fn is not None:
+            return BytePlane(rule, self.device, self.config.step_n_fn)
         if not emit_flips:
             from ..ops.auto import auto_plane
 
@@ -193,6 +209,7 @@ class Engine:
         *,
         emit: Optional[Callable] = None,
         emit_flips: bool = False,
+        step_n_fn: Optional[Callable] = None,
         plane=None,
         initial_state=None,
     ) -> RunResult:
@@ -203,6 +220,10 @@ class Engine:
         With ``emit_flips`` every turn emits ``CellFlipped`` for each
         changed cell before ``TurnComplete`` (gol/event.go:50-60) —
         including the initial flips for cells alive in the loaded image.
+
+        ``step_n_fn`` steps the uint8 board for this run in place of the
+        data plane the engine would pick (``EngineConfig.step_n_fn`` sets
+        one for every run; ``_choose_plane`` says which wins).
 
         ``initial_state`` starts the run from a state already in
         ``plane``'s representation (``world`` None, ``plane`` explicit,
@@ -240,7 +261,9 @@ class Engine:
                 self._world_host = None
                 self._host_dirty = True
             else:
-                self._plane = self._choose_plane(world.shape, plane, emit_flips)
+                self._plane = self._choose_plane(
+                    world.shape, step_n_fn, plane, emit_flips
+                )
                 self._state = self._plane.encode(world)
                 self._world_host = world
                 self._host_dirty = False

@@ -1,5 +1,7 @@
-from .stencil import ALIVE, DEAD, neighbour_counts, step, step_n
-from .reduce import alive_count, alive_cells
+from .stencil import ALIVE, DEAD, neighbour_counts, step, step_n, step_n_batch
+from .reduce import alive_count, alive_count_batch, alive_cells
+from .fused import fused_step_n
+from .pallas_stencil import pallas_step_n_fn
 
 __all__ = [
     "ALIVE",
@@ -7,6 +9,10 @@ __all__ = [
     "neighbour_counts",
     "step",
     "step_n",
+    "step_n_batch",
     "alive_count",
+    "alive_count_batch",
     "alive_cells",
+    "fused_step_n",
+    "pallas_step_n_fn",
 ]

@@ -21,7 +21,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = ("whole_board", "tiled")
+SOURCES = ("whole_board", "tiled", "byte_board", "byte_tiled")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

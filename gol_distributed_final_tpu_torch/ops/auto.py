@@ -7,6 +7,9 @@
 * indivisible geometry -> None (the caller uses the roll stencil's
   byte plane, which handles every geometry).
 
+``auto_step_n_fn`` gives the same choice as an engine step function
+that packs and unpacks on every call.
+
 ``auto_batch_plane`` picks the batched plane of a session table the same
 way: the bitboard batch when an axis divides by 32, else the byte batch.
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..device import resolve_device
 from .bitpack import packed_shape
 from .fused import FusedBitPlane
 from .plane import BitPlane
@@ -45,6 +49,25 @@ def auto_plane(rule, shape: tuple[int, int], device):
     if fits(packed_shape(*shape, word_axis), device):
         return FusedBitPlane(rule, word_axis, device)
     return BitPlane(rule, word_axis, device)
+
+
+def auto_step_n_fn(rule, shape: tuple[int, int], device=None):
+    """An engine step function ``(board_uint8, n) -> board_uint8`` for this
+    rule and geometry, or None if only the roll stencil applies: the
+    bitboard kernels' (``pallas_bit_step_n_fn``) on the card, the torch
+    bitboard step (``packed_step_n_fn``) on the CPU, as the JAX package
+    picks its kernel on a TPU and XLA off one. It packs and unpacks on
+    every call; ``auto_plane`` keeps the board packed across chunks."""
+    word_axis = choose_word_axis(shape)
+    if word_axis is None:
+        return None
+    if resolve_device(device).type == "cuda":
+        from .pallas_stencil import pallas_bit_step_n_fn
+
+        return pallas_bit_step_n_fn(word_axis=word_axis, rule=rule, device=device)
+    from .bitpack import packed_step_n_fn
+
+    return packed_step_n_fn(word_axis, rule=rule, device=device)
 
 
 def auto_batch_plane(rule, shape: tuple[int, int], device):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..utils.cell import Cell
-from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
+from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK, as_board
 
 WORD = 32
 
@@ -336,3 +336,42 @@ def ops_per_word(birth_mask: int, survive_mask: int) -> int:
     planes = 3 if any(not _skips_p3(v) for v in values) else 2
     inputs = 1 + planes + (1 if dead_only or live_only else 0)
     return 2 + 2 + 4 + planes + inputs // 2  # inputs // 2 == ceil((inputs - 1) / 2)
+
+
+def byte_ops_per_cell(birth_mask: int, survive_mask: int) -> int:
+    """The int32 instructions one turn of a byte-per-cell board comes to
+    on a Hopper SM for one cell under this rule, the operation count of
+    the byte kernels' roofline bound (ops/byte_board.py,
+    ops/byte_tiled.py). A cell is one 0/1 value; loads and stores are not
+    arithmetic. Reading the rule on T, the 3x3 sum including the cell (a
+    dead cell is born iff bit T of the birth mask is set, a live one
+    survives iff bit T of ``survive_mask << 1`` is):
+
+    * 2 IADD3 for T, the sum being separable: one three-input add of a
+      column's (or row's) three cells, made once and shared by the three
+      windows that read it, and one of three such sums;
+    * 1 select of the mask by the cell, unless both masks are the same
+      in T;
+    * 1 SHF and 1 LOP3 for ``(mask >> T) & 1``.
+
+    Conway costs 5. A rule that neither births nor keeps a cell costs 0:
+    the next board is empty."""
+    if not birth_mask and not survive_mask:
+        return 0
+    select = 0 if birth_mask == survive_mask << 1 else 1
+    return 2 + select + 2
+
+
+def packed_step_n_fn(word_axis: int = 0, rule=None, *, device=None):
+    """An engine step function ``(board_uint8, n) -> board_uint8``: pack,
+    n turns of ``bit_step_n`` in torch ops, unpack, all on the board's
+    device (the JAX package leaves this form to XLA). A numpy board goes
+    to ``device``, the card unless the caller names another."""
+    birth = rule.birth_mask if rule else CONWAY_BIRTH_MASK
+    survive = rule.survive_mask if rule else CONWAY_SURVIVE_MASK
+
+    def step_n(board, n):
+        packed = pack(as_board(board, device), word_axis)
+        return unpack(bit_step_n(packed, int(n), word_axis, birth, survive), word_axis)
+
+    return step_n

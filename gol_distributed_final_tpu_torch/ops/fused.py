@@ -1,21 +1,188 @@
-"""The fused step+count plane: a chunk's turns and its alive reduction
-together, so the engine's 2-second ticker is served from the chunk's own
-counts with no reduction of its own.
+"""Fused stepping: K turns per kernel launch, and a chunk's turns with its
+alive reduction.
 
-Under the whole-board gate both come from ONE launch of the whole-board
-kernel (its ``counted`` form, the counterpart of the JAX package's
-``ops/fused.py::_fused_bit_counted_compiled``). Past the gate the board
-steps on the tiled kernel and the row popcounts are torch ops, as the
-JAX package leaves them to XLA there (``_counted_fallback``).
+**The fused-K ladder.** ``fused_step_n`` (byte boards),
+``fused_bit_step_n`` (bitboards) and ``fused_bit_step_n_batch`` (batches
+of bitboards) run n turns as ``full`` launches of K turns plus one launch
+per set bit of ``n % K`` (``_ladder``), K quantised to a power of two of
+at most ``FUSED_MAX_K`` (``quantise_k``), as the JAX package's
+``ops/fused.py`` does. Every ladder issues exactly ``full + len(rem_ks)``
+kernel launches of the sizes ``_ladder`` gives, and each wrapper call it
+makes is one launch (one plain call on the CPU). The kernels take n at run
+time, so the JAX package's compile-cache reason for the ladder is gone;
+the ladder stays so that the same call makes the same launches in both
+packages. Routing is by shape; nothing catches a failed launch:
+
+* ``fused_step_n``: the whole-board byte kernel under its gate
+  (ops/byte_board.py, K5), else the byte tiles where ``can_tile_byte``
+  holds (ops/byte_tiled.py, K6), else the roll stencil. K5's gate is the
+  port's own (two copies in one block's shared memory), so 512^2 takes
+  the byte tiles here where the JAX package takes K5;
+* ``fused_bit_step_n``: the whole-board kernel under its gate (K1), else
+  the tiled kernel with K turns per launch (K3/K4), which takes any shape;
+* ``fused_bit_step_n_batch``: the batched kernel under its per-universe
+  gate (K2), else the tiled kernel universe by universe.
+
+**The fused step+count plane.** Under the whole-board gate a chunk's turns
+and its alive counts come from ONE launch of the whole-board kernel (its
+``counted`` form, the counterpart of the JAX package's
+``_fused_bit_counted_compiled``). Past the gate the board steps on the
+tiled kernel and the row popcounts are torch ops, as the JAX package
+leaves them to XLA there (``_counted_fallback``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from . import whole_board
+from . import batch_board, byte_board, byte_tiled, tiled, whole_board
 from .bitpack import row_popcounts
+from .byte_tiled import can_tile as can_tile_byte
 from .plane import BitPlane
+from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK, as_board
+from .stencil import step_n as stencil_step_n
+
+#: the largest K of a ladder: the tiled bitboard kernel's halo depth
+#: (ops/tiled.py::MAX_TURNS), kept for every tier so one quantiser serves
+#: them all, as in the JAX package. A power of two.
+FUSED_MAX_K = 8
+FUSED_K_DEFAULT = 8
+
+
+def quantise_k(k: int) -> int:
+    """The largest power of two <= min(k, FUSED_MAX_K), and at least 1."""
+    k = max(1, min(int(k), FUSED_MAX_K))
+    return 1 << (k.bit_length() - 1)
+
+
+def _ladder(n: int, k: int) -> tuple[int, tuple[int, ...]]:
+    """``n`` turns as ``full`` launches of K plus a power-of-two remainder
+    ladder, one launch per set bit of ``n % k``."""
+    full, rem = divmod(n, k)
+    rem_ks = tuple(1 << b for b in range(k.bit_length()) if rem >> b & 1)
+    return full, rem_ks
+
+
+def _run_ladder(launch, state, n: int, k: int):
+    """``launch(state, turns)`` once per launch of the ladder of n, k."""
+    full, rem_ks = _ladder(n, k)
+    for turns in (k,) * full + rem_ks:
+        state = launch(state, turns)
+    return state
+
+
+def _resolve(rule, birth_mask, survive_mask) -> tuple[int, int]:
+    if rule is not None:
+        return rule.birth_mask, rule.survive_mask
+    return (
+        CONWAY_BIRTH_MASK if birth_mask is None else birth_mask,
+        CONWAY_SURVIVE_MASK if survive_mask is None else survive_mask,
+    )
+
+
+def fused_step_n(
+    board,
+    n: int,
+    *,
+    k: Optional[int] = None,
+    rule=None,
+    birth_mask: Optional[int] = None,
+    survive_mask: Optional[int] = None,
+    device=None,
+):
+    """n turns of a uint8 board, K turns per launch: the whole-board byte
+    kernel's ladder under its gate, the byte tiles' ladder where the shape
+    tiles, else the roll stencil. An engine step function ``(board, n) ->
+    board`` (``EngineConfig(step_n_fn=fused_step_n)``); equal to the
+    serial stencil. A numpy board goes to ``device``, the card unless the
+    caller names another; a tensor stays where it is."""
+    n = int(n)
+    board = as_board(board, device)
+    if n <= 0:
+        return board
+    birth, survive = _resolve(rule, birth_mask, survive_mask)
+    kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
+    shape = tuple(board.shape)
+    if byte_board.fits(shape, board.device):
+        return _run_ladder(
+            lambda b, t: byte_board.step_n(b, t, birth, survive), board, n, kq
+        )
+    if can_tile_byte(shape):
+        return _run_ladder(
+            lambda b, t: byte_tiled.step_n(b, t, birth, survive, turns_per_launch=t),
+            board, n, kq,
+        )
+    return stencil_step_n(board, n, birth_mask=birth, survive_mask=survive)
+
+
+def fused_bit_step_n(
+    packed,
+    n: int,
+    *,
+    k: Optional[int] = None,
+    word_axis: int = 0,
+    rule=None,
+    birth_mask: Optional[int] = None,
+    survive_mask: Optional[int] = None,
+    block_rows: Optional[int] = None,
+    block_cols: Optional[int] = None,
+):
+    """n turns of an int32 bitboard, K turns per launch: the whole-board
+    kernel's ladder under its gate, else the tiled kernel's. A block shape
+    (``block_rows`` / ``block_cols``) forces the tiled route, as in the
+    JAX package; the port's tile is fixed (ops/tiled.py::TILE), so the
+    values themselves are not read. Equal to ``bit_step_n``."""
+    n = int(n)
+    if n <= 0:
+        return packed
+    birth, survive = _resolve(rule, birth_mask, survive_mask)
+    kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
+    forced_tiles = block_rows is not None or block_cols is not None
+    if not forced_tiles and whole_board.fits(tuple(packed.shape), packed.device):
+        return _run_ladder(
+            lambda p, t: whole_board.step_n(p, t, word_axis, birth, survive),
+            packed, n, kq,
+        )
+    return _run_ladder(
+        lambda p, t: tiled.step_n(p, t, word_axis, birth, survive, turns_per_launch=t),
+        packed, n, kq,
+    )
+
+
+def fused_bit_step_n_batch(
+    packed,
+    n: int,
+    *,
+    k: Optional[int] = None,
+    word_axis: int = 0,
+    rule=None,
+    birth_mask: Optional[int] = None,
+    survive_mask: Optional[int] = None,
+):
+    """n turns of every universe of an int32 batch ``[B, rows, cols]``, K
+    turns per launch: the batched kernel's ladder under its per-universe
+    gate (one launch per rung for the whole batch), else the tiled
+    kernel's, universe by universe."""
+    n = int(n)
+    if n <= 0:
+        return packed
+    birth, survive = _resolve(rule, birth_mask, survive_mask)
+    kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
+    if batch_board.fits(tuple(packed.shape), packed.device):
+        return _run_ladder(
+            lambda p, t: batch_board.step_n(p, t, word_axis, birth, survive, counted=False),
+            packed, n, kq,
+        )
+
+    def tiled_each(p, t):
+        return torch.stack([
+            tiled.step_n(board, t, word_axis, birth, survive, turns_per_launch=t)
+            for board in p
+        ])
+
+    return _run_ladder(tiled_each, packed, n, kq)
 
 
 def fold_counts(counts) -> int:

@@ -49,21 +49,44 @@ def plane_steady_kind(plane, state):
 
 class BytePlane:
     """The identity representation: a uint8 {0,255} board on the device,
-    stepped by the roll stencil (ops/stencil.py)."""
+    stepped by the roll stencil (ops/stencil.py) or by a step function
+    ``(board, n) -> board`` (the engine's ``step_n_fn``, e.g.
+    ``ops/fused.fused_step_n``). The step function gets the board as a
+    tensor on the plane's device and must return one of the same device,
+    dtype and shape: anything else raises, so no step function can move
+    the board off the card unnoticed."""
 
-    def __init__(self, rule: LifeRule = CONWAY, device=None):
+    def __init__(self, rule: LifeRule = CONWAY, device=None, step_n_fn=None):
         self.rule = rule
         self.device = resolve_device(device)
+        self._step_n_fn = step_n_fn
 
     def encode(self, board) -> torch.Tensor:
         # a copy: the engine hands out read-only arrays
         return torch.from_numpy(np.array(board, np.uint8)).to(self.device)
 
     def step_n(self, state, n: int):
-        return stencil.step_n(
-            state, n,
-            birth_mask=self.rule.birth_mask, survive_mask=self.rule.survive_mask,
-        )
+        if self._step_n_fn is None:
+            return stencil.step_n(
+                state, n,
+                birth_mask=self.rule.birth_mask, survive_mask=self.rule.survive_mask,
+            )
+        out = self._step_n_fn(state, n)
+        if not (
+            isinstance(out, torch.Tensor)
+            and out.device == state.device
+            and out.dtype == state.dtype
+            and out.shape == state.shape
+        ):
+            got = (
+                f"{out.dtype} {tuple(out.shape)} on {out.device}"
+                if isinstance(out, torch.Tensor) else type(out).__name__
+            )
+            raise TypeError(
+                f"the step function returned {got}; the engine needs {state.dtype} "
+                f"{tuple(state.shape)} on {state.device}"
+            )
+        return out
 
     def decode(self, state) -> np.ndarray:
         return state.cpu().numpy()
@@ -73,6 +96,19 @@ class BytePlane:
 
     def alive_cells(self, state):
         return alive_cells(state)
+
+
+def route_bit_step_n(state, n: int, word_axis: int, birth_mask: int, survive_mask: int):
+    """n turns of an int32 bitboard, routed by shape: the whole-board
+    kernel under its shared-memory gate (ops/whole_board.py), the tiled
+    kernel past it (ops/tiled.py); n <= 0 returns ``state``."""
+    n = int(n)
+    if n <= 0:
+        return state
+    args = (state, n, word_axis, birth_mask, survive_mask)
+    if whole_board.fits(tuple(state.shape), state.device):
+        return whole_board.step_n(*args)
+    return tiled.step_n(*args)
 
 
 class BitPlane:
@@ -90,13 +126,9 @@ class BitPlane:
         return bitpack.pack(board, self.word_axis, self.device)
 
     def step_n(self, state, n: int):
-        n = int(n)
-        if n <= 0:
-            return state
-        args = (state, n, self.word_axis, self.rule.birth_mask, self.rule.survive_mask)
-        if whole_board.fits(tuple(state.shape), state.device):
-            return whole_board.step_n(*args)
-        return tiled.step_n(*args)
+        return route_bit_step_n(
+            state, n, self.word_axis, self.rule.birth_mask, self.rule.survive_mask
+        )
 
     def decode(self, state) -> np.ndarray:
         return bitpack.unpack(state, self.word_axis).cpu().numpy()

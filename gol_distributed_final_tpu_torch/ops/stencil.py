@@ -14,7 +14,10 @@ the neighbour count (bit ``n`` set => the transition applies at count
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..device import resolve_device
 
 ALIVE = 255
 DEAD = 0
@@ -26,6 +29,15 @@ CONWAY_SURVIVE_MASK = (1 << 2) | (1 << 3)
 _NEIGHBOUR_OFFSETS = tuple(
     (dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy, dx) != (0, 0)
 )
+
+
+def as_board(board, device=None) -> torch.Tensor:
+    """A board handed to a step function as a tensor: a tensor as it is,
+    anything else (a numpy array) copied as uint8 onto ``device``, the
+    CUDA card unless the caller names another."""
+    if isinstance(board, torch.Tensor):
+        return board
+    return torch.from_numpy(np.array(board, np.uint8)).to(resolve_device(device))
 
 
 def neighbour_counts(board: torch.Tensor) -> torch.Tensor:

@@ -142,3 +142,16 @@ def step_n(
             launches += 1
             src = dst
     return src
+
+
+def tiled_bit_step_n_fn(*, rule=None, word_axis=0):
+    """A ``(packed_int32, n) -> packed`` bitboard evolution for any size:
+    one tiled launch per turn, as the JAX package's function of this name
+    (``ops/pallas_tiled.py:397``) launches."""
+    birth = rule.birth_mask if rule else CONWAY_BIRTH_MASK
+    survive = rule.survive_mask if rule else CONWAY_SURVIVE_MASK
+
+    def step_n_fn(packed, n):
+        return step_n(packed, n, word_axis, birth, survive, turns_per_launch=1)
+
+    return step_n_fn

@@ -22,7 +22,9 @@ from gol_distributed_final_tpu_torch import Params, run
 from gol_distributed_final_tpu_torch.engine import Engine, EngineConfig
 from gol_distributed_final_tpu_torch.io.pgm import read_pgm
 from gol_distributed_final_tpu_torch.models import life
-from gol_distributed_final_tpu_torch.ops import batch_board, bitpack, tiled, whole_board
+from gol_distributed_final_tpu_torch.ops import (
+    batch_board, bitpack, byte_board, byte_tiled, fused, pallas_stencil, tiled, whole_board,
+)
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 RULES = (life.CONWAY, life.HIGHLIFE, life.SEEDS, life.DAY_AND_NIGHT)
@@ -192,3 +194,75 @@ def test_sessions_over_loopback_rpc_on_the_card(cuda_device, tmp_path):
             np.testing.assert_array_equal(results[i].world, want)
     finally:
         service.shutdown()
+
+
+def _bytes(shape, seed, device):
+    gen = np.random.default_rng(seed)
+    return torch.from_numpy(
+        np.where(gen.random(shape) < 0.35, 255, 0).astype(np.uint8)
+    ).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 16), (24, 33), (256, 256), (340, 340)])
+def test_byte_board_kernel_matches_plain(cuda_device, shape):
+    """K5: one launch a call, for 4 rules, up to the largest square under
+    its gate; any nonzero byte is alive."""
+    board = _bytes(shape, shape[1], cuda_device)
+    board[board == 255] = 7 + shape[0] % 200
+    before = byte_board.launches
+    for rule in RULES:
+        for n in (1, 7, 100):
+            got = byte_board.step_n(board, n, rule.birth_mask, rule.survive_mask)
+            want = byte_board.step_n_plain(board, n, rule.birth_mask, rule.survive_mask)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+    assert byte_board.launches == before + len(RULES) * 3
+
+
+@pytest.mark.cuda
+def test_byte_board_refuses_a_board_past_its_gate(cuda_device):
+    assert byte_board.fits((340, 340), cuda_device)
+    big = torch.zeros((512, 512), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="byte tiles"):
+        byte_board.step_n(big, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128), (512, 512), (45, 300), (5, 7), (1024, 4096)])
+def test_byte_tiled_kernel_matches_plain(cuda_device, shape):
+    """K6: launches of 1, 8 and 32 turns, on boards smaller than a window
+    and with ragged tiles too, against the plain version and the whole-torus
+    stencil."""
+    board = _bytes(shape, shape[0], cuda_device)
+    for rule in (RULES[0], RULES[3]):
+        args = (rule.birth_mask, rule.survive_mask)
+        for k in (1, 8, 32):
+            before = byte_tiled.launches
+            got = byte_tiled.step_n(board, k, *args, turns_per_launch=k)
+            want = byte_tiled.step_n_plain(board, k, *args, turns_per_launch=k)
+            torch.cuda.synchronize()
+            assert byte_tiled.launches == before + 1
+            assert torch.equal(got, want)
+            assert torch.equal(got, byte_board.step_n_plain(board, k, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [16, 64, 512])
+@pytest.mark.parametrize("step", ["fused_step_n", "pallas_step_n_fn"])
+def test_golden_session_through_a_step_function_on_the_card(cuda_device, size, step, tmp_path):
+    byte_board.reset_counts()
+    byte_tiled.reset_counts()
+    step_n_fn = fused.fused_step_n if step == "fused_step_n" else \
+        pallas_stencil.pallas_step_n_fn(life.CONWAY)
+    params = Params(turns=100, image_width=size, image_height=size)
+    run(params, images_dir=REPO_ROOT / "images", out_dir=tmp_path, tick_seconds=3600,
+        engine_config=EngineConfig(step_n_fn=step_n_fn))
+    name = f"{size}x{size}x100.pgm"
+    assert (tmp_path / name).read_bytes() == (REPO_ROOT / "check" / "images" / name).read_bytes()
+    assert byte_board.plain_calls == byte_tiled.plain_calls == 0
+    if size < 512:
+        assert byte_board.launches > 0 and byte_tiled.launches == 0
+    else:
+        assert byte_board.launches == 0
+        assert (byte_tiled.launches > 0) == (step == "fused_step_n")
