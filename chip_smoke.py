@@ -605,10 +605,10 @@ def main() -> int:
           f"sequential {B8 / seq_wall:.6g} sessions/s (wall {seq_wall:.4f} s) {card_tag}")
 
     # 12. the engine's step-function override: the nine golden sessions
-    # through pallas_step_n_fn (K5 under its gate, the roll stencil past
-    # it, as the JAX package does past its own) and through fused_step_n
-    # (K5's ladder under the gate, K6's past it), PGM bytes against
-    # check/images; then the 512^2 x 10000 session through fused_step_n
+    # through pallas_step_n_fn (K5 under its gate, K6 in launches of 32
+    # turns past it) and through fused_step_n (K5's ladder under the gate,
+    # K6's past it), PGM bytes against check/images; then the 512^2 x
+    # 10000 session through fused_step_n
     open_window()
     step_fns = {"pallas_step_n_fn": pallas_step_n_fn(CONWAY), "fused_step_n": fused_step_n}
     by_session = {}
@@ -629,14 +629,14 @@ def main() -> int:
     for (fn_name, size, turns), (k5, k6) in by_session.items():
         if turns and size < 512:
             check(k5 > 0 and k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
-        elif turns and fn_name == "fused_step_n":
+        elif turns:
             check(k6 > 0 and k5 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
         else:
             check(k5 == k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
     print("phase 12 step functions: {16,64,512}^2 x {0,1,100} PGMs through "
           "pallas_step_n_fn and fused_step_n equal check/images byte for byte "
           f"({byte_board.launches} whole-board byte launches at 16^2 and 64^2, "
-          f"{byte_tiled.launches} byte-tile launches at 512^2 through fused_step_n)")
+          f"{byte_tiled.launches} byte-tile launches at 512^2)")
     # a host-bound wall: collect the earlier phases' garbage first, so a
     # full collection of it does not land inside this session
     gc.collect()
@@ -707,13 +707,14 @@ def main() -> int:
           f"ms ({k2_by}), {k2_ms / k2_bound_ms:.3g}x the bound; plain {k2_plain_ms:.3f} "
           f"ms {card_tag}")
 
-    ops_cell = bitpack.byte_ops_per_cell(CONWAY.birth_mask, CONWAY.survive_mask)
-    print(f"bound: {ops_cell} int32 instructions per cell per turn on the byte board "
-          "(Conway, ops/bitpack.py::byte_ops_per_cell)")
+    print(f"bound: the byte board in its cheapest form, packed once, {opw}/32 int32 "
+          f"instructions per cell per turn, unpacked once ({2 * bitpack.PACK_OPS_PER_CELL} "
+          "per cell; Conway, ops/bitpack.py::byte_ops_per_cell)")
 
     def byte_bound(cells, turns):
         t_bytes = 2 * cells / HBM_BYTES_PER_S
-        t_ops = turns * cells * ops_cell / int32_rate
+        ops_cell = bitpack.byte_ops_per_cell(CONWAY.birth_mask, CONWAY.survive_mask, turns)
+        t_ops = cells * ops_cell / int32_rate
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
     # the byte kernels' ms is their device time from the profiler: at the

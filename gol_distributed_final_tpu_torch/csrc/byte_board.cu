@@ -18,11 +18,14 @@
 //
 // What bounds it. Device memory is touched twice per launch, 2 * H * W
 // bytes, so bytes never bound it past the first turns. The work is int32
-// arithmetic: ops/bitpack.py::byte_ops_per_cell counts 5 instructions per
-// cell per turn for Conway (two three-input adds for the 3x3 sum, a select
-// of the mask by the cell, a shift and an AND). One board is one block on
-// one of the card's 132 SMs, so the kernel reaches at most 1/132 of the
-// card's integer rate; each turn ends on a block-wide barrier.
+// arithmetic. The function's cheapest form packs the board once, steps the
+// bitboard at 12 instructions per 32 cells per turn for Conway and unpacks
+// it once (ops/bitpack.py::byte_ops_per_cell); this kernel's byte
+// arithmetic spends ~13x that per turn (two three-input adds for the 3x3
+// sum, a select of the mask by the cell, a shift and an AND per cell). One
+// board is one block on one of the card's 132 SMs, so the kernel reaches at
+// most 1/132 of the card's integer rate; each turn ends on a block-wide
+// barrier.
 //
 // The gate: both copies must fit the block's opt-in shared memory
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 B on an H100), so

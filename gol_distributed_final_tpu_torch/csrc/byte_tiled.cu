@@ -26,11 +26,14 @@
 // (byte_step.cuh) has no division, so one instantiation serves every k.
 //
 // What bounds it. Each launch reads and writes the board once, 2 * H * W
-// bytes, and the function needs k * H * W * 5 int32 instructions for Conway
-// (ops/bitpack.py::byte_ops_per_cell), so at k = 8 the integer rate binds,
-// not device memory. The kernel spends more: the halo ring it steps (at
-// k = 8 a 32 x 128 tile computes ~1.29x the interior's cell-turns), the
-// loads and stores around the arithmetic, and one barrier per turn.
+// bytes. The function's cheapest form packs the board once, steps the
+// bitboard at 12 int32 instructions per 32 cells per turn for Conway and
+// unpacks it once (ops/bitpack.py::byte_ops_per_cell): at k = 8 that is 5
+// instructions per cell, so device memory binds, not the integer rate. The
+// kernel spends far more: 5 instructions per cell per turn of byte
+// arithmetic, the halo ring it steps (at k = 8 a 32 x 128 tile computes
+// ~1.29x the interior's cell-turns), the loads and stores around the
+// arithmetic, and one barrier per turn.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -338,28 +338,26 @@ def ops_per_word(birth_mask: int, survive_mask: int) -> int:
     return 2 + 2 + 4 + planes + inputs // 2  # inputs // 2 == ceil((inputs - 1) / 2)
 
 
-def byte_ops_per_cell(birth_mask: int, survive_mask: int) -> int:
-    """The int32 instructions one turn of a byte-per-cell board comes to
-    on a Hopper SM for one cell under this rule, the operation count of
-    the byte kernels' roofline bound (ops/byte_board.py,
-    ops/byte_tiled.py). A cell is one 0/1 value; loads and stores are not
-    arithmetic. Reading the rule on T, the 3x3 sum including the cell (a
-    dead cell is born iff bit T of the birth mask is set, a live one
-    survives iff bit T of ``survive_mask << 1`` is):
+#: int32 instructions to pack one byte cell into a bitboard word, and as
+#: many to unpack it: a mask and a multiply gather a register's four bytes
+#: into four bits, and a shift and a merge place them in the word (the
+#: reverse likewise), four instructions per four cells each way
+PACK_OPS_PER_CELL = 1
 
-    * 2 IADD3 for T, the sum being separable: one three-input add of a
-      column's (or row's) three cells, made once and shared by the three
-      windows that read it, and one of three such sums;
-    * 1 select of the mask by the cell, unless both masks are the same
-      in T;
-    * 1 SHF and 1 LOP3 for ``(mask >> T) & 1``.
 
-    Conway costs 5. A rule that neither births nor keeps a cell costs 0:
-    the next board is empty."""
-    if not birth_mask and not survive_mask:
+def byte_ops_per_cell(birth_mask: int, survive_mask: int, turns: int) -> float:
+    """The int32 instructions per cell of ``turns`` turns of a byte board
+    that arrives and leaves as bytes, in the function's cheapest form on a
+    Hopper SM: pack it once, step the bitboard (``ops_per_word`` per 32
+    cells per turn), unpack it once. The operation count of the byte
+    kernels' roofline bound (ops/byte_board.py, ops/byte_tiled.py), however
+    those kernels compute: their byte arithmetic is not the cheapest form.
+    Conway at 100 turns costs 100 * 12 / 32 + 2 = 39.5. A rule that neither
+    births nor keeps a cell costs 0: the next board is empty."""
+    per_word = ops_per_word(birth_mask, survive_mask)
+    if not per_word:
         return 0
-    select = 0 if birth_mask == survive_mask << 1 else 1
-    return 2 + select + 2
+    return turns * per_word / WORD + 2 * PACK_OPS_PER_CELL
 
 
 def packed_step_n_fn(word_axis: int = 0, rule=None, *, device=None):

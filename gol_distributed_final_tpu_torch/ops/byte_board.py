@@ -13,9 +13,8 @@ fits and 512^2 does not (340^2 is the largest square). The JAX package's
 gate, ``fits_vmem(shape, 4)``, is a v5e working-set estimate that admits
 up to 419,430 cells, 512^2 and 640^2 among them. So a 512^2 byte board
 reaches K5 in the JAX package but not here: ``ops/fused.fused_step_n``
-sends it to the byte tiles (ops/byte_tiled.py) and
-``ops/pallas_stencil.pallas_step_n_fn`` to its fallback, the roll stencil.
-The boards are equal either way.
+and ``ops/pallas_stencil.pallas_step_n_fn`` send it to the byte tiles
+(ops/byte_tiled.py). The boards are equal either way.
 
 ``step_n`` takes the plain version (the roll stencil, ops/stencil.py)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or

@@ -8,12 +8,11 @@ halo strips there, whose strip depth (the uint8 Mosaic sublane tile) and
 full width are no part of the contract here. What bounds the kernel and how
 the design meets that is written at the top of the CUDA source.
 
-The plain version does the same window-and-interior arithmetic in torch:
-it gathers every tile's window with modulo indices, runs k roll-stencil
-turns on the batch of windows (the cyclic rolls only spoil the ring the
-shrinking cone discards) and keeps the interiors. ``step_n`` takes it only
-for a tensor on the CPU. For a CUDA tensor it launches the kernel or
-raises.
+The plain version does the same window-and-interior arithmetic in torch,
+with k roll-stencil turns on the batch of windows; the window gather and
+the launch loop are the bitboard tiles' (ops/_tiles.py). ``step_n`` takes
+the plain version only for a tensor on the CPU. For a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 from .stencil import step_n as stencil_step_n
 
@@ -69,34 +68,18 @@ def can_tile(shape: tuple[int, ...]) -> bool:
     )
 
 
-def _check_turns(k: int) -> None:
-    if not 1 <= k <= MAX_TURNS:
-        raise ValueError(f"byte tiles take 1..{MAX_TURNS} turns per launch (the halo "
-                         f"depth), got {k}")
-
-
-def _launch_sizes(n: int, turns_per_launch: int):
-    _check_turns(turns_per_launch)
-    full, rem = divmod(int(n), turns_per_launch)
-    return [turns_per_launch] * full + ([rem] if rem else [])
+def _launch_sizes(n: int, turns_per_launch: int) -> list[int]:
+    return _tiles.launch_sizes(n, turns_per_launch, MAX_TURNS, "a byte-tile launch")
 
 
 def launch_plain(board, k, birth_mask=CONWAY_BIRTH_MASK, survive_mask=CONWAY_SURVIVE_MASK):
     """What one kernel launch computes, in torch: k turns, tile by tile."""
-    _check_turns(k)
-    rows, cols = board.shape
-    tr, tc = TILE
-    grid_r, grid_c = -(-rows // tr), -(-cols // tc)
-    dev = board.device
-    ri = (torch.arange(grid_r, device=dev)[:, None] * tr - k
-          + torch.arange(tr + 2 * k, device=dev)[None, :]) % rows
-    ci = (torch.arange(grid_c, device=dev)[:, None] * tc - k
-          + torch.arange(tc + 2 * k, device=dev)[None, :]) % cols
-    windows = board[ri[:, None, :, None], ci[None, :, None, :]]
-    windows = stencil_step_n(windows, k, birth_mask=birth_mask, survive_mask=survive_mask)
-    interior = windows[..., k:k + tr, k:k + tc]
-    out = interior.permute(0, 2, 1, 3).reshape(grid_r * tr, grid_c * tc)
-    return out[:rows, :cols].contiguous()
+    _launch_sizes(k, k)  # a launch of k turns: 1..MAX_TURNS
+    return _tiles.launch_plain(
+        board, k, TILE,
+        lambda windows, k: stencil_step_n(windows, k, birth_mask=birth_mask,
+                                          survive_mask=survive_mask),
+    )
 
 
 def step_n_plain(board, n, birth_mask=CONWAY_BIRTH_MASK, survive_mask=CONWAY_SURVIVE_MASK,
@@ -119,7 +102,7 @@ def step_n(
     result holds 0 and 255) in ceil(n / k) launches of k =
     ``turns_per_launch`` turns (the last takes the rest). The input is
     never written."""
-    global launches, plain_calls
+    global plain_calls
     sizes = _launch_sizes(n, turns_per_launch)
     if board.device.type == "cpu":
         plain_calls += 1
@@ -137,20 +120,13 @@ def step_n(
                          f"{MAX_GRID_ROWS} rows of {TILE[0]}-row tiles")
     rows, cols = board.shape
     lib = _build.load("byte_tiled", _SIGNATURES)
-    # blocks run in no order, so each launch writes a second board; two
-    # scratch boards ping-pong and the caller's input is never written
-    src, scratch = board, [torch.empty_like(board)]
-    with torch.cuda.device(board.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for i, k in enumerate(sizes):
-            if i == 1:
-                scratch.append(torch.empty_like(board))
-            dst = scratch[i % 2]
-            err = lib.gol_byte_tiled_step(
-                src.data_ptr(), dst.data_ptr(), rows, cols, k,
-                birth_mask, survive_mask, stream,
-            )
-            _build.check(err, "byte-tile kernel launch")
-            launches += 1
-            src = dst
-    return src
+
+    def launch(src, dst, k, stream):
+        global launches
+        err = lib.gol_byte_tiled_step(
+            src.data_ptr(), dst.data_ptr(), rows, cols, k, birth_mask, survive_mask, stream,
+        )
+        _build.check(err, "byte-tile kernel launch")
+        launches += 1
+
+    return _tiles.ping_pong(board, sizes, launch)

@@ -14,12 +14,16 @@ the ladder stays so that the same call makes the same launches in both
 packages. Routing is by shape; nothing catches a failed launch:
 
 * ``fused_step_n``: the whole-board byte kernel under its gate
-  (ops/byte_board.py, K5), else the byte tiles where ``can_tile_byte``
-  holds (ops/byte_tiled.py, K6), else the roll stencil. K5's gate is the
-  port's own (two copies in one block's shared memory), so 512^2 takes
-  the byte tiles here where the JAX package takes K5;
+  (ops/byte_board.py, K5), else the byte tiles (ops/byte_tiled.py, K6).
+  K5's gate is the port's own (two copies in one block's shared memory),
+  so 512^2 takes the byte tiles here where the JAX package takes K5. A
+  CPU board the tiles cannot take (``can_tile_byte``) gets the roll
+  stencil, as the JAX package's does; on the card the byte tiles refuse
+  it, so nothing there runs in torch ops;
 * ``fused_bit_step_n``: the whole-board kernel under its gate (K1), else
-  the tiled kernel with K turns per launch (K3/K4), which takes any shape;
+  the tiled kernel with K turns per launch (K3/K4), which takes any shape.
+  The tiled kernel's tile is fixed (ops/tiled.py::TILE), so where the JAX
+  package takes a block shape the port takes ``force_tiles``;
 * ``fused_bit_step_n_batch``: the batched kernel under its per-universe
   gate (K2), else the tiled kernel universe by universe.
 
@@ -93,11 +97,11 @@ def fused_step_n(
     device=None,
 ):
     """n turns of a uint8 board, K turns per launch: the whole-board byte
-    kernel's ladder under its gate, the byte tiles' ladder where the shape
-    tiles, else the roll stencil. An engine step function ``(board, n) ->
-    board`` (``EngineConfig(step_n_fn=fused_step_n)``); equal to the
-    serial stencil. A numpy board goes to ``device``, the card unless the
-    caller names another; a tensor stays where it is."""
+    kernel's ladder under its gate, else the byte tiles' ladder (a CPU
+    board they cannot take gets the roll stencil). An engine step function
+    ``(board, n) -> board`` (``EngineConfig(step_n_fn=fused_step_n)``);
+    equal to the serial stencil. A numpy board goes to ``device``, the card
+    unless the caller names another; a tensor stays where it is."""
     n = int(n)
     board = as_board(board, device)
     if n <= 0:
@@ -109,7 +113,8 @@ def fused_step_n(
         return _run_ladder(
             lambda b, t: byte_board.step_n(b, t, birth, survive), board, n, kq
         )
-    if can_tile_byte(shape):
+    # on the card a board the tiles cannot take raises in byte_tiled.step_n
+    if can_tile_byte(shape) or board.device.type != "cpu":
         return _run_ladder(
             lambda b, t: byte_tiled.step_n(b, t, birth, survive, turns_per_launch=t),
             board, n, kq,
@@ -126,21 +131,17 @@ def fused_bit_step_n(
     rule=None,
     birth_mask: Optional[int] = None,
     survive_mask: Optional[int] = None,
-    block_rows: Optional[int] = None,
-    block_cols: Optional[int] = None,
+    force_tiles: bool = False,
 ):
     """n turns of an int32 bitboard, K turns per launch: the whole-board
-    kernel's ladder under its gate, else the tiled kernel's. A block shape
-    (``block_rows`` / ``block_cols``) forces the tiled route, as in the
-    JAX package; the port's tile is fixed (ops/tiled.py::TILE), so the
-    values themselves are not read. Equal to ``bit_step_n``."""
+    kernel's ladder under its gate, else (or with ``force_tiles``) the
+    tiled kernel's. Equal to ``bit_step_n``."""
     n = int(n)
     if n <= 0:
         return packed
     birth, survive = _resolve(rule, birth_mask, survive_mask)
     kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
-    forced_tiles = block_rows is not None or block_cols is not None
-    if not forced_tiles and whole_board.fits(tuple(packed.shape), packed.device):
+    if not force_tiles and whole_board.fits(tuple(packed.shape), packed.device):
         return _run_ladder(
             lambda p, t: whole_board.step_n(p, t, word_axis, birth, survive),
             packed, n, kq,

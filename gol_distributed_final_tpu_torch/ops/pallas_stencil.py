@@ -7,31 +7,32 @@ kernel (K5, ops/byte_board.py) and the bitboard kernels
 
 K5's gate is the port's own: a byte board runs on it while its two copies
 fit one block's shared memory (2 * H * W <= 232,448 B on an H100, so up to
-340^2). The JAX package's gate admits up to 419,430 cells. So a 512^2 byte
-board runs on K5 there and on ``fallback`` here (the roll stencil unless
-the caller gives another), as the JAX package does for any board past its
-own gate. The boards are equal either way.
+340^2). The JAX package's gate admits up to 419,430 cells, and past it the
+JAX package hands a board to the rule's roll stencil. So a 512^2 byte
+board runs on K5 there and, unless the caller gives a ``fallback``, on the
+byte tiles here (K6, ops/byte_tiled.py, 32 turns per launch): on the card
+no default route runs torch ops. The boards are equal either way.
 """
 
 from __future__ import annotations
 
-from . import bitpack, byte_board
+from . import bitpack, byte_board, byte_tiled
 from .plane import route_bit_step_n
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK, as_board
-from .stencil import step_n as stencil_step_n
 
 
 def pallas_step_n_fn(rule=None, *, fallback=None, device=None):
     """An engine step function ``(board, n) -> board`` running n turns of
     ``rule`` (Conway by default) in one launch of the whole-board byte
-    kernel; a board past its gate goes to ``fallback`` (default: the roll
-    stencil). A numpy board goes to ``device``, the card unless the caller
-    names another; a tensor stays where it is."""
+    kernel; a board past its gate goes to ``fallback``, by default the
+    byte tiles in ceil(n / 32) launches. A numpy board goes to ``device``,
+    the card unless the caller names another; a tensor stays where it
+    is."""
     birth = rule.birth_mask if rule else CONWAY_BIRTH_MASK
     survive = rule.survive_mask if rule else CONWAY_SURVIVE_MASK
     if fallback is None:
         def fallback(board, n):
-            return stencil_step_n(board, n, birth_mask=birth, survive_mask=survive)
+            return byte_tiled.step_n(board, n, birth, survive)
 
     def step_n(board, n):
         n = int(n)

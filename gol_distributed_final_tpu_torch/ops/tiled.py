@@ -9,11 +9,11 @@ It replaces both tiled Pallas kernels of the JAX package,
 contract here. What bounds the kernel and how the design meets that is
 written at the top of the CUDA source.
 
-The plain version does the same window-and-interior arithmetic in torch:
-it gathers every tile's window with modulo indices, runs k ``bit_step``s
-on the batch of windows (the cyclic rolls only spoil the ring the cone
-discards) and keeps the interiors. ``step_n`` takes it only for a tensor
-on the CPU. For a CUDA tensor it launches the kernel or raises.
+The plain version does the same window-and-interior arithmetic in torch,
+with k ``bit_step``s on the batch of windows; the window gather and the
+launch loop are shared with the byte tiles (ops/_tiles.py). ``step_n``
+takes the plain version only for a tensor on the CPU. For a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .bitpack import bit_step_n, rule_masks
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
@@ -57,32 +57,17 @@ def reset_counts() -> None:
     launches = plain_calls = 0
 
 
-def _launch_sizes(n: int, turns_per_launch: int):
-    if not 1 <= turns_per_launch <= MAX_TURNS:
-        raise ValueError(
-            f"a tiled launch takes 1..{MAX_TURNS} turns (the halo depth), "
-            f"got {turns_per_launch}"
-        )
-    full, rem = divmod(int(n), turns_per_launch)
-    return [turns_per_launch] * full + ([rem] if rem else [])
+def _launch_sizes(n: int, turns_per_launch: int) -> list[int]:
+    return _tiles.launch_sizes(n, turns_per_launch, MAX_TURNS, "a tiled launch")
 
 
 def launch_plain(packed, k, word_axis=0, birth_mask=CONWAY_BIRTH_MASK,
                  survive_mask=CONWAY_SURVIVE_MASK):
     """What one kernel launch computes, in torch: k turns, tile by tile."""
-    rows, cols = packed.shape
-    tr, tc = TILE
-    grid_r, grid_c = -(-rows // tr), -(-cols // tc)
-    dev = packed.device
-    ri = (torch.arange(grid_r, device=dev)[:, None] * tr - k
-          + torch.arange(tr + 2 * k, device=dev)[None, :]) % rows
-    ci = (torch.arange(grid_c, device=dev)[:, None] * tc - k
-          + torch.arange(tc + 2 * k, device=dev)[None, :]) % cols
-    windows = packed[ri[:, None, :, None], ci[None, :, None, :]]
-    windows = bit_step_n(windows, k, word_axis, birth_mask, survive_mask)
-    interior = windows[..., k:k + tr, k:k + tc]
-    out = interior.permute(0, 2, 1, 3).reshape(grid_r * tr, grid_c * tc)
-    return out[:rows, :cols].contiguous()
+    return _tiles.launch_plain(
+        packed, k, TILE,
+        lambda windows, k: bit_step_n(windows, k, word_axis, birth_mask, survive_mask),
+    )
 
 
 def step_n_plain(packed, n, word_axis=0, birth_mask=CONWAY_BIRTH_MASK,
@@ -105,7 +90,7 @@ def step_n(
     """n turns of an int32 bitboard ``[rows, cols]`` in ceil(n / k)
     launches of k = ``turns_per_launch`` turns (the last takes the rest).
     The input is never written."""
-    global launches, plain_calls
+    global plain_calls
     sizes = _launch_sizes(n, turns_per_launch)
     if packed.device.type == "cpu":
         plain_calls += 1
@@ -125,23 +110,17 @@ def step_n(
     rows, cols = packed.shape
     common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
     lib = _build.load("tiled", _SIGNATURES)
-    # blocks run in no order, so each launch writes a second board; two
-    # scratch boards ping-pong and the caller's input is never written
-    src, scratch = packed, [torch.empty_like(packed)]
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for i, k in enumerate(sizes):
-            if i == 1:
-                scratch.append(torch.empty_like(packed))
-            dst = scratch[i % 2]
-            err = lib.gol_tiled_step(
-                src.data_ptr(), dst.data_ptr(), rows, cols, word_axis, k,
-                common, dead_only, live_only, stream,
-            )
-            _build.check(err, "tiled kernel launch")
-            launches += 1
-            src = dst
-    return src
+
+    def launch(src, dst, k, stream):
+        global launches
+        err = lib.gol_tiled_step(
+            src.data_ptr(), dst.data_ptr(), rows, cols, word_axis, k,
+            common, dead_only, live_only, stream,
+        )
+        _build.check(err, "tiled kernel launch")
+        launches += 1
+
+    return _tiles.ping_pong(packed, sizes, launch)
 
 
 def tiled_bit_step_n_fn(*, rule=None, word_axis=0):

@@ -183,11 +183,17 @@ def test_byte_wrappers_refuse_other_devices():
 # -- the bound's operation count ----------------------------------------------
 
 
-@pytest.mark.parametrize("rulestring,ops", [
-    ("B3/S23", 5), ("B36/S23", 5), ("B2/S", 5), ("B3678/S34678", 5),
-    ("B3/S2", 4),  # the same T set dead or alive: no select
+@pytest.mark.parametrize("rulestring,per_word", [
+    ("B3/S23", 12), ("B36/S23", 12), ("B2/S", 12), ("B3678/S34678", 13),
+    ("B3/S2", 11),  # the same T set dead or alive: a smaller select
     ("B/S", 0),  # the next board is empty
 ])
-def test_byte_ops_per_cell(rulestring, ops):
+def test_byte_ops_per_cell(rulestring, per_word):
+    """The bitboard form's count per cell: per_word / 32 a turn, plus one
+    pack and one unpack a launch."""
     rule = tlife.LifeRule.from_rulestring(rulestring)
-    assert bitpack.byte_ops_per_cell(rule.birth_mask, rule.survive_mask) == ops
+    assert bitpack.ops_per_word(rule.birth_mask, rule.survive_mask) == per_word
+    for turns, want in ((1, per_word / 32 + 2), (8, per_word / 4 + 2),
+                        (100, per_word * 3.125 + 2)):
+        got = bitpack.byte_ops_per_cell(rule.birth_mask, rule.survive_mask, turns)
+        assert got == (want if per_word else 0), turns

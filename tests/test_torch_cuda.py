@@ -264,5 +264,123 @@ def test_golden_session_through_a_step_function_on_the_card(cuda_device, size, s
     if size < 512:
         assert byte_board.launches > 0 and byte_tiled.launches == 0
     else:
-        assert byte_board.launches == 0
-        assert (byte_tiled.launches > 0) == (step == "fused_step_n")
+        assert byte_board.launches == 0 and byte_tiled.launches > 0
+
+
+# -- the ladders and step functions on the card: each launch of a rung is
+# -- one kernel launch, and no plain version runs
+
+
+COUNTED = (whole_board, tiled, batch_board, byte_board, byte_tiled)
+
+
+def _launches():
+    return {m.__name__.rsplit(".", 1)[1]: (m.launches, m.plain_calls) for m in COUNTED}
+
+
+def _delta(before):
+    """The kernels launched since ``before``; no plain call may appear."""
+    out = {}
+    for name, (launched, plain) in _launches().items():
+        assert plain == before[name][1], f"{name} ran its plain version on the card"
+        if launched != before[name][0]:
+            out[name] = launched - before[name][0]
+    return out
+
+
+def _rungs(n, k):
+    full, rem_ks = fused._ladder(n, k)
+    return full + len(rem_ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,word_axis,force_tiles", [
+    (512, 0, False), (512, 1, False), (512, 0, True), (1024, 0, False),
+])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_fused_bit_step_n_ladder_on_the_card(cuda_device, size, word_axis, force_tiles, k):
+    """K1's ladder under its gate, the tiled kernel's past it (1024^2) or
+    when forced: one launch per rung, equal to the plain turn."""
+    packed = _words(bitpack.packed_shape(size, size, word_axis), size + k, cuda_device)
+    rule = life.HIGHLIFE
+    before = _launches()
+    got = fused.fused_bit_step_n(packed, 13, k=k, word_axis=word_axis, rule=rule,
+                                 force_tiles=force_tiles)
+    torch.cuda.synchronize()
+    kernel = "tiled" if force_tiles or size == 1024 else "whole_board"
+    assert _delta(before) == {kernel: _rungs(13, k)}
+    assert torch.equal(got, bitpack.bit_step_n(packed, 13, word_axis,
+                                               rule.birth_mask, rule.survive_mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,k", [(128, 8), (128, 2), (1024, 4)])
+def test_fused_bit_step_n_batch_ladder_on_the_card(cuda_device, size, k):
+    """K2's ladder for the whole batch under its gate (one launch per
+    rung), the tiled kernel's universe by universe past it."""
+    batch = 3
+    packed = _words((batch,) + bitpack.packed_shape(size, size, 0), size + k, cuda_device)
+    before = _launches()
+    got = fused.fused_bit_step_n_batch(packed, 13, k=k)
+    torch.cuda.synchronize()
+    want = {"batch_board": _rungs(13, k)} if size == 128 else {"tiled": batch * _rungs(13, k)}
+    assert _delta(before) == want
+    assert torch.equal(got, bitpack.bit_step_n_batch(packed, 13))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((64, 64), 8), ((24, 33), 2), ((512, 512), 8),
+                                     ((512, 512), 4)])
+def test_fused_step_n_ladder_on_the_card(cuda_device, shape, k):
+    """K5's ladder under its gate, K6's past it: one launch per rung."""
+    board = _bytes(shape, shape[0] + k, cuda_device)
+    rule = life.DAY_AND_NIGHT
+    before = _launches()
+    got = fused.fused_step_n(board, 13, k=k, rule=rule)
+    torch.cuda.synchronize()
+    kernel = "byte_tiled" if shape == (512, 512) else "byte_board"
+    assert _delta(before) == {kernel: _rungs(13, k)}
+    assert torch.equal(got, byte_board.step_n_plain(board, 13, rule.birth_mask,
+                                                    rule.survive_mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (512, 512)])
+def test_pallas_step_n_fn_on_the_card(cuda_device, shape):
+    """One K5 launch under its gate; past it the byte tiles, 32 turns a
+    launch, never the roll stencil."""
+    board = _bytes(shape, 5, cuda_device)
+    before = _launches()
+    got = pallas_stencil.pallas_step_n_fn(life.SEEDS)(board, 40)
+    torch.cuda.synchronize()
+    assert _delta(before) == ({"byte_board": 1} if shape == (64, 64) else {"byte_tiled": 2})
+    seeds = (life.SEEDS.birth_mask, life.SEEDS.survive_mask)
+    assert torch.equal(got, byte_board.step_n_plain(board, 40, *seeds))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(64, 64), (40, 64), (1024, 1024)])
+def test_bit_step_functions_on_the_card(cuda_device, h, w):
+    """pallas_bit_step_n_fn and auto_step_n_fn pack, launch (K1 once, or
+    the tiled kernel past its gate, 8 turns a launch) and unpack;
+    tiled_bit_step_n_fn launches the tiled kernel once per turn."""
+    from gol_distributed_final_tpu_torch.ops import auto
+
+    board = _bytes((h, w), h, cuda_device)
+    rule = life.HIGHLIFE
+    want = byte_board.step_n_plain(board, 9, rule.birth_mask, rule.survive_mask)
+    word_axis = 0 if h % 32 == 0 else 1
+    launched = {"tiled": 2} if h == 1024 else {"whole_board": 1}
+    for fn in (pallas_stencil.pallas_bit_step_n_fn(word_axis=word_axis, rule=rule),
+               auto.auto_step_n_fn(rule, (h, w))):
+        before = _launches()
+        got = fn(board, 9)
+        torch.cuda.synchronize()
+        assert _delta(before) == launched
+        assert torch.equal(got, want)
+    packed = bitpack.pack(board, word_axis)
+    before = _launches()
+    got = tiled.tiled_bit_step_n_fn(rule=rule, word_axis=word_axis)(packed, 9)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"tiled": 9}
+    assert torch.equal(bitpack.unpack(got, word_axis), want)

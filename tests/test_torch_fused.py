@@ -126,6 +126,14 @@ def test_fused_step_n_past_the_tiles_takes_the_roll_stencil():
     )
 
 
+def test_fused_step_n_off_the_cpu_never_takes_the_roll_stencil():
+    """Off the CPU a board the tiles cannot take goes to the byte tiles all
+    the same, which refuse it: no torch stand-in runs on a device."""
+    board = torch.zeros((65_535 * 32 + 32, 1), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no byte-tile kernel"):
+        fused.fused_step_n(board, 2)
+
+
 # -- the bitboard ladders -----------------------------------------------------
 
 
@@ -152,7 +160,9 @@ def test_fused_bit_step_n_forced_tiles_match_jax(blocks, k):
     packed = np.asarray(jbit.pack(_board(512, 256, seed=k), 0))  # (16, 256)
     want = np.asarray(jfused.fused_bit_step_n(packed, 13, k=k, interpret=True, **blocks))
     before = _plain_calls()
-    got = fused.fused_bit_step_n(bitpack.state_from_numpy(packed, "cpu"), 13, k=k, **blocks)
+    # the port's tile is fixed: it takes force_tiles where JAX takes a block shape
+    got = fused.fused_bit_step_n(bitpack.state_from_numpy(packed, "cpu"), 13, k=k,
+                                 force_tiles=True)
     np.testing.assert_array_equal(got.numpy(), want)
     assert _delta(before) == {"tiled": _launches(13, k)}
 
@@ -201,8 +211,9 @@ def test_pallas_step_n_fn_matches_jax(shape, rule):
     before = _plain_calls()
     got = pallas_stencil.pallas_step_n_fn(trule)(torch.from_numpy(board), 5)
     np.testing.assert_array_equal(got.numpy(), want)
-    # one K5 launch for all n under the gate; 512^2 is past it: the stencil
-    assert _delta(before) == ({} if shape == (512, 512) else {"byte_board": 1})
+    # one K5 launch for all n under the gate; 512^2 is past it: one launch
+    # of the byte tiles, where the JAX package takes its roll stencil
+    assert _delta(before) == ({"byte_tiled": 1} if shape == (512, 512) else {"byte_board": 1})
 
 
 def test_pallas_step_n_fn_hands_boards_past_its_gate_to_the_fallback():
@@ -409,10 +420,9 @@ def test_golden_sessions_through_a_step_function(size, turns, step, tmp_path):
     name = f"{size}x{size}x{turns}.pgm"
     assert (tmp_path / name).read_bytes() == (REPO_ROOT / "check" / "images" / name).read_bytes()
     assert _drain(events)[-1].completed_turns == turns
-    # K5 under its gate; past it K6 (fused_step_n) or the roll stencil
-    kernel = {16: "byte_board", 64: "byte_board",
-              512: "byte_tiled" if step == "fused_step_n" else None}[size]
-    assert set(_delta(before)) == ({kernel} if turns and kernel else set())
+    # K5 under its gate, K6 past it
+    kernel = {16: "byte_board", 64: "byte_board", 512: "byte_tiled"}[size]
+    assert set(_delta(before)) == ({kernel} if turns else set())
 
 
 def test_per_turn_counts_through_fused_step_n_match_golden_csv():
