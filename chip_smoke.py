@@ -13,10 +13,19 @@ bench shape, 1000 x 128^2 x 100 turns, through ``SessionTable``), checks
 the results against the repository's golden fixtures and sequential
 references, drives the engine's step-function override (the nine golden
 sessions through ``pallas_step_n_fn`` and through ``fused_step_n``, which
-run the byte kernels), and times the kernels with CUDA events. Any failed check
+run the byte kernels), and times the kernels with CUDA events. The bitboard
+kernels compile the four named rules in; the parity phases also run a rule
+outside them (B36/S125) and check, by the kernels' names in the profiler's
+trace, that it ran the run-time-rule instantiation. Any failed check
 raises, so the exit code is non-zero and the closing JSON line is never
 printed. Without a CUDA device, or without the package beside it, it
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --kernel-times [TREE]
+
+times only K1, K2 and the tiled kernel of the port in the checkout TREE
+(default: this one) and prints one JSON line, so that two trees can be
+compared in turns within one call on one card.
 
 Game of Life is integer-exact: every comparison is equality (tolerance 0).
 """
@@ -84,21 +93,171 @@ def device_ms(fn, kernel: str, reps: int) -> tuple[float, int]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, traced = 0.0, 0
-    for ev in prof.key_averages():
-        if re.search(rf"::{kernel}[<(]", ev.key):
-            total_us += getattr(ev, "device_time_total", 0) or ev.cuda_time_total
-            traced += ev.count
-    check(traced > 0 and total_us > 0, f"the profiler saw no launch of {kernel}")
-    return total_us / traced / 1e3, traced
+    # a trace can come back without the card's activity (seen once on the
+    # H100 in a run whose other traces held theirs): take a fresh one then
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, traced = 0.0, 0
+        for ev in prof.key_averages():
+            if re.search(rf"::{kernel}[<(]", ev.key):
+                total_us += getattr(ev, "device_time_total", 0) or ev.cuda_time_total
+                traced += ev.count
+        if traced > 0 and total_us > 0:
+            if attempt:
+                print(f"  device_ms: the trace of {kernel} held its launches at attempt "
+                      f"{attempt + 1}")
+            return total_us / traced / 1e3, traced
+    raise RuntimeError(f"check failed: the profiler saw no launch of {kernel} in 3 traces")
 
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel instantiation's short name from its mangled one, e.g.
+    ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
+    kernel = re.search(r"(whole_board|tiled|byte_board|byte_tiled)_kernel", mangled)
+    name = kernel.group(1) if kernel else mangled[:40]
+    args = re.findall(r"Li(\d+)E", mangled)
+    rule = re.search(r"StaticRuleILj(\d+)ELj(\d+)ELj(\d+)E", mangled)
+    if rule:
+        args.append(f"StaticRule<{', '.join(rule.groups())}>")
+    elif "DynamicRule" in mangled:
+        args.append("DynamicRule")
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_summary(reports: dict) -> list[str]:
+    """One line per instantiation of the bitboard kernels' rules (the tiled
+    kernel's K = 1..8 folded into a register range) and per byte kernel:
+    registers and spill bytes from nvcc's ``-Xptxas -v`` report."""
+    rows = {}
+    for source, report in sorted(reports.items()):
+        name = None
+        for line in report.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                name = m.group(1)
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if name and (spill or regs):
+                key = re.sub(r"^tiled<(\d), \d, ", r"tiled<\1, K, ", kernel_label(name))
+                entry = rows.setdefault(key, {"regs": [], "spill": 0, "n": set()})
+                entry["n"].add(name)
+                if regs:
+                    entry["regs"].append(int(regs.group(1)))
+                if spill:
+                    entry["spill"] = max(entry["spill"], int(spill.group(1)) + int(spill.group(2)))
+    return [f"{key}: {len(e['n'])} instantiation(s), {min(e['regs'])}-{max(e['regs'])} "
+            f"registers, {e['spill']} spill bytes" for key, e in sorted(rows.items())]
+
+
+def sass_loop(library, want: tuple[str, ...]) -> str:
+    """The innermost loop that stores the most words in the kernel whose
+    mangled name holds every string of ``want``, from ``cuobjdump -sass``:
+    its instructions per stored word (one STS per output word), or why it
+    could not be read."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or (
+        "/usr/local/cuda/bin/cuobjdump" if os.path.exists("/usr/local/cuda/bin/cuobjdump")
+        else None)
+    if tool is None:
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    body = None
+    for chunk in sass.split("Function : ")[1:]:
+        if all(w in chunk.split("\n", 1)[0] for w in want):
+            body = chunk
+    if body is None:
+        return "kernel not found"
+    instrs, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            instrs.append((addr, m.group(2)))
+    spans = []
+    for addr, text in instrs:
+        b = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+        if b:
+            target = labels.get(b.group(1)) if b.group(1) else int(b.group(2), 16)
+            if target is not None and target <= addr:
+                spans.append((target, addr))
+    loops = []
+    for lo, hi in spans:
+        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in spans):
+            continue  # not innermost
+        ops = [t for a, t in instrs if lo <= a <= hi]
+        stores = sum(1 for t in ops if re.search(r"\bSTS\b", t))
+        if stores and any(re.search(r"\bLDS\b", t) for t in ops):  # not a copy loop
+            loops.append((-stores, len(ops), ops))
+    if not loops:
+        return "no loop found"
+    stores, n, ops = min(loops)
+    count = dict.fromkeys(("LOP3", "SHF", "LDS", "STS", "other"), 0)
+    for text in ops:
+        parts = text.split()
+        op = (parts[1] if parts[0].startswith("@") else parts[0]).split(".")[0]
+        count[op if op in count else "other"] += 1
+    return (f"{n} instructions for {-stores} words, {n / -stores:.2f} per word ("
+            + ", ".join(f"{k} {v}" for k, v in count.items()) + ")")
+
+
+def kernel_times(tree: str) -> int:
+    """Time K1, K2 and the tiled kernel of the port in ``tree`` (a checkout's
+    root) at the smoke's shapes, and print them as one JSON line: the
+    parent-and-change comparison, run in turns within one call."""
+    sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from gol_distributed_final_tpu_torch.ops import batch_board, tiled, whole_board
+
+    check(pathlib.Path(whole_board.__file__).is_relative_to(pathlib.Path(tree).resolve()),
+          f"the port imported from {tree}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def words(shape):
+        return torch.from_numpy(
+            rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+        ).to(dev)
+
+    p512, b1000, b256 = words((16, 512)), words((1000, 4, 128)), words((256, 4, 128))
+    t16k, t4k = words((512, 16384)), words((128, 4096))
+    times = {
+        "k1_512_n100": cuda_ms(lambda: whole_board.step_n(p512, 100, counted=True), reps=50),
+        "k2_1000x128_n100": cuda_ms(lambda: batch_board.step_n(b1000, 100), reps=20),
+        "k2_256x128_n64": cuda_ms(lambda: batch_board.step_n(b256, 64), reps=50),
+        "tiled_16384_k8": cuda_ms(lambda: tiled.step_n(t16k, tiled.MAX_TURNS), reps=10),
+        "tiled_4096_k8": cuda_ms(lambda: tiled.step_n(t4k, tiled.MAX_TURNS), reps=50),
+    }
+    device = {
+        "k2_256x128_n64": device_ms(lambda: batch_board.step_n(b256, 64),
+                                    "whole_board_kernel", reps=20)[0],
+        "tiled_4096_k8": device_ms(lambda: tiled.step_n(t4k, tiled.MAX_TURNS),
+                                   "tiled_kernel", reps=20)[0],
+    }
+    print(json.dumps({"tree": tree, "card": nvidia_smi("name,power.limit"), "ms": times,
+                      "device_ms": device}))
+    return 0
 
 
 def main() -> int:
@@ -117,7 +276,7 @@ def main() -> int:
     from gol_distributed_final_tpu_torch.engine.controller import CLOSED
     from gol_distributed_final_tpu_torch.io.pgm import read_pgm
     from gol_distributed_final_tpu_torch.models import (
-        CONWAY, DAY_AND_NIGHT, HIGHLIFE, SEEDS,
+        CONWAY, DAY_AND_NIGHT, HIGHLIFE, SEEDS, LifeRule,
     )
     from gol_distributed_final_tpu_torch.__main__ import main as controller_main
     from gol_distributed_final_tpu_torch.engine.sessions import SessionTable
@@ -153,12 +312,14 @@ def main() -> int:
     reports = _build.build()
     print(f"phase 2 build: {len(reports)} sources compiled in "
           f"{time.monotonic() - t0:.2f} s into {_build.BUILD_DIR}")
-    for name, report in sorted(reports.items()):
-        for line in report.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for line in ptxas_summary(reports):
+        print(f"  ptxas: {line}")
     for name in _build.SOURCES:
         check(_build.library_path(name).exists(), f"{name} library built")
+    for name, want in (("whole_board", ("whole_board_kernelILi0E", "StaticRuleILj8ELj0ELj16E")),
+                       ("tiled", ("tiled_kernelILi0ELi8E", "StaticRuleILj8ELj0ELj16E"))):
+        print(f"  SASS, the Conway turn loop of {kernel_label(''.join(want))}: "
+              f"{sass_loop(_build.library_path(name), want)}")
 
     # -- 3. each kernel against its plain version -------------------------
     def random_words(shape):
@@ -167,6 +328,12 @@ def main() -> int:
         ).to(dev)
 
     rules = (CONWAY, HIGHLIFE, SEEDS, DAY_AND_NIGHT)
+    # the bitboard kernels compile those four in; any other rule runs their
+    # run-time-rule instantiation
+    other = LifeRule.from_rulestring("B36/S125")
+    check(not bitpack.is_compiled_rule(other.birth_mask, other.survive_mask),
+          "B36/S125 is outside the compiled rules")
+    bit_rules = rules + (other,)
     k1_err = 0
     k1_cases = 0
     # the sessions' boards: 64^2 and 512^2
@@ -174,7 +341,7 @@ def main() -> int:
         board = np.where(rng.random((size, size)) < 0.35, 255, 0).astype(np.uint8)
         for word_axis in (0, 1):
             packed = bitpack.pack(board, word_axis, dev)
-            for rule in rules:
+            for rule in bit_rules:
                 for n in (1, 7, 100):
                     got, got_counts = whole_board.step_n(
                         packed, n, word_axis, rule.birth_mask, rule.survive_mask,
@@ -190,7 +357,7 @@ def main() -> int:
                     k1_err = max(k1_err, err)
                     k1_cases += 1
     print(f"phase 3 parity: whole-board kernel equals its plain version in "
-          f"{k1_cases} cases (64^2 and 512^2, 4 rules, n in 1/7/100, both "
+          f"{k1_cases} cases (64^2 and 512^2, 4 rules and B36/S125, n in 1/7/100, both "
           f"packings, counts)")
 
     tiled_err = 0
@@ -199,19 +366,22 @@ def main() -> int:
     for shape, word_axis in (((128, 4096), 0), ((4096, 128), 1), ((32, 16384), 0),
                              ((512, 16384), 0), ((45, 300), 0), ((300, 45), 1)):
         packed = random_words(shape)
-        whole = bitpack.bit_step_n(packed, 13, word_axis)
-        for k in (1, 3, 8):
-            got = tiled.step_n(packed, 13, word_axis, turns_per_launch=k)
-            want = tiled.step_n_plain(packed, 13, word_axis, turns_per_launch=k)
-            torch.cuda.synchronize()
-            err = max(max_abs_err(got, want), max_abs_err(got, whole))
-            check(err == 0, f"tiled {shape} word_axis={word_axis} k={k}: max abs err {err}")
-            tiled_err = max(tiled_err, err)
-            tiled_cases += 1
+        for rule in (CONWAY, other):
+            masks = (rule.birth_mask, rule.survive_mask)
+            whole = bitpack.bit_step_n(packed, 13, word_axis, *masks)
+            for k in (1, 3, 8):
+                got = tiled.step_n(packed, 13, word_axis, *masks, turns_per_launch=k)
+                want = tiled.step_n_plain(packed, 13, word_axis, *masks, turns_per_launch=k)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(got, want), max_abs_err(got, whole))
+                check(err == 0, f"tiled {shape} word_axis={word_axis} {rule.name} k={k}: "
+                                f"max abs err {err}")
+                tiled_err = max(tiled_err, err)
+                tiled_cases += 1
     print(f"phase 3 parity: tiled kernel equals its plain version and the "
           f"whole-torus bit_step_n in {tiled_cases} cases (4096^2 both packings, "
           f"1024x16384, 16384^2, and packed 45x300 / 300x45 with ragged tiles; "
-          f"k in 1/3/8, n=13)")
+          f"Conway and B36/S125, k in 1/3/8, n=13)")
 
     k2_err = 0
     k2_cases = 0
@@ -219,10 +389,10 @@ def main() -> int:
     # words, every universe and its row counts against the plain version;
     # the last is the shape the sessions bench below runs and times
     shapes = [(size, batch) for size in (64, 128, 512) for batch in (1, 7, 300)]
-    for size, batch in shapes + [(128, 1000)]:
+    for size, batch in shapes + [(128, 256), (128, 1000)]:
         for word_axis in (0, 1):
             packed = random_words((batch,) + bitpack.packed_shape(size, size, word_axis))
-            for rule in rules:
+            for rule in bit_rules:
                 for n in (1, 7, 100):
                     got, got_counts = batch_board.step_n(
                         packed, n, word_axis, rule.birth_mask, rule.survive_mask
@@ -238,8 +408,28 @@ def main() -> int:
                     k2_err = max(k2_err, err)
                     k2_cases += 1
     print(f"phase 3 parity: batched kernel equals its plain version in {k2_cases} "
-          f"cases (B in 1/7/300 at 64^2, 128^2 and 512^2, and B=1000 at 128^2; "
-          f"4 rules, n in 1/7/100, both packings, counts)")
+          f"cases (B in 1/7/300 at 64^2, 128^2 and 512^2, and B=256 and 1000 at 128^2; "
+          f"4 rules and B36/S125, n in 1/7/100, both packings, counts)")
+
+    # which instantiation each rule launched: the kernels' names in the
+    # profiler's trace (StaticRule<...> compiled, DynamicRule at run time)
+    from torch.profiler import ProfilerActivity, profile
+
+    for rule, kind in ((CONWAY, "StaticRule<8u, 0u, 16u>"), (other, "DynamicRule")):
+        masks = (rule.birth_mask, rule.survive_mask)
+        p64 = random_words((3, 2, 64))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            whole_board.step_n(p64[0], 3, 0, *masks)
+            batch_board.step_n(p64, 3, 0, *masks)
+            tiled.step_n(p64[0], 3, 0, *masks)
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 if re.search(r"::(whole_board|tiled)_kernel<", ev.key)]
+        launched = sum(ev.count for ev in prof.key_averages() if ev.key in names)
+        check(launched == 3 and all(kind in name for name in names),
+              f"{rule.name} launched {names}")
+        short = sorted({re.sub(r"^void \(anonymous namespace\)::|\(.*$", "", n) for n in names})
+        print(f"phase 3 rule: {rule.name} ({rule.rulestring}) ran {'; '.join(short)}")
 
     def random_bytes(shape):
         return torch.from_numpy(
@@ -677,7 +867,8 @@ def main() -> int:
     k1_long_ms = cuda_ms(lambda: whole_board.step_n(p512, 1000, counted=True), reps=5)
     print(f"timing whole-board 512^2: {k1_long_ms * 1e3 / 1000:.3f} us/turn "
           f"(n=1000 per launch); {k1_ms:.4f} ms per n={k1_n} launch, bound "
-          f"{k1_bound_ms:.5f} ms ({k1_by}), plain {k1_plain_ms:.3f} ms {card_tag}")
+          f"{k1_bound_ms:.5f} ms ({k1_by}), {k1_ms / k1_bound_ms:.3g}x the bound; plain "
+          f"{k1_plain_ms:.3f} ms {card_tag}")
 
     tiled_times = {}
     for shape in ((128, 4096), (512, 16384)):
@@ -689,9 +880,12 @@ def main() -> int:
         b_ms, b_by = bound(packed.numel(), tiled.MAX_TURNS)
         tiled_times[shape] = (one_launch, plain_ms, b_ms, b_by)
         side = int((packed.numel() * 32) ** 0.5)
+        device, _ = device_ms(lambda: tiled.step_n(packed, tiled.MAX_TURNS),
+                              "tiled_kernel", reps=10)
         print(f"timing tiled {side}^2: {per_turn * 1e3:.3f} us/turn (n=64, 8 "
-              f"launches); {one_launch:.4f} ms per 8-turn launch, bound "
-              f"{b_ms:.5f} ms ({b_by}), plain {plain_ms:.3f} ms {card_tag}")
+              f"launches); {one_launch:.4f} ms per 8-turn launch ({device:.4f} ms of "
+              f"device time), bound {b_ms:.5f} ms ({b_by}), {one_launch / b_ms:.3g}x the "
+              f"bound; plain {plain_ms:.3f} ms {card_tag}")
 
     k2_out = []
     k2_ms = cuda_ms(lambda: k2_out.append(batch_board.step_n(p8, turns8)), reps=20)
@@ -706,6 +900,22 @@ def main() -> int:
           f"({k2_ms * 1e3 / turns8:.3f} us/turn for the batch), bound {k2_bound_ms:.5f} "
           f"ms ({k2_by}), {k2_ms / k2_bound_ms:.3g}x the bound; plain {k2_plain_ms:.3f} "
           f"ms {card_tag}")
+
+    # K2 at the shape the broker's 256 SessionRuns give it (phase 10): a
+    # power-of-two chunk of 64 turns over 256 boards of 128^2, device time
+    p10 = bitpack.pack_batch(boards, 0, dev)
+    got10 = batch_board.step_n(p10, 64)
+    want10 = batch_board.step_n_plain(p10, 64)
+    err = max(max_abs_err(got10[0], want10[0]), max_abs_err(got10[1], want10[1]))
+    check(err == 0, f"batched 256 x 128^2, n=64: max abs err {err}")
+    k2_10_ms, k2_10_traced = device_ms(lambda: batch_board.step_n(p10, 64),
+                                       "whole_board_kernel", reps=20)
+    k2_10_events = cuda_ms(lambda: batch_board.step_n(p10, 64), reps=50)
+    k2_10_bound, k2_10_by = bound(p10.numel(), 64, 4 * p10.shape[0] * p10.shape[1])
+    print(f"timing batched 256 x 128^2 (phase 10's shape): {k2_10_ms:.4f} ms of device "
+          f"time per counted n=64 launch ({k2_10_traced} traced; events {k2_10_events:.4f} "
+          f"ms per call), bound {k2_10_bound:.5f} ms ({k2_10_by}), "
+          f"{k2_10_ms / k2_10_bound:.3g}x the bound {card_tag}")
 
     print(f"bound: the byte board in its cheapest form, packed once, {opw}/32 int32 "
           f"instructions per cell per turn, unpacked once ({2 * bitpack.PACK_OPS_PER_CELL} "
@@ -845,4 +1055,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kernel-times"]:
+        sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
     sys.exit(main())

@@ -7,35 +7,40 @@
 // "grid2d" mode (:349, body _tiled_kernel_2d at :242). One 2-D grid serves
 // both: a full-width row block is just a row of tiles across the board.
 //
-// Design. Block (bx, by) owns the output tile of kTileR x kTileC words at
-// (by * kTileR, bx * kTileC). It loads that tile plus a K-word halo on every
-// side into shared memory, the torus coming from index arithmetic modulo the
-// board (the index maps of pallas_tiled.py:316-326 do the same in block
-// units). It then runs K turns in shared memory, two window copies
-// ping-ponged: after turn t only the words at least t from the window's
-// edge are valid (each turn reads one word further out), so turn t computes
-// just that shrinking region (the cone of pallas_tiled.py:222-226), and
-// after K turns the interior tile is exact and is written out. Blocks run
-// in no order, so the output goes to a second board; n turns take
-// ceil(n / K) launches, ping-ponged by the wrapper (ops/tiled.py).
-//
-// The tile and K are compile-time constants (one instantiation per K in
-// 1..8 and packing), so every window extent is a constant and the index
-// arithmetic divides by constants. The halo is K words on all four sides.
-// On the packed axis one word is 32 cells and a turn moves one cell, so that
-// side could be one word thin; keeping both sides K words keeps one index
-// rule for both packings.
-//
 // What bounds it. Each launch reads and writes the board once and the
 // function needs 12 int32 instructions per word per turn for Conway
 // (ops/bitpack.py::ops_per_word), so at K = 8 the integer rate binds, not
-// device memory. This kernel spends more than that: it recomputes each
-// line's packed-axis sums for the three output words that read them, tests
-// the rule masks at run time, and steps the halo ring. The tile shape sets
-// the halo share: 32 x 128 words with K = 8 computes ~1.29x the interior's
-// words and needs 2 * 48 * 144 * 4 = 55,296 B of shared memory, so four
-// blocks of 256 threads fit on one SM (ops/tiled.py::TILE says why that
-// shape).
+// device memory. What the kernel spends beyond that: the halo it steps, and
+// the loads, stores and loop of bit_step.cuh's walk.
+//
+// Design. Block (bx, by) owns the output tile of kTileR x kTileC words at
+// (by * kTileR, bx * kTileC). It loads that tile and its halo into shared
+// memory, the torus coming from index arithmetic modulo the board (the
+// index maps of pallas_tiled.py:316-326 do the same in block units), runs K
+// turns there, two window copies ping-ponged, and writes the tile out.
+// Blocks run in no order, so the output goes to a second board; n turns
+// take ceil(n / K) launches, ping-ponged by the wrapper (ops/tiled.py).
+//
+// The halo differs by axis. A turn moves one cell, so across the lines (the
+// axis that is not packed) it takes K words and shrinks: after turn t only
+// the lines at least t from the window's edge are valid, and turn t steps
+// just those (the cone of pallas_tiled.py:222-226). Along the packed axis a
+// word is 32 cells, so one halo word on each side covers K <= 8 < 32 turns:
+// those words are stepped every turn, their missing outer neighbour taken
+// as the word itself, which spoils one more of their outer bits a turn and
+// never reaches the tile. At K = 8 the window is 34 x 144 words (word axis
+// 0) or 48 x 130 (word axis 1), 1.12x and 1.24x the tile's work over K turns,
+// where a K-word halo on every side took 1.29x.
+//
+// Each thread owns one run of consecutive lines at one packed index of the
+// window (bit_step.cuh's walk: 3 loads and one packed-axis sum per word),
+// set before the turn loop; turn t clips it to the cone. The tile, K, the
+// runs and the window are compile-time constants (one instantiation per K in
+// 1..8, packing and rule), so no index is divided at run time. For word axis
+// 0 the window's row stride is padded to runs x run length with an odd run
+// length, so lane l reads word L * l + s at step s and the 32 lanes of a warp
+// hit 32 banks; for word axis 1 lanes take neighbouring packed indices.
+// ops/tiled.py::TILE says why the tile is 32 x 128 words.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -46,52 +51,91 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxTurns = 8;
 constexpr int kTileR = 32;   // output tile rows, in words (ops/tiled.py::TILE)
 constexpr int kTileC = 128;  // output tile cols, in words
+constexpr int kThreadAim = 256;  // runs per block, about
 
+constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The window of one block for a packing and K turns.
+template <int WORD_AXIS, int K>
+struct Window {
+    // P packed indices (the tile's and one halo word each side) by Q lines
+    // (the tile's and K halo lines each side)
+    static constexpr int kP = (WORD_AXIS == 0 ? kTileR : kTileC) + 2;
+    static constexpr int kQ = (WORD_AXIS == 0 ? kTileC : kTileR) + 2 * K;
+    // runs per packed index, and their odd length
+    static constexpr int kLen = ceil_div(kQ, ceil_div(kThreadAim, kP)) | 1;
+    static constexpr int kRuns = ceil_div(kQ, kLen);
+    static constexpr int kItems = kP * kRuns;
+    static constexpr int kThreads = ceil_div(kItems, 32) * 32;
+    // the window in the board's layout, and its halo
+    static constexpr int kRows = WORD_AXIS == 0 ? kP : kQ;
+    static constexpr int kCols = WORD_AXIS == 0 ? kQ : kP;
+    static constexpr int kHaloR = WORD_AXIS == 0 ? 1 : K;
+    static constexpr int kHaloC = WORD_AXIS == 0 ? K : 1;
+    static constexpr int kStride = WORD_AXIS == 0 ? kRuns * kLen : kP;  // row stride
+    static constexpr int kPStride = WORD_AXIS == 0 ? kStride : 1;
+    static constexpr int kOStride = WORD_AXIS == 0 ? 1 : kStride;
+    static constexpr int kWords = kRows * kStride;
+    static constexpr size_t kSmem = 2 * static_cast<size_t>(kWords) * sizeof(uint32_t);
+    static_assert(kRuns * kLen >= kQ && kThreads <= 1024, "window plan");
+};
+
+// i modulo n for any int i and n > 0: the fast path takes the indices that
+// are already on the board
 __device__ __forceinline__ int wrap(int i, int n) {
+    if (static_cast<unsigned>(i) < static_cast<unsigned>(n)) return i;
     const int m = i % n;
     return m < 0 ? m + n : m;
 }
 
-template <int WORD_AXIS, int K>
-__global__ void __launch_bounds__(kThreads)
+template <int WORD_AXIS, int K, class Rule>
+__global__ void __launch_bounds__(Window<WORD_AXIS, K>::kThreads)
 tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int rows,
-             int cols, GolRule rule) {
-    constexpr int kER = kTileR + 2 * K;  // window rows
-    constexpr int kEC = kTileC + 2 * K;  // window cols
+             int cols, Rule rule) {
+    using W = Window<WORD_AXIS, K>;
     extern __shared__ uint32_t smem[];
     uint32_t* cur = smem;
-    uint32_t* nxt = smem + kER * kEC;
+    uint32_t* nxt = smem + W::kWords;
     const int r0 = blockIdx.y * kTileR;
     const int c0 = blockIdx.x * kTileC;
 
-    for (int i = threadIdx.x; i < kER * kEC; i += kThreads) {
-        const int wr = i / kEC;
-        const int wc = i - wr * kEC;
-        const size_t gr = wrap(r0 - K + wr, rows);
-        const size_t gc = wrap(c0 - K + wc, cols);
-        cur[i] = in[gr * cols + gc];
+    for (int e = threadIdx.x; e < W::kRows * W::kCols; e += W::kThreads) {
+        const int wr = e / W::kCols;
+        const int wc = e - wr * W::kCols;
+        const size_t gr = wrap(r0 - W::kHaloR + wr, rows);
+        const size_t gc = wrap(c0 - W::kHaloC + wc, cols);
+        cur[wr * W::kStride + wc] = in[gr * cols + gc];
     }
+
+    // this thread's run: lines [j0, j0 + kLen) at packed index i; neighbouring
+    // lanes take neighbouring words of a window row
+    const int tid = threadIdx.x;
+    int i, j0;
+    if (WORD_AXIS == 0) {
+        i = tid / W::kRuns;
+        j0 = (tid - i * W::kRuns) * W::kLen;
+    } else {
+        const int r = tid / W::kP;
+        i = tid - r * W::kP;
+        j0 = r * W::kLen;
+    }
+    const bool active = tid < W::kItems;
+    const int m = (i == 0 ? 0 : i - 1) * W::kPStride;  // the halo words' outer
+    const int c = i * W::kPStride;                      // neighbour is the word
+    const int p = (i + 1 == W::kP ? i : i + 1) * W::kPStride;  // itself
     __syncthreads();
 
 #pragma unroll
     for (int t = 1; t <= K; ++t) {
-        const int hr = kER - 2 * t;  // constants once the loop is unrolled
-        const int hc = kEC - 2 * t;
-        for (int i = threadIdx.x; i < hr * hc; i += kThreads) {
-            const int q = i / hc;
-            const int wr = t + q;
-            const int wc = t + (i - q * hc);
-            const uint32_t* up = cur + (wr - 1) * kEC;
-            const uint32_t* md = cur + wr * kEC;
-            const uint32_t* dn = cur + (wr + 1) * kEC;
-            const uint32_t x[3][3] = {{up[wc - 1], up[wc], up[wc + 1]},
-                                      {md[wc - 1], md[wc], md[wc + 1]},
-                                      {dn[wc - 1], dn[wc], dn[wc + 1]}};
-            nxt[wr * kEC + wc] = gol_life_word<WORD_AXIS>(x, rule);
+        // the cone: turn t steps lines t .. kQ - t - 1
+        const int js = max(j0, t);
+        const int je = min(j0 + W::kLen, W::kQ - t);
+        if (active && js < je) {
+            gol_walk(cur + m, cur + c, cur + p, nxt + c, (js - 1) * W::kOStride,
+                     js * W::kOStride, W::kOStride, je - js, je * W::kOStride, rule);
         }
         __syncthreads();
         uint32_t* tmp = cur;
@@ -99,33 +143,32 @@ tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int ro
         nxt = tmp;
     }
 
-    for (int i = threadIdx.x; i < kTileR * kTileC; i += kThreads) {
-        const int tr = i / kTileC;
-        const int tc = i - tr * kTileC;
+    for (int e = threadIdx.x; e < kTileR * kTileC; e += W::kThreads) {
+        const int tr = e / kTileC;
+        const int tc = e - tr * kTileC;
         const int gr = r0 + tr;
         const int gc = c0 + tc;
         if (gr < rows && gc < cols) {
-            out[static_cast<size_t>(gr) * cols + gc] = cur[(K + tr) * kEC + K + tc];
+            out[static_cast<size_t>(gr) * cols + gc] =
+                cur[(W::kHaloR + tr) * W::kStride + W::kHaloC + tc];
         }
     }
 }
 
-template <int WORD_AXIS, int K>
-int launch(const void* in, void* out, int rows, int cols, GolRule rule,
-           cudaStream_t stream) {
+template <int WORD_AXIS, int K, class Rule>
+int launch(const void* in, void* out, int rows, int cols, Rule rule, cudaStream_t stream) {
+    using W = Window<WORD_AXIS, K>;
     static std::atomic<bool> opted[kMaxDevices];
-    constexpr size_t kSmem =
-        2 * static_cast<size_t>(kTileR + 2 * K) * (kTileC + 2 * K) * sizeof(uint32_t);
-    const cudaError_t err = smem_opt_in_once(tiled_kernel<WORD_AXIS, K>, opted);
+    const cudaError_t err = smem_opt_in_once(tiled_kernel<WORD_AXIS, K, Rule>, opted);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((cols + kTileC - 1) / kTileC, (rows + kTileR - 1) / kTileR);
-    tiled_kernel<WORD_AXIS, K><<<grid, kThreads, kSmem, stream>>>(
+    tiled_kernel<WORD_AXIS, K, Rule><<<grid, W::kThreads, W::kSmem, stream>>>(
         static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), rows, cols, rule);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int WORD_AXIS>
-int launch_k(const void* in, void* out, int rows, int cols, int k, GolRule rule,
+template <int WORD_AXIS, class Rule>
+int launch_k(const void* in, void* out, int rows, int cols, int k, Rule rule,
              cudaStream_t stream) {
     switch (k) {
         case 1: return launch<WORD_AXIS, 1>(in, out, rows, cols, rule, stream);
@@ -141,20 +184,23 @@ int launch_k(const void* in, void* out, int rows, int cols, int k, GolRule rule,
 }
 
 static_assert(kMaxTurns == 8, "launch_k instantiates K = 1..8");
+static_assert(kMaxTurns < 32, "one halo word covers fewer than 32 turns");
 
 }  // namespace
 
 extern "C" {
 
 // k turns (1..8) of `in` (int32[rows, cols]) into `out`, which must not
-// alias `in`. Returns cudaGetLastError() after the launch (0 on success);
-// cudaErrorInvalidValue for a k outside 1..8.
+// alias `in`. The (common, dead_only, live_only) masks pick a compiled rule
+// or the run-time one. Returns cudaGetLastError() after the launch (0 on
+// success); cudaErrorInvalidValue for a k outside 1..8.
 int gol_tiled_step(const void* in, void* out, int rows, int cols, int word_axis, int k,
                    unsigned common, unsigned dead_only, unsigned live_only, void* stream) {
-    const GolRule rule{common, dead_only, live_only};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (word_axis == 0) return launch_k<0>(in, out, rows, cols, k, rule, s);
-    return launch_k<1>(in, out, rows, cols, k, rule, s);
+    return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
+        if (word_axis == 0) return launch_k<0>(in, out, rows, cols, k, rule, s);
+        return launch_k<1>(in, out, rows, cols, k, rule, s);
+    });
 }
 
 }  // extern "C"

@@ -11,42 +11,48 @@
 // and the per-universe popcount that ops/fused.py:543
 // (_fused_batch_counted_compiled) adds after it.
 //
+// What bounds it. Device memory is touched twice per launch, so bytes never
+// bound it: the int32 instruction rate does, 12 instructions per word per
+// turn for Conway at the least (ops/bitpack.py::ops_per_word). One board is
+// one block, so a batch of one (K1) reaches at most 1/132 of the card; a
+// batch fills the card with blocks, and then what a block spends per word
+// and how many blocks reside per SM set the time.
+//
 // Design. Block b owns board b: it reads the board's words from device
 // memory once, runs all n turns in dynamic shared memory (two copies of the
-// board, ping-ponged, one __syncthreads() per turn) and writes the board and
-// its int32 row popcounts once. The torus wrap is index arithmetic. n is a
-// runtime argument, so nothing is compiled per turn count. Both packings are
-// served by a template on the packed axis. A block has min(1024, words)
-// threads rounded up to a warp, and every index it touches lies inside its
-// own board's stride: at 64^2 (128 words) a block is 128 threads and no
-// thread reads a neighbouring universe.
+// board, ping-ponged, one __syncthreads() per turn: a whole board turns in
+// lockstep) and writes the board and its int32 row popcounts once. n and the
+// rule's masks are run-time arguments; the rule is also a template parameter
+// (bit_step.cuh), so the four named rules run a select folded at compile
+// time. Per turn each thread walks its run of `run_len` consecutive lines
+// at one packed index with bit_step.cuh's sliding window (3 loads and one
+// packed-axis sum per word); the run, its wrapped neighbour offsets and its
+// torus wrap are computed once, before the turn loop, so the loop holds no
+// division. run_len is odd: neighbouring lanes then hit distinct shared
+// memory banks in both packings (word axis 0: lanes take runs of one row,
+// L words apart; word axis 1: lanes take packed indices, and where a row is
+// narrower than a warp, rows L apart).
 //
-// What bounds it. Device memory is touched twice per launch, so bytes never
-// bound it. The work is int32 logic, 12 instructions per word per turn for
-// Conway at the least (ops/bitpack.py::ops_per_word; this kernel spends
-// more, see tiled.cu). One board is one block on one of the card's 132 SMs,
-// so a batch of one (K1) reaches at most 1/132 of the card's integer rate,
-// and at small boards the serial chain of one turn's operations plus a
-// block-wide barrier per turn is what it waits on. A batch fills the card
-// with blocks: at 128^2 (word axis 0: 4 x 128 words) a block is 512 threads
-// and 4 KiB of shared memory, so the 2048-thread SM holds 4 and ~528 boards
-// fill 132 SMs; at 512^2 a block is 1024 threads and 64 KiB, 2 per SM.
-//
-// Prediction for the batch, written before its first run on the card: at
-// the sessions bench shape (1000 x 128^2, n = 100) the bound is ~0.037 ms
-// per launch, set by operations (1000 x 512 words x 100 turns x 12 =
-// 6.1e8 instructions at 1.673e13 per s; bytes 2 x 4 x 512,000 B at
-// 3.35 TB/s are ~1.2 us). Per board the inner loop is K1's. K1 at 512^2
-// takes 10.5 us/turn for 8192 words on one SM, 13.5x that SM's share of
-// the bound; the batch runs the same loop on every SM at once (1000 boards
-// are 1.9 waves of 528 resident blocks), so expect ~13x the bound, about
-// 0.5 ms per launch, and within 5-25x of it.
+// The block size, chosen at launch (plan below): resident blocks per SM are
+// the batch over the SMs, capped by shared memory; a block aims at a
+// quarter of the SM's 2048 threads shared among those, and run_len is the
+// smallest odd length that keeps it within that. A run of L words makes
+// L + 2 packed-axis sums, so longer runs share more of them, while the
+// other three quarters of the SM's threads are left to the blocks' latency.
+// So 1000 boards of 128^2 (8 an SM, all resident at once) take runs of 9
+// words, 60 runs in a block of 64 threads; the broker's session batches of
+// <= 256 boards (2 an SM) take runs of 3, 172 runs in 192 threads; one 512^2
+// board takes runs of 17, 496 runs in 512 threads. A sweep of run lengths
+// on the H100 chose the quarter (shorter runs, for a block of the SM's full
+// share, were slower at 1000 x 128^2 and at one 512^2 board, and no faster
+// at 256 x 128^2); PERF.md's kernel table has the times (chip_smoke.py).
 //
 // The gate, per board: both copies must fit the block's opt-in shared
 // memory (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 B on an H100),
 // so 8 * rows * cols <= that limit (ops/whole_board.py::fits).
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 
@@ -55,11 +61,53 @@
 
 namespace {
 
+constexpr int kMaxThreads = 1024;  // the largest block plan() chooses
+
+// One thread's share of a board: the lines [j0, j0 + len) at packed index
+// i, as word offsets into a board copy.
+struct Run {
+    int m, c, p;         // packed index i-1, i, i+1 (wrapped) at line 0
+    int prev_off, off;   // lines j0 - 1 (wrapped) and j0
+    int last_next_off;   // line j0 + len (wrapped)
+    int len;
+};
+
 template <int WORD_AXIS>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ Run make_run(int item, int rows, int cols, int run_len,
+                                        int runs) {
+    // P words along the packed axis, Q lines along the other
+    const int P = WORD_AXIS == 0 ? rows : cols;
+    const int Q = WORD_AXIS == 0 ? cols : rows;
+    const int pstride = WORD_AXIS == 0 ? cols : 1;
+    const int ostride = WORD_AXIS == 0 ? 1 : cols;
+    // neighbouring lanes take neighbouring words of a board row: runs for
+    // word axis 0, packed indices for word axis 1
+    int i, r;
+    if (WORD_AXIS == 0) {
+        i = item / runs;
+        r = item - i * runs;
+    } else {
+        r = item / P;
+        i = item - r * P;
+    }
+    const int j0 = r * run_len;
+    Run w;
+    w.len = min(run_len, Q - j0);
+    w.m = ((i == 0 ? P : i) - 1) * pstride;
+    w.c = i * pstride;
+    w.p = (i + 1 == P ? 0 : i + 1) * pstride;
+    w.prev_off = ((j0 == 0 ? Q : j0) - 1) * ostride;
+    w.off = j0 * ostride;
+    const int jn = j0 + w.len;
+    w.last_next_off = (jn == Q ? 0 : jn) * ostride;
+    return w;
+}
+
+template <int WORD_AXIS, class Rule>
+__global__ void __launch_bounds__(kMaxThreads)
 whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                    int32_t* __restrict__ row_counts, int rows, int cols, int n,
-                   GolRule rule) {
+                   int run_len, int runs, Rule rule) {
     extern __shared__ uint32_t smem[];
     const int total = rows * cols;
     // this block's board: the batch strides are whole boards and row vectors
@@ -69,23 +117,24 @@ whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     uint32_t* cur = smem;
     uint32_t* nxt = smem + total;
     for (int i = threadIdx.x; i < total; i += blockDim.x) cur[i] = in[i];
+
+    const int ostride = WORD_AXIS == 0 ? 1 : cols;
+    const int items = (WORD_AXIS == 0 ? rows : cols) * runs;
+    const int tid = threadIdx.x;
+    const Run own = make_run<WORD_AXIS>(tid, rows, cols, run_len, runs);
     __syncthreads();
 
     for (int t = 0; t < n; ++t) {
-        for (int i = threadIdx.x; i < total; i += blockDim.x) {
-            const int r = i / cols;
-            const int c = i - r * cols;
-            const int ru = (r == 0 ? rows : r) - 1;
-            const int rd = (r + 1 == rows) ? 0 : r + 1;
-            const int cl = (c == 0 ? cols : c) - 1;
-            const int cr = (c + 1 == cols) ? 0 : c + 1;
-            const uint32_t* up = cur + ru * cols;
-            const uint32_t* md = cur + r * cols;
-            const uint32_t* dn = cur + rd * cols;
-            const uint32_t x[3][3] = {{up[cl], up[c], up[cr]},
-                                      {md[cl], md[c], md[cr]},
-                                      {dn[cl], dn[c], dn[cr]}};
-            nxt[i] = gol_life_word<WORD_AXIS>(x, rule);
+        if (tid < items) {
+            gol_walk(cur + own.m, cur + own.c, cur + own.p, nxt + own.c, own.prev_off,
+                     own.off, ostride, own.len, own.last_next_off, rule);
+        }
+        // more runs than threads only where a board's packed axis is wider
+        // than the largest block (> 1024 words)
+        for (int item = tid + blockDim.x; item < items; item += blockDim.x) {
+            const Run w = make_run<WORD_AXIS>(item, rows, cols, run_len, runs);
+            gol_walk(cur + w.m, cur + w.c, cur + w.p, nxt + w.c, w.prev_off, w.off,
+                     ostride, w.len, w.last_next_off, rule);
         }
         __syncthreads();
         uint32_t* tmp = cur;
@@ -107,18 +156,67 @@ whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     }
 }
 
-template <int WORD_AXIS>
+// The SM count, resident threads and shared memory of an SM on the current
+// device, read once per device.
+cudaError_t sm_shape(int& sms, int& threads, int& smem) {
+    static std::atomic<int> cached[kMaxDevices][3];
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+    const cudaDeviceAttr attrs[3] = {cudaDevAttrMultiProcessorCount,
+                                     cudaDevAttrMaxThreadsPerMultiProcessor,
+                                     cudaDevAttrMaxSharedMemoryPerMultiprocessor};
+    int values[3];
+    for (int a = 0; a < 3; ++a) {
+        values[a] = cached[device][a].load(std::memory_order_relaxed);
+        if (values[a] == 0) {
+            err = cudaDeviceGetAttribute(&values[a], attrs[a], device);
+            if (err != cudaSuccess) return err;
+            cached[device][a].store(values[a], std::memory_order_relaxed);
+        }
+    }
+    sms = values[0];
+    threads = values[1];
+    smem = values[2];
+    return cudaSuccess;
+}
+
+struct Plan {
+    int run_len, runs, threads;
+};
+
+// The block for `batch` boards of P x Q words: per_sm boards share an SM,
+// so a block aims at a quarter of their share of its threads, and the runs
+// are the shortest odd ones that keep the block within it.
+Plan plan(int P, int Q, int batch, int sms, int sm_threads, int sm_smem, size_t smem) {
+    const int by_smem = std::max(1, static_cast<int>(sm_smem / (smem + 1024)));  // + 1 KiB
+    const int per_sm = std::min({(batch + sms - 1) / sms, by_smem, 32});         // reserved
+    const int target = std::max(32, std::min(kMaxThreads, sm_threads / (4 * std::max(1, per_sm))));
+    int run_len = 1;
+    while (run_len < Q && P * ((Q + run_len - 1) / run_len) > target) run_len += 2;
+    run_len = std::min(run_len, Q);
+    const int runs = (Q + run_len - 1) / run_len;
+    const int threads = std::min(kMaxThreads, (P * runs + 31) / 32 * 32);
+    return {run_len, runs, threads};
+}
+
+template <int WORD_AXIS, class Rule>
 int launch(const void* in, void* out, void* row_counts, int batch, int rows, int cols,
-           int n, GolRule rule, cudaStream_t stream) {
+           int n, Rule rule, cudaStream_t stream) {
     static std::atomic<bool> opted[kMaxDevices];
-    const int total = rows * cols;
-    const size_t smem = 2 * static_cast<size_t>(total) * sizeof(uint32_t);
-    const int threads = total >= 1024 ? 1024 : ((total + 31) / 32) * 32;
-    const cudaError_t err = smem_opt_in_once(whole_board_kernel<WORD_AXIS>, opted);
+    const size_t smem = 2 * static_cast<size_t>(rows) * cols * sizeof(uint32_t);
+    int sms = 0, sm_threads = 0, sm_smem = 0;
+    cudaError_t err = sm_shape(sms, sm_threads, sm_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    whole_board_kernel<WORD_AXIS><<<batch, threads, smem, stream>>>(
+    const int P = WORD_AXIS == 0 ? rows : cols;
+    const int Q = WORD_AXIS == 0 ? cols : rows;
+    const Plan p = plan(P, Q, batch, sms, sm_threads, sm_smem, smem);
+    err = smem_opt_in_once(whole_board_kernel<WORD_AXIS, Rule>, opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    whole_board_kernel<WORD_AXIS, Rule><<<batch, p.threads, smem, stream>>>(
         static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-        static_cast<int32_t*>(row_counts), rows, cols, n, rule);
+        static_cast<int32_t*>(row_counts), rows, cols, n, p.run_len, p.runs, rule);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -134,15 +232,17 @@ int gol_max_smem_optin(int device, int* bytes) {
 
 // n turns of each of the `batch` boards of `in` (int32[batch, rows, cols])
 // into `out`, and, unless row_counts is null, the popcount of each of the
-// results' rows into int32[batch, rows]. Returns cudaGetLastError() after
-// the launch (0 on success).
+// results' rows into int32[batch, rows]. The (common, dead_only, live_only)
+// masks pick a compiled rule or the run-time one. Returns cudaGetLastError()
+// after the launch (0 on success).
 int gol_whole_board_step(const void* in, void* out, void* row_counts, int batch, int rows,
                          int cols, int word_axis, int n, unsigned common, unsigned dead_only,
                          unsigned live_only, void* stream) {
-    const GolRule rule{common, dead_only, live_only};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (word_axis == 0) return launch<0>(in, out, row_counts, batch, rows, cols, n, rule, s);
-    return launch<1>(in, out, row_counts, batch, rows, cols, n, rule, s);
+    return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
+        if (word_axis == 0) return launch<0>(in, out, row_counts, batch, rows, cols, n, rule, s);
+        return launch<1>(in, out, row_counts, batch, rows, cols, n, rule, s);
+    });
 }
 
 }  // extern "C"

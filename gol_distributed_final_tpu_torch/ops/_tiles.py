@@ -1,10 +1,10 @@
 """What the two tiled kernels' wrappers share: ops/tiled.py (int32
 bitboards, csrc/tiled.cu) and ops/byte_tiled.py (uint8 boards,
 csrc/byte_tiled.cu). Both kernels run k turns per launch on a 2-D grid of
-tiles, each block stepping its tile's window (the tile and a k-deep halo
-on all four sides, indices taken modulo the board) and writing back the
-interior. Only the turn and the C entry point differ, so each wrapper
-hands those to the helpers here.
+tiles, each block stepping its tile's window (the tile and a halo on all
+four sides, indices taken modulo the board) and writing back the
+interior. Only the turn, the halo and the C entry point differ, so each
+wrapper hands those to the helpers here.
 """
 
 from __future__ import annotations
@@ -22,21 +22,23 @@ def launch_sizes(n: int, turns_per_launch: int, max_turns: int, what: str) -> li
     return [turns_per_launch] * full + ([rem] if rem else [])
 
 
-def launch_plain(board, k: int, tile: tuple[int, int], step_n):
-    """What one kernel launch computes, in torch: every tile's window
+def launch_plain(board, k: int, tile: tuple[int, int], step_n, halo=None):
+    """What one kernel launch computes, in torch: every tile's window (the
+    tile and ``halo`` = (rows, cols) on each side, k and k unless given)
     gathered with modulo indices, ``step_n(windows, k)`` on the batch of
     windows (the cyclic rolls of a plain turn only spoil the ring the
     shrinking cone discards), and the interiors put back together."""
     rows, cols = board.shape
     tr, tc = tile
+    hr, hc = (k, k) if halo is None else halo
     grid_r, grid_c = -(-rows // tr), -(-cols // tc)
     dev = board.device
-    ri = (torch.arange(grid_r, device=dev)[:, None] * tr - k
-          + torch.arange(tr + 2 * k, device=dev)[None, :]) % rows
-    ci = (torch.arange(grid_c, device=dev)[:, None] * tc - k
-          + torch.arange(tc + 2 * k, device=dev)[None, :]) % cols
+    ri = (torch.arange(grid_r, device=dev)[:, None] * tr - hr
+          + torch.arange(tr + 2 * hr, device=dev)[None, :]) % rows
+    ci = (torch.arange(grid_c, device=dev)[:, None] * tc - hc
+          + torch.arange(tc + 2 * hc, device=dev)[None, :]) % cols
     windows = step_n(board[ri[:, None, :, None], ci[None, :, None, :]], k)
-    interior = windows[..., k:k + tr, k:k + tc]
+    interior = windows[..., hr:hr + tr, hc:hc + tc]
     out = interior.permute(0, 2, 1, 3).reshape(grid_r * tr, grid_c * tc)
     return out[:rows, :cols].contiguous()
 

@@ -203,6 +203,24 @@ def rule_masks(birth_mask: int, survive_mask: int) -> tuple[int, int, int]:
     )
 
 
+#: the rules the bitboard kernels compile in (csrc/bit_step.cuh,
+#: GOL_COMPILED_RULES), by name, as ``rule_masks`` triples: the rules of
+#: models/life.py. Any other rule runs the kernels' run-time-rule
+#: instantiation.
+COMPILED_RULES = {
+    "conway": (8, 0, 16),
+    "highlife": (8, 64, 16),
+    "seeds": (0, 4, 0),
+    "day-and-night": (384, 72, 560),
+}
+
+
+def is_compiled_rule(birth_mask: int, survive_mask: int) -> bool:
+    """Whether the bitboard kernels run this rule with its select fixed at
+    compile time."""
+    return rule_masks(birth_mask, survive_mask) in COMPILED_RULES.values()
+
+
 def _skips_p3(value: int) -> bool:
     # the weight-8 plane only separates T in {8, 9} from {0, 1}: for a
     # target in 2..7 the aliasing value (target + 8 > 9) is unreachable
@@ -328,7 +346,8 @@ def ops_per_word(birth_mask: int, survive_mask: int) -> int:
       at least ceil((i - 1) / 2) three-input LOP3s.
 
     Conway costs 12: 2 + 2 + 4, 2 planes, and a select of 4 inputs in 2.
-    The CUDA kernels spend more (csrc/tiled.cu says where)."""
+    The CUDA kernels add a word's loads, its store and their loop
+    (csrc/bit_step.cuh)."""
     common, dead_only, live_only = rule_sets(birth_mask, survive_mask)
     values = common + dead_only + live_only
     if not values:

@@ -1,5 +1,6 @@
 """The tiled bitboard step: boards of any size, k <= 8 turns per launch
-over a 2-D grid of tiles with k-word halos (csrc/tiled.cu).
+over a 2-D grid of tiles, each stepped in a window with a one-word halo
+on the packed axis and a k-word halo on the other (csrc/tiled.cu).
 
 It replaces both tiled Pallas kernels of the JAX package,
 ``gol_distributed_final_tpu/ops/pallas_tiled.py:284``
@@ -26,15 +27,17 @@ from . import _build, _tiles
 from .bitpack import bit_step_n, rule_masks
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
-#: turns one launch may take: the halo is that many words deep
+#: turns one launch may take: the halo on the other axis is that many
+#: words deep (on the packed axis one word, 32 cells, covers them)
 MAX_TURNS = 8
 
 #: output tile in words (rows, cols), fixed at compile time in
-#: csrc/tiled.cu (kTileR, kTileC). With k = 8 its window is 48 x 144
-#: words, two copies 55,296 B, so four blocks of 256 threads share one
-#: SM's 228 KB; it computes ~1.29x the interior's words over k turns (a
-#: 32 x 256 tile, ~1.26x, would halve the blocks per SM and leave half of
-#: a 4096^2 board's 132 SMs without a tile); 128 words of a row are 512
+#: csrc/tiled.cu (kTileR, kTileC). With k = 8 its window is 34 x 144 words
+#: on word axis 0 (rows padded to 152 words, two copies 41,344 B, five
+#: blocks of 288 threads an SM) and 48 x 130 on word axis 1 (49,920 B, four
+#: an SM); over k turns it computes ~1.12x and ~1.24x the interior's words
+#: (a 32 x 256 tile would halve the blocks per SM and leave half of a
+#: 4096^2 board's 132 SMs without a tile); 128 words of a row are 512
 #: contiguous bytes per load.
 TILE = (32, 128)
 
@@ -63,10 +66,13 @@ def _launch_sizes(n: int, turns_per_launch: int) -> list[int]:
 
 def launch_plain(packed, k, word_axis=0, birth_mask=CONWAY_BIRTH_MASK,
                  survive_mask=CONWAY_SURVIVE_MASK):
-    """What one kernel launch computes, in torch: k turns, tile by tile."""
+    """What one kernel launch computes, in torch: k turns, tile by tile,
+    each window one word wider than its tile on each side of the packed
+    axis and k words on each side of the other."""
     return _tiles.launch_plain(
         packed, k, TILE,
         lambda windows, k: bit_step_n(windows, k, word_axis, birth_mask, survive_mask),
+        halo=(1, k) if word_axis == 0 else (k, 1),
     )
 
 

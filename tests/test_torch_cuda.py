@@ -45,9 +45,13 @@ def _words(shape, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("word_axis", [0, 1])
-def test_whole_board_kernel_matches_plain(cuda_device, word_axis):
-    packed = _words(bitpack.packed_shape(512, 512, word_axis), word_axis, cuda_device)
+@pytest.mark.parametrize("shape,word_axis", [
+    ((16, 512), 0), ((512, 16), 1), ((1500, 4), 0), ((4, 1500), 1), ((1, 1), 0),
+])
+def test_whole_board_kernel_matches_plain(cuda_device, shape, word_axis):
+    """512^2 in both packings, a packed axis of more words than the largest
+    block has threads (1500: some threads walk two runs), and one word."""
+    packed = _words(shape, word_axis, cuda_device)
     before = whole_board.launches
     for rule in RULES:
         for n in (0, 1, 7, 100):
@@ -71,17 +75,100 @@ def test_whole_board_refuses_a_board_past_its_gate(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape,word_axis", [((128, 4096), 0), ((4096, 128), 1), ((5, 77), 0)]
-)
+@pytest.mark.parametrize("shape,word_axis", [
+    ((128, 4096), 0), ((4096, 128), 1), ((5, 77), 0), ((77, 5), 1), ((45, 300), 0),
+    ((300, 45), 1), ((33, 129), 0), ((33, 129), 1), ((1, 1), 0), ((1, 1), 1),
+])
 def test_tiled_kernel_matches_plain(cuda_device, shape, word_axis):
+    """Ragged tiles, boards smaller than a window, both packings: one
+    launch per k turns, equal to the plain version and the whole torus."""
     packed = _words(shape, shape[0], cuda_device)
     for k in (1, 3, 8):
+        before = _launches()
         got = tiled.step_n(packed, 13, word_axis, turns_per_launch=k)
-        want = tiled.step_n_plain(packed, 13, word_axis, turns_per_launch=k)
         torch.cuda.synchronize()
+        assert _delta(before) == {"tiled": -(-13 // k)}
+        want = tiled.step_n_plain(packed, 13, word_axis, turns_per_launch=k)
         assert torch.equal(got, want)
         assert torch.equal(got, bitpack.bit_step_n(packed, 13, word_axis))
+
+
+def _other_rules():
+    """Rules outside the compiled four: B36/S125 and a random B/S pair."""
+    gen = np.random.default_rng(2026)
+    rand = life.LifeRule("random", int(gen.integers(1, 512)), int(gen.integers(1, 512)))
+    rules = (life.LifeRule.from_rulestring("B36/S125"), rand)
+    assert not any(bitpack.is_compiled_rule(r.birth_mask, r.survive_mask) for r in rules)
+    return rules
+
+
+ALL_RULES = RULES + _other_rules()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ALL_RULES, ids=lambda r: r.name)
+@pytest.mark.parametrize("word_axis", [0, 1])
+def test_bitboard_kernels_per_rule(cuda_device, rule, word_axis):
+    """K1, K2 and the tiled kernel under each compiled rule and two rules
+    that run the run-time-rule instantiation: equal to the plain versions,
+    one launch per call (per k turns for the tiles), no plain call."""
+    masks = (rule.birth_mask, rule.survive_mask)
+    one = _words(bitpack.packed_shape(512, 512, word_axis), 11, cuda_device)
+    batch = _words((7,) + bitpack.packed_shape(128, 128, word_axis), 12, cuda_device)
+    ragged = _words((45, 300) if word_axis == 0 else (300, 45), 13, cuda_device)
+    for n in (1, 37):
+        before = _launches()
+        got1 = whole_board.step_n(one, n, word_axis, *masks, counted=True)
+        got2 = batch_board.step_n(batch, n, word_axis, *masks)
+        got3 = tiled.step_n(ragged, n, word_axis, *masks)
+        torch.cuda.synchronize()
+        assert _delta(before) == {"whole_board": 1, "batch_board": 1,
+                                  "tiled": -(-n // tiled.MAX_TURNS)}
+        for got, want in ((got1, whole_board.step_n_plain(one, n, word_axis, *masks)),
+                          (got2, batch_board.step_n_plain(batch, n, word_axis, *masks))):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got3, tiled.step_n_plain(ragged, n, word_axis, *masks))
+        assert torch.equal(got3, bitpack.bit_step_n(ragged, n, word_axis, *masks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 128, 512])
+@pytest.mark.parametrize("batch", [1, 7, 256, 1000])
+def test_batched_kernel_batch_sizes(cuda_device, size, batch):
+    """K2 at the batch sizes that change its block (runs of 1 word a thread
+    under a wave, longer odd runs that need not divide a board's lines past
+    it), both packings, a compiled and a run-time rule."""
+    for word_axis in (0, 1):
+        packed = _words((batch,) + bitpack.packed_shape(size, size, word_axis),
+                        size + batch + word_axis, cuda_device)
+        for rule in (life.CONWAY, ALL_RULES[-2]):
+            masks = (rule.birth_mask, rule.survive_mask)
+            for n in (1, 37):
+                before = _launches()
+                got = batch_board.step_n(packed, n, word_axis, *masks)
+                torch.cuda.synchronize()
+                assert _delta(before) == {"batch_board": 1}
+                want = batch_board.step_n_plain(packed, n, word_axis, *masks)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_rule_picks_its_instantiation(cuda_device):
+    """A compiled rule launches a StaticRule instantiation, any other rule
+    the DynamicRule one (the kernels' names in the profiler's trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    packed = _words((3,) + bitpack.packed_shape(64, 64, 0), 4, cuda_device)
+    other = ALL_RULES[-2]
+    for rule, kind in ((life.HIGHLIFE, "StaticRule"), (other, "DynamicRule")):
+        masks = (rule.birth_mask, rule.survive_mask)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            batch_board.step_n(packed, 3, 0, *masks)
+            tiled.step_n(packed[0], 3, 0, *masks)
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 if "whole_board_kernel" in ev.key or "tiled_kernel" in ev.key]
+        assert len(names) == 2 and all(kind in name for name in names), names
 
 
 @pytest.mark.cuda

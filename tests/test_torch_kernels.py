@@ -71,41 +71,60 @@ def test_whole_board_gate_is_the_cards_shared_memory():
 # -- the tiled kernel (K3 / K4) -----------------------------------------------
 
 
+def _packed_16x256(word_axis, seed):
+    """A packed (16, 256) board in either packing: one ragged tile of
+    TILE, its window wider than the board on both axes."""
+    board = _board(512, 256, seed) if word_axis == 0 else _board(16, 8192, seed)
+    packed = np.asarray(jbit.pack(board, word_axis))
+    assert packed.shape == (16, 256)
+    return packed
+
+
+@pytest.mark.parametrize("word_axis", [0, 1])
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("rule", ["CONWAY", "HIGHLIFE"])
-def test_tiled_matches_pallas_rows_mode(k, rule):
+def test_tiled_matches_pallas_rows_mode(k, rule, word_axis):
+    """One launch of the plain version (a one-word halo on the packed
+    axis, k words on the other) equals the rows-mode Pallas kernel."""
     jrule, trule = getattr(jlife, rule), getattr(tlife, rule)
-    packed = np.asarray(jbit.pack(_board(512, 256, seed=k), 0))  # (16, 256)
+    packed = _packed_16x256(word_axis, seed=k)
     want = np.asarray(jax.jit(pallas_tiled.tiled_pallas_call(
-        k, (16, 256), True, jrule.birth_mask, jrule.survive_mask
+        k, (16, 256), True, jrule.birth_mask, jrule.survive_mask, word_axis=word_axis
     ))(packed))
     got = tiled.step_n(
-        tbit.state_from_numpy(packed, "cpu"), k, 0,
+        tbit.state_from_numpy(packed, "cpu"), k, word_axis,
         trule.birth_mask, trule.survive_mask, turns_per_launch=k,
     )
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("word_axis", [0, 1])
 @pytest.mark.parametrize("k", [2, 8])
-def test_tiled_matches_pallas_grid2d_mode(k):
+def test_tiled_matches_pallas_grid2d_mode(k, word_axis):
     shape = (16, 256)
     mode, _, _ = pallas_tiled._plan(*shape, 8, 128)
     assert mode == "grid2d"
-    packed = np.asarray(jbit.pack(_board(512, 256, seed=10 + k), 0))
+    packed = _packed_16x256(word_axis, seed=10 + k)
     want = np.asarray(jax.jit(pallas_tiled.tiled_pallas_call(
-        k, shape, True, block_rows=8, block_cols=128
+        k, shape, True, block_rows=8, block_cols=128, word_axis=word_axis
     ))(packed))
-    got = tiled.step_n(tbit.state_from_numpy(packed, "cpu"), k, turns_per_launch=k)
+    got = tiled.step_n(tbit.state_from_numpy(packed, "cpu"), k, word_axis,
+                       turns_per_launch=k)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("word_axis,h,w", [(0, 1280, 160), (1, 40, 5120)])
+@pytest.mark.parametrize("word_axis,h,w,packed_shape", [
+    (0, 1280, 160, (40, 160)), (1, 40, 5120, (40, 160)),
+    (0, 160, 77, (5, 77)), (1, 77, 160, (77, 5)),
+])
 @pytest.mark.parametrize("turns_per_launch", [3, 8])
-def test_tiled_n_past_one_launch_matches_jax_bit_step_n(word_axis, h, w, turns_per_launch):
+def test_tiled_n_past_one_launch_matches_jax_bit_step_n(word_axis, h, w, packed_shape,
+                                                        turns_per_launch):
     """n = 13 turns in launches of k (the last takes the rest) equal the
-    JAX package's whole-torus bit_step_n. Both packed boards are 40 x 160
-    words: 2 x 2 tiles of TILE, the last row and column of them ragged."""
-    assert tbit.packed_shape(h, w, word_axis) == (40, 160)
+    JAX package's whole-torus bit_step_n. 40 x 160 words are 2 x 2 tiles
+    of TILE, the last row and column of them ragged; 5 x 77 and 77 x 5 are
+    smaller than a window on the packed axis, the other, or both."""
+    assert tbit.packed_shape(h, w, word_axis) == packed_shape
     assert tiled.TILE == (32, 128)
     rule = jlife.HIGHLIFE
     packed = np.asarray(jbit.pack(_board(h, w, seed=3), word_axis))
@@ -131,6 +150,25 @@ def test_tiled_constants_match_the_kernel_source():
     )}
     assert (consts["kTileR"], consts["kTileC"]) == tiled.TILE
     assert consts["kMaxTurns"] == tiled.MAX_TURNS
+
+
+def test_compiled_rules_match_the_kernel_source():
+    """ops/bitpack.py::COMPILED_RULES mirrors the rule instantiations of
+    csrc/bit_step.cuh, and every rule models/life.py names is one of them."""
+    src = (pathlib.Path(tiled.__file__).parents[1] / "csrc" / "bit_step.cuh").read_text()
+    block = re.search(r"#define GOL_COMPILED_RULES\(X\)(.*?)\n\n", src, re.S).group(1)
+    triples = [tuple(int(v) for v in m)
+               for m in re.findall(r"X\((\d+)u, (\d+)u, (\d+)u\)", block)]
+    assert len(triples) == len(set(triples)) == 4
+    assert set(triples) == set(tbit.COMPILED_RULES.values())
+    named = [v for v in vars(tlife).values() if isinstance(v, tlife.LifeRule)]
+    assert {r.name for r in named} == set(tbit.COMPILED_RULES)
+    for rule in named:
+        masks = tbit.rule_masks(rule.birth_mask, rule.survive_mask)
+        assert tbit.COMPILED_RULES[rule.name] == masks
+        assert tbit.is_compiled_rule(rule.birth_mask, rule.survive_mask)
+    other = tlife.LifeRule.from_rulestring("B36/S125")
+    assert not tbit.is_compiled_rule(other.birth_mask, other.survive_mask)
 
 
 def test_tiled_rejects_turns_past_the_halo():
