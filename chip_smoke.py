@@ -13,19 +13,22 @@ bench shape, 1000 x 128^2 x 100 turns, through ``SessionTable``), checks
 the results against the repository's golden fixtures and sequential
 references, drives the engine's step-function override (the nine golden
 sessions through ``pallas_step_n_fn`` and through ``fused_step_n``, which
-run the byte kernels), and times the kernels with CUDA events. The bitboard
-kernels compile the four named rules in; the parity phases also run a rule
-outside them (B36/S125) and check, by the kernels' names in the profiler's
-trace, that it ran the run-time-rule instantiation. Any failed check
+run the byte kernels, and two seeded boards through both, held against the
+bitboard plane: the largest square under the whole-board byte kernel's
+gate, on a cluster, and 4096^2 past it, on the byte tiles), and times the kernels
+with CUDA events and the profiler's device time. The kernels compile the
+four named rules in; the parity phases also run a rule outside them
+(B36/S125) and check, by the kernels' names in the profiler's trace, that
+it ran the run-time-rule instantiation. Any failed check
 raises, so the exit code is non-zero and the closing JSON line is never
 printed. Without a CUDA device, or without the package beside it, it
 exits non-zero before printing any result.
 
     python3 chip_smoke.py --kernel-times [TREE]
 
-times only K1, K2 and the tiled kernel of the port in the checkout TREE
-(default: this one) and prints one JSON line, so that two trees can be
-compared in turns within one call on one card.
+times only the kernels (K1, K2, the tiled kernel, K5 and K6) of the port in
+the checkout TREE (default: this one) and prints one JSON line, so that two
+trees can be compared in turns within one call on one card.
 
 Game of Life is integer-exact: every comparison is equality (tolerance 0).
 """
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import csv
 import gc
+import inspect
 import json
 import os
 import pathlib
@@ -80,37 +84,97 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int) -> tuple[float, int]:
-    """``(ms, launches)``: the mean device time of one launch of the CUDA kernel named ``kernel``,
-    from torch.profiler's trace of ``reps`` calls of ``fn()`` after a
-    warm-up: the kernel's own time. CUDA events around back-to-back calls
-    measure the host's launch rate instead once a kernel is shorter than
-    its wrapper's host work. The mean is over the launches the trace
-    holds, which may be fewer than the calls; their number comes back
-    with it."""
+def trace(fn):
+    """torch.profiler's trace of ``fn()`` on the card. On the H100 a trace
+    sometimes comes back without some of its window's kernels (its first
+    launch above all) while holding the calls that launched them, and such
+    records can turn up in a later window instead. So an empty window
+    follows each trace and takes what comes late, ``window_kernels`` drops
+    what started before its window, and the callers check what a trace holds
+    and take another if it falls short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    # a trace can come back without the card's activity (seen once on the
-    # H100 in a run whose other traces held theirs): take a fresh one then
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us, traced = 0.0, 0
-        for ev in prof.key_averages():
-            if re.search(rf"::{kernel}[<(]", ev.key):
-                total_us += getattr(ev, "device_time_total", 0) or ev.cuda_time_total
-                traced += ev.count
-        if traced > 0 and total_us > 0:
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=activities):
+        torch.cuda.synchronize()
+    return prof
+
+
+def window_kernels(prof, pattern: str) -> list[tuple[str, float]]:
+    """``(name, device time in us)`` of every kernel whose name matches
+    ``pattern`` in a trace, leaving out any that started before the window's
+    first launch call: a record that arrives late from an earlier window
+    carries that window's time."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    calls = [ev.time_range.start for ev in events
+             if ev.device_type == DeviceType.CPU and ev.name.startswith("cudaLaunchKernel")]
+    if not calls:
+        return []
+    first = min(calls)
+    return [(ev.name, ev.time_range.end - ev.time_range.start) for ev in events
+            if ev.device_type == DeviceType.CUDA and ev.time_range.start >= first
+            and re.search(pattern, ev.name)]
+
+
+def traced_kernels(fn, pattern: str, complete) -> list[str]:
+    """The short names (no namespace, no arguments) of the kernels matching
+    ``pattern`` that ``fn()`` launched, from the profiler's trace. ``fn``
+    runs twice in a window, and windows are taken, up to eight, until
+    ``complete(names)`` holds for the names seen so far (see ``trace``).
+    Raises with those names if it never does."""
+    names = set()
+    for _ in range(8):
+        prof = trace(lambda: (fn(), fn()))
+        names |= {re.sub(r"^void |\(.*$", "", name.replace("(anonymous namespace)::", ""))
+                  for name, _ in window_kernels(prof, pattern)}
+        if complete(sorted(names)):
+            return sorted(names)
+    raise RuntimeError(f"check failed: the profiler's traces held only {sorted(names)}")
+
+
+def device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> tuple[float, int]:
+    """``(ms, launches)``: the mean device time of one launch of the CUDA
+    kernel named ``kernel`` (a regular expression), from torch.profiler's
+    trace of ``fn()``, which makes ``per_call`` such launches: the kernel's
+    own time. CUDA events around back-to-back calls measure the host's
+    launch rate instead once a kernel is shorter than its wrapper's host
+    work. A window holds ``reps`` + 1 calls after a warm-up. A trace may
+    lack some of its launches (see ``trace``), which does not move their
+    mean: it counts if it holds at least half of the launches of ``reps``
+    calls and no more than all, else another is taken, up to eight; after
+    that the fullest trace stands, or, if none held a launch, CUDA events
+    per call, and a line says so. The mean is over the launches the trace
+    holds; their number comes back with it."""
+    def calls():
+        for _ in range(reps + 1):
+            fn()
+
+    fn()
+    least = -(-reps * per_call // 2)
+    fullest = []
+    for attempt in range(8):
+        times = [us for _, us in window_kernels(trace(calls), rf"::(?:{kernel})[<(]")]
+        if least <= len(times) <= (reps + 1) * per_call and sum(times) > 0:
             if attempt:
-                print(f"  device_ms: the trace of {kernel} held its launches at attempt "
+                print(f"  device_ms: the trace of {kernel} held enough launches at attempt "
                       f"{attempt + 1}")
-            return total_us / traced / 1e3, traced
-    raise RuntimeError(f"check failed: the profiler saw no launch of {kernel} in 3 traces")
+            return sum(times) / len(times) / 1e3, len(times)
+        if len(fullest) < len(times) <= (reps + 1) * per_call:
+            fullest = times
+    # a timing is no check of the kernel: say what the traces held and go on
+    if sum(fullest) > 0:
+        print(f"  device_ms: no trace of {kernel} held {least} launches; the mean is over "
+              f"the {len(fullest)} of the fullest")
+        return sum(fullest) / len(fullest) / 1e3, len(fullest)
+    print(f"  device_ms: no trace of {kernel} held a launch; CUDA events per call stand in")
+    return cuda_ms(fn, reps=reps) / per_call, 0
 
 
 def max_abs_err(a, b) -> int:
@@ -120,7 +184,9 @@ def max_abs_err(a, b) -> int:
 def kernel_label(mangled: str) -> str:
     """A kernel instantiation's short name from its mangled one, e.g.
     ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
-    kernel = re.search(r"(whole_board|tiled|byte_board|byte_tiled)_kernel", mangled)
+    kernel = re.search(
+        r"(whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled)_kernel",
+        mangled)
     name = kernel.group(1) if kernel else mangled[:40]
     args = re.findall(r"Li(\d+)E", mangled)
     rule = re.search(r"StaticRuleILj(\d+)ELj(\d+)ELj(\d+)E", mangled)
@@ -218,9 +284,10 @@ def sass_loop(library, want: tuple[str, ...]) -> str:
 
 
 def kernel_times(tree: str) -> int:
-    """Time K1, K2 and the tiled kernel of the port in ``tree`` (a checkout's
-    root) at the smoke's shapes, and print them as one JSON line: the
-    parent-and-change comparison, run in turns within one call."""
+    """Time the kernels of the port in ``tree`` (a checkout's root) at the
+    smoke's shapes, and print them as one JSON line: the parent-and-change
+    comparison, run in turns within one call. Only calls that every tree of
+    the port takes are made."""
     sys.path.insert(0, str(pathlib.Path(tree).resolve()))
     import numpy as np
     import torch
@@ -228,7 +295,9 @@ def kernel_times(tree: str) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from gol_distributed_final_tpu_torch.ops import batch_board, tiled, whole_board
+    from gol_distributed_final_tpu_torch.ops import (
+        batch_board, byte_board, byte_tiled, tiled, whole_board,
+    )
 
     check(pathlib.Path(whole_board.__file__).is_relative_to(pathlib.Path(tree).resolve()),
           f"the port imported from {tree}")
@@ -240,8 +309,31 @@ def kernel_times(tree: str) -> int:
             rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
         ).to(dev)
 
+    def cells(shape):
+        return torch.from_numpy(
+            np.where(rng.random(shape) < 0.35, 255, 0).astype(np.uint8)
+        ).to(dev)
+
     p512, b1000, b256 = words((16, 512)), words((1000, 4, 128)), words((256, 4, 128))
     t16k, t4k = words((512, 16384)), words((128, 4096))
+    # K5 with its form forced where the tree's wrapper takes one (a board
+    # past that tree's gate is then timed too), K6 at 8 and 32 turns a launch
+    c64, c192, c256 = cells((64, 64)), cells((192, 192)), cells((256, 256))
+    c512, c4096 = cells((512, 512)), cells((4096, 4096))
+    k5, k6 = "byte_board(?:_bits|_bytes)?_kernel", "byte_tiled_kernel"
+    takes_form = "form" in inspect.signature(byte_board.step_n).parameters
+    forced = {"form": "bits-cols"} if takes_form else {}
+    byte_calls = {
+        "k5_256_n100": (lambda: byte_board.step_n(c256, 100, **forced), k5, 20),
+        "k5_64_n8": (lambda: byte_board.step_n(c64, 8, **forced), k5, 50),
+        "k5_192_n100": (lambda: byte_board.step_n(c192, 100, **forced), k5, 20),
+        "k6_512_k8": (lambda: byte_tiled.step_n(c512, 8, turns_per_launch=8), k6, 50),
+        "k6_4096_k8": (lambda: byte_tiled.step_n(c4096, 8, turns_per_launch=8), k6, 20),
+        "k6_4096_k32": (lambda: byte_tiled.step_n(c4096, 32, turns_per_launch=32), k6, 20),
+    }
+    if takes_form:
+        byte_calls["k5_512_n8"] = (lambda: byte_board.step_n(c512, 8, **forced), k5, 50)
+        byte_calls["k5_512_n100"] = (lambda: byte_board.step_n(c512, 100, **forced), k5, 20)
     times = {
         "k1_512_n100": cuda_ms(lambda: whole_board.step_n(p512, 100, counted=True), reps=50),
         "k2_1000x128_n100": cuda_ms(lambda: batch_board.step_n(b1000, 100), reps=20),
@@ -255,6 +347,9 @@ def kernel_times(tree: str) -> int:
         "tiled_4096_k8": device_ms(lambda: tiled.step_n(t4k, tiled.MAX_TURNS),
                                    "tiled_kernel", reps=20)[0],
     }
+    for name, (fn, kernel, reps) in byte_calls.items():
+        device[name] = device_ms(fn, kernel, reps=reps)[0]
+        times[name] = cuda_ms(fn, reps=reps)
     print(json.dumps({"tree": tree, "card": nvidia_smi("name,power.limit"), "ms": times,
                       "device_ms": device}))
     return 0
@@ -316,8 +411,12 @@ def main() -> int:
         print(f"  ptxas: {line}")
     for name in _build.SOURCES:
         check(_build.library_path(name).exists(), f"{name} library built")
-    for name, want in (("whole_board", ("whole_board_kernelILi0E", "StaticRuleILj8ELj0ELj16E")),
-                       ("tiled", ("tiled_kernelILi0ELi8E", "StaticRuleILj8ELj0ELj16E"))):
+    conway = "StaticRuleILj8ELj0ELj16E"
+    wide_tile = "TileILi{}ELi{}E".format(*byte_tiled.TILE)
+    for name, want in (("whole_board", ("whole_board_kernelILi0E", conway)),
+                       ("tiled", ("tiled_kernelILi0ELi8E", conway)),
+                       ("byte_board", ("byte_board_bits_kernelILi8E", conway)),
+                       ("byte_tiled", ("byte_tiled_kernel", wide_tile, conway))):
         print(f"  SASS, the Conway turn loop of {kernel_label(''.join(want))}: "
               f"{sass_loop(_build.library_path(name), want)}")
 
@@ -413,22 +512,19 @@ def main() -> int:
 
     # which instantiation each rule launched: the kernels' names in the
     # profiler's trace (StaticRule<...> compiled, DynamicRule at run time)
-    from torch.profiler import ProfilerActivity, profile
-
     for rule, kind in ((CONWAY, "StaticRule<8u, 0u, 16u>"), (other, "DynamicRule")):
         masks = (rule.birth_mask, rule.survive_mask)
         p64 = random_words((3, 2, 64))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            whole_board.step_n(p64[0], 3, 0, *masks)
-            batch_board.step_n(p64, 3, 0, *masks)
-            tiled.step_n(p64[0], 3, 0, *masks)
-            torch.cuda.synchronize()
-        names = [ev.key for ev in prof.key_averages()
-                 if re.search(r"::(whole_board|tiled)_kernel<", ev.key)]
-        launched = sum(ev.count for ev in prof.key_averages() if ev.key in names)
-        check(launched == 3 and all(kind in name for name in names),
-              f"{rule.name} launched {names}")
-        short = sorted({re.sub(r"^void \(anonymous namespace\)::|\(.*$", "", n) for n in names})
+        # K1 and K2 are one kernel, so two names: it and the tiled kernel
+        short = traced_kernels(
+            lambda: (whole_board.step_n(p64[0], 3, 0, *masks),
+                     batch_board.step_n(p64, 3, 0, *masks),
+                     tiled.step_n(p64[0], 3, 0, *masks)),
+            r"::(whole_board|tiled)_kernel<",
+            lambda names: (len(names) >= 2 and any(n.startswith("whole_board") for n in names)
+                           and any(n.startswith("tiled") for n in names)))
+        check(len(short) == 2 and all(kind in name for name in short),
+              f"{rule.name} launched {short}")
         print(f"phase 3 rule: {rule.name} ({rule.rulestring}) ran {'; '.join(short)}")
 
     def random_bytes(shape):
@@ -436,45 +532,124 @@ def main() -> int:
             np.where(rng.random(shape) < 0.35, 255, 0).astype(np.uint8)
         ).to(dev)
 
+    def random_values(shape):
+        """Cells alive with probability 0.35, as any byte of 1..255."""
+        alive = rng.random(shape) < 0.35
+        values = rng.integers(1, 256, size=shape).astype(np.uint8)
+        return torch.from_numpy(np.where(alive, values, 0).astype(np.uint8)).to(dev)
+
+    smem_limit = whole_board.smem_limit(dev)
     k5_err = 0
-    k5_cases = 0
-    # the step-function sessions' boards under the gate (16^2, 64^2), the
-    # timed 256^2 and the largest square the gate takes, 340^2
-    k5_shapes = ((16, 16), (24, 33), (64, 64), (128, 128), (256, 256), (340, 340))
-    check(byte_board.fits((340, 340), dev) and not byte_board.fits((341, 341), dev),
-          "340^2 is the largest square under the byte kernel's gate")
-    for shape in k5_shapes:
-        board = random_bytes(shape)
-        for rule in rules:
+    k5_cases = {"bits-cols": 0, "bits-rows": 0, "bytes": 0}
+    k5_clusters = set()
+    # the step-function sessions' boards (16^2, 64^2, 512^2), the timed 256^2,
+    # a rectangle, boards only one packing takes, the largest square under
+    # the gate, the largest the crossover table times, and the largest
+    # square of the byte form; the form is forced, so boards past the gate
+    # run here too
+    gate_side = int(byte_board.MAX_CELLS ** 0.5) // 32 * 32
+    check(byte_board.fits((gate_side, gate_side), dev)
+          and not byte_board.fits((gate_side + 32, gate_side + 32), dev),
+          f"{gate_side}^2 is the largest 32-aligned square under the byte kernel's gate")
+    check(byte_board.smem_bytes((340, 340)) <= smem_limit < byte_board.smem_bytes((341, 341)),
+          "340^2 is the largest square the byte form holds in a block")
+    both = ("bits-cols", "bits-rows")
+    k5_shapes = {(16, 16): ("bytes",), (24, 33): ("bytes",), (340, 340): ("bytes",),
+                 (64, 64): both + ("bytes",), (128, 128): both, (160, 160): both,
+                 (256, 256): both,
+                 (512, 512): both, (96, 160): both, (64, 48): ("bits-rows",),
+                 (96, 100): ("bits-rows",), (40, 64): ("bits-cols",),
+                 (gate_side, gate_side): both, (1024, 1024): both}
+    for shape, forms in k5_shapes.items():
+        check(byte_board.form(shape) == forms[0], f"{shape} routes to {forms[0]}")
+        board = random_values(shape)
+        for rule in bit_rules:
             for n in (1, 7, 100):
-                got = byte_board.step_n(board, n, rule.birth_mask, rule.survive_mask)
                 want = byte_board.step_n_plain(board, n, rule.birth_mask, rule.survive_mask)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                check(err == 0, f"byte board {shape} {rule.name} n={n}: max abs err {err}")
-                k5_err = max(k5_err, err)
-                k5_cases += 1
+                for form in forms:
+                    # None: what the launcher picks; then every cluster it can
+                    # pick from that divides the lines and fits a block
+                    clusters = [None]
+                    if form != "bytes":
+                        lines = byte_board._lines(shape, form)[1]
+                        clusters += [c for c in (1, 2, 4, 8) if lines % c == 0 and
+                                     byte_board.smem_bytes(shape, form, c) <= smem_limit]
+                    for cluster in clusters:
+                        got = byte_board.step_n(board, n, rule.birth_mask, rule.survive_mask,
+                                                form=form, cluster=cluster)
+                        torch.cuda.synchronize()
+                        err = max_abs_err(got, want)
+                        check(err == 0, f"byte board {shape} {rule.name} n={n} {form} "
+                                        f"cluster={cluster}: max abs err {err}")
+                        k5_err = max(k5_err, err)
+                        k5_cases[form] += 1
+                        k5_clusters.add(cluster or byte_board.cluster_size(shape, form))
+    check(k5_clusters == {1, 2, 4, 8}, f"cluster sizes run: {sorted(k5_clusters)}")
     print(f"phase 3 parity: whole-board byte kernel equals its plain version in "
-          f"{k5_cases} cases (16^2, 24x33, 64^2, 128^2, 256^2, 340^2; 4 rules, n in "
-          f"1/7/100)")
+          f"{sum(k5_cases.values())} cases ({k5_cases['bits-cols']} with columns packed, "
+          f"{k5_cases['bits-rows']} with rows packed, {k5_cases['bytes']} as bytes; 16^2, "
+          f"24x33, 340^2, 64^2, 128^2, 160^2, 256^2, 512^2, 96x160, 64x48, 96x100, 40x64, the "
+          f"gate's {gate_side}^2 and the crossover table's 1024^2; clusters of 1, 2, 4 and 8 blocks and the launcher's own pick; "
+          f"4 rules and B36/S125, n in 1/7/100; cells alive as any byte of 1..255)")
+    # a cluster the card cannot schedule (16 is past the portable 8) is a
+    # refused launch: it raises, and the next launch runs
+    try:
+        byte_board.step_n(random_bytes((512, 512)), 3, cluster=16)
+    except RuntimeError as exc:
+        print(f"phase 3 refusal: a cluster of 16 blocks raised: {exc}")
+    else:
+        raise RuntimeError("check failed: a cluster of 16 blocks was not refused")
+    small = random_bytes((64, 64))
+    check(torch.equal(byte_board.step_n(small, 3), byte_board.step_n_plain(small, 3)),
+          "the launch after a refused one")
 
     k6_err = 0
     k6_cases = 0
-    # the JAX package's test shape, the 512^2 sessions' board, a wide board
-    for shape in ((64, 128), (512, 512), (4096, 4096)):
-        board = random_bytes(shape)
-        for rule in rules:
+    # the JAX package's test shape, the 512^2 sessions' board, a wide board,
+    # ragged boards and one smaller than any window; on both tiles where the
+    # board is small enough to spare the time
+    for shape in ((64, 128), (512, 512), (4096, 4096), (45, 300), (300, 45), (5, 7)):
+        board = random_values(shape)
+        tiles = (None,) if shape[0] > 512 else (None, byte_tiled.TILE, byte_tiled.SMALL_TILE)
+        for rule in bit_rules:
             for k in (1, 8, 32):
-                args = (board, k, rule.birth_mask, rule.survive_mask)
-                got = byte_tiled.step_n(*args, turns_per_launch=k)
-                want = byte_tiled.step_n_plain(*args, turns_per_launch=k)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                check(err == 0, f"byte tiles {shape} {rule.name} k={k}: max abs err {err}")
-                k6_err = max(k6_err, err)
-                k6_cases += 1
-    print(f"phase 3 parity: byte-tile kernel equals its plain version in {k6_cases} "
-          f"cases (64x128, 512^2, 4096^2; 4 rules, one launch of 1/8/32 turns)")
+                whole = byte_board.step_n_plain(board, k, rule.birth_mask, rule.survive_mask)
+                for tile in tiles:
+                    args = (board, k, rule.birth_mask, rule.survive_mask)
+                    got = byte_tiled.step_n(*args, turns_per_launch=k, tile=tile)
+                    want = byte_tiled.step_n_plain(*args, turns_per_launch=k, tile=tile)
+                    torch.cuda.synchronize()
+                    err = max(max_abs_err(got, want), max_abs_err(got, whole))
+                    check(err == 0, f"byte tiles {shape} {rule.name} k={k} tile={tile}: "
+                                    f"max abs err {err}")
+                    k6_err = max(k6_err, err)
+                    k6_cases += 1
+    print(f"phase 3 parity: byte-tile kernel equals its plain version and the whole-torus "
+          f"stencil in {k6_cases} cases (64x128, 512^2, 4096^2, 45x300, 300x45, 5x7; the "
+          f"tile picked by size and, up to 512 rows, both tiles forced; 4 rules and "
+          f"B36/S125, one launch of 1/8/32 turns; cells alive as any byte of 1..255)")
+
+    # which instantiation the byte kernels launched: bits in a cluster of 8
+    # for 512^2 (forced: it is past the gate), bytes for 24x33, the rule
+    # compiled in or at run time
+    for rule, kind in ((CONWAY, "StaticRule<8u, 0u, 16u>"), (other, "DynamicRule")):
+        masks = (rule.birth_mask, rule.survive_mask)
+        b512, b24 = random_bytes((512, 512)), random_bytes((24, 33))
+
+        def complete(names):
+            bits = [n for n in names if n.startswith("byte_board_bits_kernel<8, ")]
+            tiles = [n for n in names if n.startswith("byte_tiled_kernel<")]
+            return (len(bits) == 1 and kind in bits[0] and len(tiles) == 2
+                    and all(kind in n for n in tiles) and "byte_board_bytes_kernel" in names
+                    and len(names) == 4)
+
+        names = traced_kernels(
+            lambda: (byte_board.step_n(b512, 3, *masks, form="bits-cols"),
+                     byte_board.step_n(b24, 3, *masks),
+                     byte_tiled.step_n(b512, 3, *masks),
+                     byte_tiled.step_n(b512, 3, *masks, tile=byte_tiled.TILE)),
+            r"::byte_(board|tiled)\w*_kernel", complete)
+        print(f"phase 3 rule: {rule.name} ({rule.rulestring}) ran {'; '.join(names)}")
 
     out_dir = REPO / "out" / "chip_smoke"
 
@@ -504,28 +679,38 @@ def main() -> int:
           f"check/alive/512x512.csv ({per_turn_launches} one-turn whole-board "
           "launches, kept out of the main path's counts)")
 
-    # 5b. the same counts through the byte tiles: fused_step_n(board, 1) as
-    # the engine's step function, one turn per chunk, and the board after
-    # fused_step_n(board, 10000) (the K = 8 ladder) against the one reached
-    # one turn at a time. Checks of their own, out of the main path's counts.
+    # 5b. the same counts through fused_step_n(board, 1) as the engine's
+    # step function, one turn per chunk, on the byte kernel the gate gives
+    # 512^2, and the board after fused_step_n(board, 10000) (the K = 8
+    # ladder) against the one reached one turn at a time. Checks of their
+    # own, out of the main path's counts.
+    def byte_route(shape):
+        """``(module, name)`` of the byte kernel the step functions give a
+        board of ``shape``: the whole-board one under its gate."""
+        if byte_board.fits(tuple(shape), dev):
+            return byte_board, "whole-board byte"
+        return byte_tiled, "byte-tile"
+
+    routed512, routed512_name = byte_route((512, 512))
     seen.clear()
     engine = Engine(EngineConfig(max_chunk=1, chunk_hook=record, step_n_fn=fused_step_n))
-    before = byte_tiled.launches
+    before = routed512.launches
     stepwise = engine.run(Params(turns=10_000, image_width=512, image_height=512), board512)
-    per_turn_launches = byte_tiled.launches - before
+    per_turn_launches = routed512.launches - before
     bad = [t for t in range(1, 10_001) if seen.get(t) != golden_counts[t]]
     check(not bad, f"512^2 alive counts through fused_step_n differ at turns {bad[:5]}")
-    check(per_turn_launches == 10_000, f"one byte-tile launch per turn, got {per_turn_launches}")
-    before = byte_tiled.launches
+    check(per_turn_launches == 10_000,
+          f"one {routed512_name} launch per turn, got {per_turn_launches}")
+    before = routed512.launches
     laddered = fused_step_n(torch.from_numpy(board512.copy()).to(dev), 10_000)
-    ladder_launches = byte_tiled.launches - before
+    ladder_launches = routed512.launches - before
     check(np.array_equal(laddered.cpu().numpy(), stepwise.world),
           "512^2 after fused_step_n(board, 10000) differs from one turn at a time")
     check(ladder_launches == 1250, f"the K = 8 ladder of 10000 turns: {ladder_launches}")
     print("phase 5b alive: 512^2 per-turn alive counts for turns 1..10000 through "
-          "fused_step_n equal check/alive/512x512.csv (10000 one-turn byte-tile launches), "
-          "and fused_step_n(board, 10000) in 1250 8-turn launches equals the board "
-          "reached one turn at a time (kept out of the main path's counts)")
+          f"fused_step_n equal check/alive/512x512.csv (10000 one-turn {routed512_name} "
+          "launches), and fused_step_n(board, 10000) in 1250 8-turn launches equals the "
+          "board reached one turn at a time (kept out of the main path's counts)")
 
     # -- the main paths, every launch counted -----------------------------
     # each path runs with every count set to 0 just before it and read just
@@ -795,10 +980,11 @@ def main() -> int:
           f"sequential {B8 / seq_wall:.6g} sessions/s (wall {seq_wall:.4f} s) {card_tag}")
 
     # 12. the engine's step-function override: the nine golden sessions
-    # through pallas_step_n_fn (K5 under its gate, K6 in launches of 32
-    # turns past it) and through fused_step_n (K5's ladder under the gate,
-    # K6's past it), PGM bytes against check/images; then the 512^2 x
-    # 10000 session through fused_step_n
+    # through pallas_step_n_fn (K5 under its gate in one launch a chunk, K6
+    # in launches of 32 turns past it) and through fused_step_n (K5's ladder
+    # under the gate, K6's past it), PGM bytes against check/images; then
+    # the 512^2 x 10000 session through fused_step_n. Which kernel a size
+    # reaches is byte_board.fits's to say.
     open_window()
     step_fns = {"pallas_step_n_fn": pallas_step_n_fn(CONWAY), "fused_step_n": fused_step_n}
     by_session = {}
@@ -817,33 +1003,75 @@ def main() -> int:
                 by_session[fn_name, size, turns] = (byte_board.launches - before[0],
                                                     byte_tiled.launches - before[1])
     for (fn_name, size, turns), (k5, k6) in by_session.items():
-        if turns and size < 512:
-            check(k5 > 0 and k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
-        elif turns:
-            check(k6 > 0 and k5 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
-        else:
+        on_k5 = byte_route((size, size))[0] is byte_board
+        if not turns:
             check(k5 == k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
+        elif on_k5:
+            check(k5 > 0 and k6 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
+        else:
+            check(k6 > 0 and k5 == 0, f"{fn_name} {size}^2 x {turns}: K5 {k5}, K6 {k6}")
+    sizes_on = {m: [size for size in (16, 64, 512) if byte_route((size, size))[0] is m]
+                for m in (byte_board, byte_tiled)}
     print("phase 12 step functions: {16,64,512}^2 x {0,1,100} PGMs through "
           "pallas_step_n_fn and fused_step_n equal check/images byte for byte "
-          f"({byte_board.launches} whole-board byte launches at 16^2 and 64^2, "
-          f"{byte_tiled.launches} byte-tile launches at 512^2)")
+          f"({byte_board.launches} whole-board byte launches at {sizes_on[byte_board]}, "
+          f"{byte_tiled.launches} byte-tile launches at {sizes_on[byte_tiled]})")
     # a host-bound wall: collect the earlier phases' garbage first, so a
     # full collection of it does not land inside this session
     gc.collect()
-    before = byte_tiled.launches
+    before = routed512.launches
     t0 = time.monotonic()
     result = run(Params(turns=10_000, image_width=512, image_height=512),
                  images_dir=REPO / "images", out_dir=out_dir, tick_seconds=3600,
                  engine_config=EngineConfig(step_n_fn=fused_step_n))
     fused_wall = time.monotonic() - t0
-    fused_session_launches = byte_tiled.launches - before
+    fused_session_launches = routed512.launches - before
     check(result.turns_completed == 10_000 and
           result.alive_count == golden_counts[10_000],
           "512^2 x 10000 session through fused_step_n: final alive count")
-    close_window("step-function sessions", ("byte_board", "byte_tiled"))
     print(f"timing session 512^2 x 10000 through fused_step_n: wall {fused_wall:.3f} s, "
           f"{10_000 * 512 * 512 / fused_wall:.4g} cell-updates/s, "
-          f"{fused_session_launches} byte-tile launches {card_tag}")
+          f"{fused_session_launches} {routed512_name} launches {card_tag}")
+
+    # 13. boards without a golden image, from the seed, through Engine.run
+    # with fused_step_n (the K = 8 ladder) and with pallas_step_n_fn, each
+    # equal to the same board through the auto plane (the bitboard kernels):
+    # the largest square under K5's gate, which K5 steps on a cluster, and
+    # 4096^2 past it, so that the byte tiles stay on a driven path wherever
+    # the gate stands.
+    check(byte_route((gate_side, gate_side))[0] is byte_board
+          and byte_board.cluster_size((gate_side, gate_side)) > 1,
+          f"{gate_side}^2 is under K5's gate and takes a cluster")
+    check(byte_route((4096, 4096))[0] is byte_tiled, "4096^2 is past K5's gate")
+    for side, turns in ((gate_side, 1000), (4096, 300)):
+        routed, routed_name = byte_route((side, side))
+        board = np.where(rng.random((side, side)) < 0.35, 255, 0).astype(np.uint8)
+        params = Params(turns=turns, image_width=side, image_height=side)
+        before = whole_board.launches + tiled.launches
+        reference = Engine(EngineConfig()).run(params, board)
+        check(whole_board.launches + tiled.launches > before,
+              f"the {side}^2 reference ran on a bitboard kernel")
+        walls = {}
+        for fn_name, step_fn in step_fns.items():
+            before = {m: m.launches for m in (byte_board, byte_tiled)}
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            got = Engine(EngineConfig(step_n_fn=step_fn)).run(params, board)
+            walls[fn_name] = (time.monotonic() - t0, routed.launches - before[routed])
+            check(got.turns_completed == turns and np.array_equal(got.world, reference.world)
+                  and got.alive_count == reference.alive_count,
+                  f"{side}^2 x {turns} through {fn_name} differs from the bitboard plane")
+            other_module = byte_tiled if routed is byte_board else byte_board
+            check(walls[fn_name][1] > 0 and other_module.launches == before[other_module],
+                  f"{side}^2 through {fn_name}: {walls[fn_name][1]} {routed_name} launches, "
+                  f"{other_module.launches - before[other_module]} of the other byte kernel")
+        print(f"phase 13 {'under' if routed is byte_board else 'past'} the gate: "
+              f"{side}^2 x {turns} turns through Engine.run with "
+              + " and ".join(f"{name} ({launched} {routed_name} launches, wall {wall:.3f} s)"
+                             for name, (wall, launched) in walls.items())
+              + f" equal the auto plane's board (alive {reference.alive_count}) {card_tag}")
+        del board, reference, got
+    close_window("step-function sessions", ("byte_board", "byte_tiled"))
 
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
@@ -930,40 +1158,87 @@ def main() -> int:
     # the byte kernels' ms is their device time from the profiler: at the
     # shapes the step functions give them a launch can be shorter than its
     # wrapper's host work, which CUDA events around back-to-back calls time
-    b256 = random_bytes((256, 256))
-    k5_ms, k5_traced = device_ms(lambda: byte_board.step_n(b256, 100), "byte_board_kernel",
-                                 reps=20)
-    k5_events_ms = cuda_ms(lambda: byte_board.step_n(b256, 100), reps=50)
-    k5_plain_ms = cuda_ms(lambda: byte_board.step_n_plain(b256, 100), reps=3, warmup=1)
-    k5_bound_ms, k5_by = byte_bound(b256.numel(), 100)
+    K5 = "byte_board_(?:bits|bytes)_kernel"
+    K6 = "byte_tiled_kernel"
+
+    def byte_times(fn, kernel, reps):
+        """``(device ms per call, launches per call, events ms per call)``:
+        the mean device time of a launch times the launches one call
+        counts."""
+        before = byte_board.launches + byte_tiled.launches
+        fn()
+        per_call = byte_board.launches + byte_tiled.launches - before
+        per_launch, _ = device_ms(fn, kernel, reps=reps, per_call=per_call)
+        return per_launch * per_call, per_call, cuda_ms(fn, reps=reps)
+
+    # K5 at the main path's shapes (16^2, 64^2, the gate's square) and, with
+    # the form forced past the gate, at 256^2 and 512^2
+    k5_rows = {}
+    for size, n, reps in ((64, 8, 50), (64, 100, 20), (16, 8, 50), (gate_side, 8, 50),
+                          (gate_side, 100, 20), (256, 100, 20), (512, 8, 50), (512, 100, 20)):
+        board = random_bytes((size, size))
+        form, cluster = byte_board.form((size, size)), byte_board.cluster_size((size, size))
+
+        def launch():
+            byte_board.step_n(board, n, form=form)
+
+        got = byte_board.step_n(board, n, form=form)
+        check(torch.equal(got, byte_board.step_n_plain(board, n)), f"timed K5 {size}^2 n={n}")
+        dev_ms, _, ev_ms = byte_times(launch, K5, reps)
+        b_ms, b_by = byte_bound(board.numel(), n)
+        k5_rows[size, n] = (dev_ms, b_ms, b_by)
+        print(f"timing whole-board byte {size}^2 ({form}, cluster of {cluster}): "
+              f"{dev_ms:.4f} ms of device time per n={n} launch "
+              f"({dev_ms * 1e3 / n:.3f} us/turn; events {ev_ms:.4f} ms per call), bound "
+              f"{b_ms:.6f} ms ({b_by}), {dev_ms / b_ms:.3g}x the bound {card_tag}")
     b64 = random_bytes((64, 64))
-    k5_small_ms, k5_small_traced = device_ms(lambda: byte_board.step_n(b64, 8),
-                                             "byte_board_kernel", reps=50)
-    k5_small_events_ms = cuda_ms(lambda: byte_board.step_n(b64, 8), reps=200)
-    print(f"timing whole-board byte 256^2: {k5_ms:.4f} ms of device time per n=100 "
-          f"launch ({k5_traced} traced; {k5_ms * 1e3 / 100:.3f} us/turn; events "
-          f"{k5_events_ms:.4f} ms per call), bound {k5_bound_ms:.5f} ms ({k5_by}), "
-          f"{k5_ms / k5_bound_ms:.3g}x the bound; plain {k5_plain_ms:.3f} ms; 64^2 n=8: "
-          f"{k5_small_ms:.4f} ms of device time ({k5_small_traced} traced; events "
-          f"{k5_small_events_ms:.4f} ms per call) {card_tag}")
+    k5_ms, k5_bound_ms, k5_by = k5_rows[64, 100]
+    k5_plain_ms = cuda_ms(lambda: byte_board.step_n_plain(b64, 100), reps=3, warmup=1)
+    print(f"timing whole-board byte 64^2: plain {k5_plain_ms:.3f} ms per n=100 {card_tag}")
 
     k6_times = {}
-    for shape in ((512, 512), (4096, 4096)):
+    for shape, k in (((512, 512), 8), ((4096, 4096), 8), ((4096, 4096), 32)):
         board = random_bytes(shape)
 
-        def launch8():
-            byte_tiled.step_n(board, 8, turns_per_launch=8)
+        def launch_k():
+            byte_tiled.step_n(board, k, turns_per_launch=k)
 
-        one_launch, traced = device_ms(launch8, "byte_tiled_kernel", reps=20)
-        events_ms = cuda_ms(launch8, reps=20)
-        plain_ms = cuda_ms(lambda: byte_tiled.step_n_plain(board, 8, turns_per_launch=8),
+        one_launch, _, events_ms = byte_times(launch_k, K6, 20)
+        plain_ms = cuda_ms(lambda: byte_tiled.step_n_plain(board, k, turns_per_launch=k),
                            reps=2, warmup=1)
-        b_ms, b_by = byte_bound(board.numel(), 8)
-        k6_times[shape] = (one_launch, plain_ms, b_ms, b_by)
-        print(f"timing byte tiles {shape[0]}x{shape[1]}: {one_launch:.4f} ms of device "
-              f"time per 8-turn launch ({traced} traced; {one_launch * 1e3 / 8:.3f} "
+        b_ms, b_by = byte_bound(board.numel(), k)
+        k6_times[shape, k] = (one_launch, plain_ms, b_ms, b_by)
+        print(f"timing byte tiles {shape[0]}x{shape[1]} (tile "
+              f"{byte_tiled.tile_for(shape)}): {one_launch:.4f} ms of device "
+              f"time per {k}-turn launch ({one_launch * 1e3 / k:.3f} "
               f"us/turn; events {events_ms:.4f} ms per call), bound {b_ms:.5f} ms ({b_by}), "
               f"{one_launch / b_ms:.3g}x the bound; plain {plain_ms:.3f} ms {card_tag}")
+
+    # the crossover that sets K5's gate: n turns in one K5 launch (its own
+    # pick of form and cluster, whatever the gate says) against the same
+    # turns on the byte tiles at 8 and at 32 turns a launch; per call, device
+    # time summed over the call's launches and CUDA events around the calls.
+    # 16^2 and 100^2 take K5's byte form, the others its bit form.
+    print(f"crossover K5 against K6, ms per call as device/events {card_tag}:")
+    for size in (16, 100, 64, 128, 160, 192, 224, 256, 512, 1024, 2048):
+        shape = (size, size)
+        board = random_bytes(shape)
+        form = byte_board.form(shape)
+        on_chip = byte_board.smem_bytes(shape) <= smem_limit
+        for n in (8, 32, 100):
+            cells = []
+            if on_chip:
+                d, _, e = byte_times(lambda: byte_board.step_n(board, n, form=form), K5, 10)
+                cells.append(f"K5 ({form}, cluster of {byte_board.cluster_size(shape)}) "
+                             f"{d:.4f}/{e:.4f}")
+            else:
+                cells.append("K5 does not fit")
+            for k in (8, 32):
+                d, per_call, e = byte_times(
+                    lambda: byte_tiled.step_n(board, n, turns_per_launch=k), K6, 10)
+                cells.append(f"K6 at {k} a launch ({per_call:.0f} launches) {d:.4f}/{e:.4f}")
+            gate = "under" if byte_board.fits(shape, dev) else "past"
+            print(f"  {size}^2 ({gate} the gate) n={n}: " + "; ".join(cells))
 
     # -- 7. the kernels line ----------------------------------------------
     big_shape = (512, 16384)
@@ -1027,10 +1302,10 @@ def main() -> int:
             "replaces": "gol_distributed_final_tpu/ops/fused.py:342",
             "launches": launches["byte_tiled"],
             "max_abs_err": k6_err,
-            "ms": k6_times[512, 512][0],
-            "plain_ms": k6_times[512, 512][1],
-            "bound_ms": k6_times[512, 512][2],
-            "bound_by": k6_times[512, 512][3],
+            "ms": k6_times[(512, 512), 8][0],
+            "plain_ms": k6_times[(512, 512), 8][1],
+            "bound_ms": k6_times[(512, 512), 8][2],
+            "bound_by": k6_times[(512, 512), 8][3],
             "library_ms": None,
         },
     ]
@@ -1042,7 +1317,7 @@ def main() -> int:
     print("units: whole_board ms = one counted launch of 100 turns at 512^2; "
           "tiled ms = one 8-turn launch at 16384^2; batch_board ms = one counted "
           "launch of 100 turns over 1000 x 128^2 (CUDA events); byte_board ms = one "
-          "launch of 100 turns at 256^2; byte_tiled ms = one 8-turn launch at 512^2 "
+          "launch of 100 turns at 64^2; byte_tiled ms = one 8-turn launch at 512^2 "
           "(the profiler's device time); library_ms "
           "null: no single PyTorch call computes a life-like turn")
     print(json.dumps({"kernels": kernels}))

@@ -61,6 +61,18 @@ int gol_with_rule(unsigned common, unsigned dead_only, unsigned live_only, Launc
     return launch(DynamicRule{common, dead_only, live_only});
 }
 
+// The same for a rule given as B/S masks (bit c = a neighbour count c), as
+// the byte kernels' entry points take it: the T sets of
+// ops/bitpack.py::rule_masks. A dead cell's T is its count and a live
+// cell's its count + 1.
+template <class Launch>
+int gol_with_bs_rule(unsigned birth_mask, unsigned survive_mask, Launch&& launch) {
+    const unsigned dead = birth_mask & 0x1ffu;
+    const unsigned live = (survive_mask & 0x1ffu) << 1;
+    const unsigned common = dead & live;
+    return gol_with_rule(common, dead & ~common, live & ~common, launch);
+}
+
 // The 2-bit packed-axis sum of one line at one i: a word and its two
 // neighbours along the packed axis, the carries crossing word boundaries
 // through the adjacent words (logical shifts, which uint32_t gives).

@@ -9,6 +9,8 @@ wrapper hands those to the helpers here.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -43,15 +45,27 @@ def launch_plain(board, k: int, tile: tuple[int, int], step_n, halo=None):
     return out[:rows, :cols].contiguous()
 
 
+def on_device(board: torch.Tensor):
+    """``(guard, stream)`` for launches on the board's CUDA device: the
+    current stream's handle there, and a context that makes the device
+    current, which is empty where it already is (the usual case: entering
+    ``torch.cuda.device`` costs more host time than a short kernel runs)."""
+    index = board.device.index
+    if index is None or index == torch.cuda.current_device():
+        return contextlib.nullcontext(), torch.cuda.current_stream().cuda_stream
+    return torch.cuda.device(index), torch.cuda.current_stream(index).cuda_stream
+
+
 def ping_pong(board: torch.Tensor, sizes, launch) -> torch.Tensor:
     """``launch(src, dst, k, stream)`` once for each k of ``sizes``, on the
-    board's CUDA device and current stream. Blocks run in no order, so no
-    launch may write the board it reads: two scratch boards alternate as
-    the destination and ``board`` is never written. Returns the last board
-    written (``board`` itself when ``sizes`` is empty)."""
+    board's CUDA device and current stream, both taken once for all the
+    launches. Blocks run in no order, so no launch may write the board it
+    reads: two scratch boards, allocated once, alternate as the destination
+    and ``board`` is never written. Returns the last board written
+    (``board`` itself when ``sizes`` is empty)."""
     src, scratch = board, [torch.empty_like(board)]
-    with torch.cuda.device(board.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    guard, stream = on_device(board)
+    with guard:
         for i, k in enumerate(sizes):
             if i == 1:
                 scratch.append(torch.empty_like(board))

@@ -15,11 +15,14 @@ packages. Routing is by shape; nothing catches a failed launch:
 
 * ``fused_step_n``: the whole-board byte kernel under its gate
   (ops/byte_board.py, K5), else the byte tiles (ops/byte_tiled.py, K6).
-  K5's gate is the port's own (two copies in one block's shared memory),
-  so 512^2 takes the byte tiles here where the JAX package takes K5. A
-  CPU board the tiles cannot take (``can_tile_byte``) gets the roll
-  stencil, as the JAX package's does; on the card the byte tiles refuse
-  it, so nothing there runs in torch ops;
+  K5's gate is the port's own (``byte_board.fits``: the board on chip in
+  one thread block cluster, up to the measured size where the byte tiles
+  overtake it, 192^2), so 512^2 takes the byte tiles here where the JAX
+  package takes K5. A whole ladder is one call of the kernel's ``step_sizes``,
+  which allocates its two scratch boards and takes the device and the
+  stream once for all the rungs. A CPU board the tiles cannot take
+  (``can_tile_byte``) gets the roll stencil, as the JAX package's does; on
+  the card the byte tiles refuse it, so nothing there runs in torch ops;
 * ``fused_bit_step_n``: the whole-board kernel under its gate (K1), else
   the tiled kernel with K turns per launch (K3/K4), which takes any shape.
   The tiled kernel's tile is fixed (ops/tiled.py::TILE), so where the JAX
@@ -69,10 +72,15 @@ def _ladder(n: int, k: int) -> tuple[int, tuple[int, ...]]:
     return full, rem_ks
 
 
+def _ladder_sizes(n: int, k: int) -> tuple[int, ...]:
+    """The turns of each launch of the ladder of n, k, in order."""
+    full, rem_ks = _ladder(n, k)
+    return (k,) * full + rem_ks
+
+
 def _run_ladder(launch, state, n: int, k: int):
     """``launch(state, turns)`` once per launch of the ladder of n, k."""
-    full, rem_ks = _ladder(n, k)
-    for turns in (k,) * full + rem_ks:
+    for turns in _ladder_sizes(n, k):
         state = launch(state, turns)
     return state
 
@@ -110,15 +118,10 @@ def fused_step_n(
     kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
     shape = tuple(board.shape)
     if byte_board.fits(shape, board.device):
-        return _run_ladder(
-            lambda b, t: byte_board.step_n(b, t, birth, survive), board, n, kq
-        )
-    # on the card a board the tiles cannot take raises in byte_tiled.step_n
+        return byte_board.step_sizes(board, _ladder_sizes(n, kq), birth, survive)
+    # on the card a board the tiles cannot take raises in byte_tiled.step_sizes
     if can_tile_byte(shape) or board.device.type != "cpu":
-        return _run_ladder(
-            lambda b, t: byte_tiled.step_n(b, t, birth, survive, turns_per_launch=t),
-            board, n, kq,
-        )
+        return byte_tiled.step_sizes(board, _ladder_sizes(n, kq), birth, survive)
     return stencil_step_n(board, n, birth_mask=birth, survive_mask=survive)
 
 

@@ -5,13 +5,15 @@ the kernels behind it are the port's CUDA kernels, the whole-board byte
 kernel (K5, ops/byte_board.py) and the bitboard kernels
 (ops/whole_board.py, ops/tiled.py).
 
-K5's gate is the port's own: a byte board runs on it while its two copies
-fit one block's shared memory (2 * H * W <= 232,448 B on an H100, so up to
-340^2). The JAX package's gate admits up to 419,430 cells, and past it the
-JAX package hands a board to the rule's roll stencil. So a 512^2 byte
-board runs on K5 there and, unless the caller gives a ``fallback``, on the
-byte tiles here (K6, ops/byte_tiled.py, 32 turns per launch): on the card
-no default route runs torch ops. The boards are equal either way.
+K5's gate is the port's own (``byte_board.fits``): a byte board runs on
+it while it fits on chip in one thread block cluster and is no larger than
+the measured size where the byte tiles overtake that cluster (192^2: 8 SMs
+with a barrier a turn against 132 relaunched every 32 turns). The JAX
+package's gate admits up to 419,430 cells and hands a board past it to the
+rule's roll stencil. So a 512^2 byte board runs on K5 there and, unless the
+caller gives a ``fallback``, on the byte tiles here (K6,
+ops/byte_tiled.py, 32 turns per launch): on the card no default route runs
+torch ops. The boards are equal either way.
 """
 
 from __future__ import annotations

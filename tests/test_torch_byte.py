@@ -21,7 +21,7 @@ from gol_distributed_final_tpu.ops import fused as jfused
 from gol_distributed_final_tpu.ops import pallas_stencil as jps
 from gol_distributed_final_tpu.ops import stencil as jstencil
 from gol_distributed_final_tpu_torch.models import life as tlife
-from gol_distributed_final_tpu_torch.ops import bitpack, byte_board, byte_tiled
+from gol_distributed_final_tpu_torch.ops import bitpack, byte_board, byte_tiled, whole_board
 from gol_distributed_final_tpu_torch.ops.fused import can_tile_byte
 
 RULES = ["CONWAY", "HIGHLIFE", "SEEDS", "DAY_AND_NIGHT"]
@@ -81,13 +81,87 @@ def test_byte_board_zero_turns_copies_without_a_launch():
 
 
 def test_byte_board_gate_is_two_copies_in_the_cards_shared_memory():
-    assert byte_board.smem_bytes((256, 256)) == 131_072
-    assert byte_board.fits((256, 256), "cpu")
-    assert byte_board.fits((340, 340), "cpu")  # 231,200 B: the largest square
-    assert not byte_board.fits((341, 341), "cpu")
-    assert not byte_board.fits((512, 512), "cpu")  # JAX's gate admits 512^2
-    assert jps.fits_vmem((512, 512), 4)
+    """The gate: the form's two copies in a block's shared memory (bytes: the
+    board twice; bits: a band of packed lines with its halo twice) and at
+    most ``MAX_CELLS`` cells, the measured size where the byte tiles
+    overtake."""
+    limit = whole_board.H100_SMEM_OPTIN
+    # the byte form: 2 * H * W bytes in one block
+    assert byte_board.smem_bytes((24, 33)) == 2 * 24 * 33
+    assert byte_board.fits((24, 33), "cpu") and byte_board.fits((16, 16), "cpu")
+    # its own size limit: a 100^2 board is under MAX_CELLS and still the tiles'
+    assert 24 * 33 <= byte_board.MAX_BYTE_FORM_CELLS < 100 * 100 <= byte_board.MAX_CELLS
+    assert byte_board.form((100, 100)) == "bytes" and not byte_board.fits((100, 100), "cpu")
+    assert byte_board.fits((96, 100), "cpu")  # the same cells in the bit form
+    # 340^2 is the largest byte square a block holds, and past the size limit
+    assert byte_board.smem_bytes((340, 340)) == 231_200 <= limit
+    assert byte_board.smem_bytes((341, 341)) > limit
+    assert not byte_board.fits((340, 340), "cpu") and 340 * 340 > byte_board.MAX_CELLS
+    # the bit form: 64^2 is 128 words on one block, no halo
+    assert byte_board.smem_bytes((64, 64)) == 2 * 4 * 128
+    # 256^2 on 8 blocks: 32 lines and 2 * HALO_DEPTH halo lines of 8 words, twice
+    depth = byte_board.HALO_DEPTH
+    assert byte_board.cluster_size((256, 256)) == 8
+    assert byte_board.smem_bytes((256, 256)) == 2 * 4 * (32 + 2 * min(depth, 32)) * 8
+    assert byte_board.fits((128, 128), "cpu")
+    # the size limit is the named constant, whatever shared memory would hold
+    side = int(byte_board.MAX_CELLS ** 0.5) // 32 * 32
+    assert byte_board.fits((side, side), "cpu")
+    assert not byte_board.fits((side + 32, side + 32), "cpu")
+    assert byte_board.smem_bytes((side + 32, side + 32)) <= limit
+    assert byte_board.fits((512, 512), "cpu") == (512 * 512 <= byte_board.MAX_CELLS)
+    assert jps.fits_vmem((512, 512), 4)  # the JAX package's gate admits 512^2
     assert not byte_board.fits((2, 16, 16), "cpu")  # a batch is no board
+    assert not byte_board.fits((0, 32), "cpu")
+
+
+#: every shape chip_smoke.py gives the whole-board byte kernel, with the form
+#: it must pick and the cluster
+SMOKE_SHAPES = [
+    ((16, 16), "bytes", 1), ((24, 33), "bytes", 1), ((340, 340), "bytes", 1),
+    ((64, 64), "bits-cols", 1), ((128, 128), "bits-cols", 1), ((160, 160), "bits-cols", 8),
+    ((192, 192), "bits-cols", 8), ((256, 256), "bits-cols", 8), ((100, 100), "bytes", 1),
+    ((512, 512), "bits-cols", 8), ((96, 160), "bits-cols", 1), ((64, 48), "bits-rows", 1),
+    ((96, 100), "bits-rows", 1), ((512, 500), "bits-rows", 4), ((1024, 1024), "bits-cols", 8),
+]
+
+
+@pytest.mark.parametrize("shape,form,cluster", SMOKE_SHAPES)
+def test_byte_board_routes_by_shape(shape, form, cluster):
+    """Bits where an axis is a multiple of 32 (columns first), bytes
+    otherwise; a cluster from ``MIN_CLUSTER_WORDS`` packed words on, the
+    largest of 8, 4, 2 that divides the lines."""
+    assert byte_board.form(shape) == form
+    assert byte_board.cluster_size(shape) == cluster
+    if form == "bytes":
+        assert shape[0] % 32 and shape[1] % 32
+        return
+    words, lines = byte_board._lines(shape, form)
+    assert words * 32 == (shape[0] if form == "bits-rows" else shape[1])
+    assert lines % cluster == 0
+    assert (cluster > 1) == (words * lines >= byte_board.MIN_CLUSTER_WORDS)
+    # every forced cluster needs no more shared memory than one block
+    assert byte_board.smem_bytes(shape, form, 1) == 2 * 4 * words * lines
+    for c in (2, 4, 8):
+        if lines % c == 0 and lines // c >= byte_board.HALO_DEPTH:
+            assert byte_board.smem_bytes(shape, form, c) == \
+                2 * 4 * (lines // c + 2 * byte_board.HALO_DEPTH) * words
+
+
+@pytest.mark.parametrize("sizes", [[3], [8, 4, 1], [1] * 5])
+def test_byte_board_step_sizes_is_a_ladder_in_one_call(sizes):
+    """One plain call per launch it stands in for, the same board as the
+    launches one by one, and the input untouched."""
+    board = _board(24, 33, seed=len(sizes))
+    state = torch.from_numpy(board.copy())
+    before = (byte_board.launches, byte_board.plain_calls)
+    got = byte_board.step_sizes(state, sizes)
+    assert (byte_board.launches, byte_board.plain_calls) == (before[0], before[1] + len(sizes))
+    want = np.asarray(jstencil.step_n(board, sum(sizes)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(state.numpy(), board)
+    with pytest.raises(ValueError, match=">= 1 turns"):
+        byte_board.step_sizes(state, [2, 0])
 
 
 # -- the byte tiles (K6) ------------------------------------------------------
@@ -157,19 +231,146 @@ def test_byte_tiles_take_every_shape_the_jax_predicate_takes():
     assert taken > 500 and jfused.can_tile_byte((512, 512)) and can_tile_byte((512, 512))
     # no alignment and no width limit here; only the launch grid's rows
     assert can_tile_byte((24, 33)) and can_tile_byte((1, 1)) and can_tile_byte((64, 65536))
-    assert can_tile_byte((65_535 * 32, 1))
-    assert not can_tile_byte((65_535 * 32 + 1, 1))
+    tallest = byte_tiled.MAX_GRID_ROWS * byte_tiled.TILE[0]  # such a board takes the wide tile
+    assert can_tile_byte((tallest, 1)) and byte_tiled.tile_for((tallest, 1)) == byte_tiled.TILE
+    assert not can_tile_byte((tallest + 1, 1))
     assert not can_tile_byte((0, 5)) and not can_tile_byte((2, 16, 16))
 
 
+def _constants(source):
+    src = (pathlib.Path(byte_tiled.__file__).parents[1] / "csrc" / source).read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
 def test_byte_tiled_constants_match_the_kernel_source():
-    src = (pathlib.Path(byte_tiled.__file__).parents[1] / "csrc" / "byte_tiled.cu").read_text()
-    consts = {k: int(v) for k, v in re.findall(
-        r"constexpr int (kTileR|kTileC|kMaxTurns|kMaxGridY) = (\d+);", src
-    )}
+    consts = _constants("byte_tiled.cu")
     assert (consts["kTileR"], consts["kTileC"]) == byte_tiled.TILE
+    assert (consts["kSmallTileR"], consts["kSmallTileC"]) == byte_tiled.SMALL_TILE
+    assert consts["kMinBlocks"] == byte_tiled.MIN_BLOCKS
     assert consts["kMaxTurns"] == byte_tiled.MAX_TURNS
     assert consts["kMaxGridY"] == byte_tiled.MAX_GRID_ROWS
+    # whole words wide, and one halo word covers a launch's turns
+    assert byte_tiled.TILE[1] % 32 == 0 and byte_tiled.SMALL_TILE[1] % 32 == 0
+    assert byte_tiled.MAX_TURNS <= bitpack.WORD
+
+
+def test_byte_board_constants_match_the_kernel_source():
+    consts = _constants("byte_board.cu")
+    assert consts["kMaxCluster"] == byte_board.MAX_CLUSTER == 8  # the portable limit
+    assert consts["kMinClusterWords"] == byte_board.MIN_CLUSTER_WORDS
+    assert consts["kHaloDepth"] == byte_board.HALO_DEPTH
+    src = (pathlib.Path(byte_board.__file__).parents[1] / "csrc" / "byte_board.cu").read_text()
+    forms = re.search(r"enum Form \{ kBitsCols = 0, kBitsRows = 1, kBytes = 2 \};", src)
+    assert forms and byte_board.FORMS == ("bits-cols", "bits-rows", "bytes")
+
+
+def test_byte_tiles_pick_the_tile_by_the_boards_size():
+    """The wide tile from ``MIN_BLOCKS`` wide tiles on, the small one under."""
+    tr, tc = byte_tiled.TILE
+    assert byte_tiled.tile_for((512, 512)) == byte_tiled.SMALL_TILE
+    assert byte_tiled.tile_for((4096, 4096)) == byte_tiled.TILE
+    for shape in ((tr * 11, tc * 12), (tr * 12, tc * 11), (tr * 132, 1), (1, tc * 132)):
+        assert byte_tiled.tile_for(shape) == byte_tiled.TILE, shape
+    for shape in ((tr * 131, tc), (tr * 10, tc * 13), (5, 7)):
+        assert byte_tiled.tile_for(shape) == byte_tiled.SMALL_TILE, shape
+
+
+@pytest.mark.parametrize("tile", ["wide", "small"])
+@pytest.mark.parametrize("shape", [(64, 256), (96, 320), (45, 300), (300, 45), (5, 7), (1, 1)])
+@pytest.mark.parametrize("turns", [1, 8, 32])
+def test_byte_tiles_packed_windows_match_jax_stencil(tile, shape, turns):
+    """One launch's plain version on either tile (gather the window in
+    cells, pack, ``bit_step_n``, unpack) against the JAX package's roll
+    stencil on the whole torus: aligned, ragged and tiny boards, whose
+    windows wrap more than once."""
+    tile = byte_tiled.TILE if tile == "wide" else byte_tiled.SMALL_TILE
+    rule = jlife.DAY_AND_NIGHT
+    board = _board(*shape, seed=turns + shape[1])
+    want = np.asarray(jstencil.step_n(
+        board, turns, birth_mask=rule.birth_mask, survive_mask=rule.survive_mask
+    ))
+    got = byte_tiled.launch_plain(torch.from_numpy(board), turns, rule.birth_mask,
+                                  rule.survive_mask, tile=tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = byte_tiled.step_n(torch.from_numpy(board), turns, rule.birth_mask,
+                            rule.survive_mask, turns_per_launch=turns, tile=tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("tile", ["wide", "small"])
+@pytest.mark.parametrize("turns", [8, 32])
+def test_byte_tiles_packed_windows_match_pallas(tile, turns):
+    """The same against the Pallas kernel in interpret mode, at the shape
+    the JAX package's own test runs it."""
+    tile = byte_tiled.TILE if tile == "wide" else byte_tiled.SMALL_TILE
+    shape = (96, 256)
+    board = _board(*shape, seed=turns)
+    want = np.asarray(jax.jit(jfused.byte_tiled_pallas_call(
+        turns, shape, jlife.CONWAY.birth_mask, jlife.CONWAY.survive_mask, True
+    ))(board))
+    got = byte_tiled.launch_plain(torch.from_numpy(board), turns, tile=tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_byte_tiles_read_any_nonzero_byte_as_alive():
+    board = np.random.default_rng(6).integers(0, 256, (45, 300)).astype(np.uint8)
+    board[board < 170] = 0
+    want = np.asarray(jstencil.step_n(np.where(board != 0, 255, 0).astype(np.uint8), 5))
+    got = byte_tiled.step_n(torch.from_numpy(board), 5).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got)) <= {0, 255}
+
+
+@pytest.mark.parametrize("turns", [1, 8, 31, 32])
+def test_one_halo_word_covers_the_turns_of_a_launch(turns):
+    """The halo argument. A window of three words a line, cut from a torus
+    five words wide: its halo words' outer neighbours are wrong (the cyclic
+    roll hands each the other), which spoils one more of their outer bits a
+    turn and nothing else, so after up to 32 turns the middle word is still
+    the torus's."""
+    assert byte_tiled.halo(turns) == (turns, 32)
+    rng = np.random.default_rng(turns)
+    wide = torch.from_numpy(
+        rng.integers(-2**31, 2**31, size=(40, 5), dtype=np.int64).astype(np.int32))
+    want = bitpack.bit_step_n(wide, turns, 1)[:, 1:4]
+    got = bitpack.bit_step_n(wide[:, 1:4].contiguous(), turns, 1)
+    assert torch.equal(got[:, 1], want[:, 1])
+    wrong = (got ^ want).to(torch.int64) & 0xFFFFFFFF
+    if turns < 32:  # the left word spoils from bit 0 up, the right from bit 31 down
+        assert int((wrong[:, 0] >> turns).max()) == 0
+        assert int((wrong[:, 2] & ((1 << (32 - turns)) - 1)).max()) == 0
+    assert int(wrong[:, 0].max()) > 0 and int(wrong[:, 2].max()) > 0  # and they do spoil
+
+
+def test_one_halo_word_does_not_cover_33_turns():
+    """The bound is tight. Under a rule that grows a blob by one cell a turn
+    in every direction, a lone cell just left of the window reaches the
+    middle word's first bit at turn 33 on the torus; the window, which never
+    held it, stays empty."""
+    with pytest.raises(ValueError, match=r"1\.\.32 turns"):
+        byte_tiled.halo(33)
+    grow = dict(birth_mask=0x1FE, survive_mask=0x1FF)  # B12345678/S012345678
+    wide = torch.zeros((80, 5), dtype=torch.int32)
+    wide[40, 0] = -2**31  # bit 31 of word 0: the cell next to the window
+    for turns, reached in ((32, False), (33, True)):
+        want = bitpack.bit_step_n(wide, turns, 1, **grow)[:, 2]
+        got = bitpack.bit_step_n(wide[:, 1:4].contiguous(), turns, 1, **grow)[:, 1]
+        assert not got.any()
+        assert bool(want.any()) == reached
+        assert torch.equal(got, want) != reached
+
+
+@pytest.mark.parametrize("sizes", [[8, 4, 1], [32, 8]])
+def test_byte_tiled_step_sizes_is_a_ladder_in_one_call(sizes):
+    board = _board(45, 300, seed=sum(sizes))
+    state = torch.from_numpy(board.copy())
+    before = (byte_tiled.launches, byte_tiled.plain_calls)
+    got = byte_tiled.step_sizes(state, sizes)
+    assert (byte_tiled.launches, byte_tiled.plain_calls) == (before[0], before[1] + len(sizes))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jstencil.step_n(board, sum(sizes))))
+    np.testing.assert_array_equal(state.numpy(), board)
+    with pytest.raises(ValueError, match="1..32 turns"):
+        byte_tiled.step_sizes(state, [8, 33])
 
 
 def test_byte_wrappers_refuse_other_devices():

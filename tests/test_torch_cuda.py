@@ -37,6 +37,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _traced_kernels(fn, needles):
+    """The names of the kernels ``fn()`` launched that hold one of
+    ``needles``, from the profiler's trace. A trace sometimes comes back
+    without some of a window's kernels, its first launch above all, and
+    such records can turn up in a later window. So ``fn`` runs twice in a
+    window, a kernel that started before its window's first launch call is
+    left out, and windows are taken, up to eight, until every needle has a
+    kernel among the names seen so far."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        calls = [ev.time_range.start for ev in events
+                 if ev.device_type == DeviceType.CPU and ev.name.startswith("cudaLaunchKernel")]
+        names |= {ev.name for ev in events
+                  if ev.device_type == DeviceType.CUDA and calls
+                  and ev.time_range.start >= min(calls)
+                  and any(needle in ev.name for needle in needles)}
+        if all(any(needle in name for name in names) for needle in needles):
+            break
+    return sorted(names)
+
+
 def _words(shape, seed, device):
     gen = np.random.default_rng(seed)
     return torch.from_numpy(
@@ -156,18 +186,13 @@ def test_batched_kernel_batch_sizes(cuda_device, size, batch):
 def test_rule_picks_its_instantiation(cuda_device):
     """A compiled rule launches a StaticRule instantiation, any other rule
     the DynamicRule one (the kernels' names in the profiler's trace)."""
-    from torch.profiler import ProfilerActivity, profile
-
     packed = _words((3,) + bitpack.packed_shape(64, 64, 0), 4, cuda_device)
     other = ALL_RULES[-2]
     for rule, kind in ((life.HIGHLIFE, "StaticRule"), (other, "DynamicRule")):
         masks = (rule.birth_mask, rule.survive_mask)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            batch_board.step_n(packed, 3, 0, *masks)
-            tiled.step_n(packed[0], 3, 0, *masks)
-            torch.cuda.synchronize()
-        names = [ev.key for ev in prof.key_averages()
-                 if "whole_board_kernel" in ev.key or "tiled_kernel" in ev.key]
+        names = _traced_kernels(lambda: (batch_board.step_n(packed, 3, 0, *masks),
+                                         tiled.step_n(packed[0], 3, 0, *masks)),
+                                ("whole_board_kernel", "tiled_kernel"))
         assert len(names) == 2 and all(kind in name for name in names), names
 
 
@@ -293,26 +318,110 @@ def _bytes(shape, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 16), (24, 33), (256, 256), (340, 340)])
 def test_byte_board_kernel_matches_plain(cuda_device, shape):
-    """K5: one launch a call, for 4 rules, up to the largest square under
-    its gate; any nonzero byte is alive."""
+    """K5: one launch a call, for 4 rules, in the form the shape picks
+    (forced, so a board past the size limit runs too), up to the largest
+    byte square a block holds; any nonzero byte is alive."""
     board = _bytes(shape, shape[1], cuda_device)
     board[board == 255] = 7 + shape[0] % 200
     before = byte_board.launches
     for rule in RULES:
         for n in (1, 7, 100):
-            got = byte_board.step_n(board, n, rule.birth_mask, rule.survive_mask)
+            got = byte_board.step_n(board, n, rule.birth_mask, rule.survive_mask,
+                                    form=byte_board.form(shape))
             want = byte_board.step_n_plain(board, n, rule.birth_mask, rule.survive_mask)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
     assert byte_board.launches == before + len(RULES) * 3
 
 
+def _past_the_gate():
+    """The smallest 32-aligned square past the whole-board byte kernel's
+    size limit."""
+    side = int(byte_board.MAX_CELLS ** 0.5) // 32 * 32 + 32
+    assert side * side > byte_board.MAX_CELLS
+    return side, side
+
+
 @pytest.mark.cuda
 def test_byte_board_refuses_a_board_past_its_gate(cuda_device):
-    assert byte_board.fits((340, 340), cuda_device)
-    big = torch.zeros((512, 512), dtype=torch.uint8, device=cuda_device)
+    limit = whole_board.smem_limit(cuda_device)  # bytes: two copies in a block
+    assert byte_board.smem_bytes((340, 340)) <= limit < byte_board.smem_bytes((341, 341))
+    assert byte_board.fits((16, 16), cuda_device) and byte_board.fits((64, 64), cuda_device)
+    assert not byte_board.fits(_past_the_gate(), cuda_device)
+    big = torch.zeros(_past_the_gate(), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="byte tiles"):
         byte_board.step_n(big, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,forms", [
+    ((64, 64), ("bits-cols", "bits-rows", "bytes")), ((256, 256), ("bits-cols", "bits-rows")),
+    ((512, 512), ("bits-cols", "bits-rows")), ((96, 160), ("bits-cols", "bits-rows")),
+    ((64, 48), ("bits-rows", "bytes")), ((40, 64), ("bits-cols", "bytes")),
+    ((512, 500), ("bits-rows",)), ((32, 32), ("bits-cols", "bits-rows")),
+])
+def test_byte_board_forms_and_clusters_match_plain(cuda_device, shape, forms):
+    """K5 in each form the shape allows, on the cluster the launcher picks
+    and on every cluster of 1, 2, 4, 8 blocks that divides the lines, under
+    a compiled rule and a run-time one; cells alive as any byte."""
+    assert byte_board.form(shape) == forms[0]
+    board = _bytes(shape, shape[0] + shape[1], cuda_device)
+    board[board == 255] = 1 + sum(shape) % 250
+    limit = whole_board.smem_limit(cuda_device)
+    for rule in (life.CONWAY, ALL_RULES[-2]):
+        masks = (rule.birth_mask, rule.survive_mask)
+        for n in (1, 16, 17, 50):  # one phase of the halo's depth, one turn more, several
+            want = byte_board.step_n_plain(board, n, *masks)
+            for form in forms:
+                clusters = [None]
+                if form != "bytes":
+                    lines = byte_board._lines(shape, form)[1]
+                    clusters += [c for c in (1, 2, 4, 8) if lines % c == 0
+                                 and byte_board.smem_bytes(shape, form, c) <= limit]
+                for cluster in clusters:
+                    before = _launches()
+                    got = byte_board.step_n(board, n, *masks, form=form, cluster=cluster)
+                    torch.cuda.synchronize()
+                    assert _delta(before) == {"byte_board": 1}
+                    assert torch.equal(got, want), (rule.name, n, form, cluster)
+
+
+@pytest.mark.cuda
+def test_byte_board_cluster_shows_in_the_kernels_name(cuda_device):
+    """512^2 runs the bit form on a cluster of 8 blocks, 24x33 the byte
+    form (the kernels' names in the profiler's trace)."""
+    assert byte_board.cluster_size((512, 512)) == 8
+    big, small = _bytes((512, 512), 1, cuda_device), _bytes((24, 33), 1, cuda_device)
+    names = _traced_kernels(lambda: (byte_board.step_n(big, 3, form="bits-cols"),
+                                     byte_board.step_n(small, 3)),
+                            ("byte_board_bits_kernel", "byte_board_bytes_kernel"))
+    assert any("byte_board_bits_kernel<8, StaticRule" in name for name in names), names
+    assert any("byte_board_bytes_kernel" in name for name in names), names
+
+
+@pytest.mark.cuda
+def test_a_refused_cluster_launch_raises(cuda_device):
+    """A cluster of 16 blocks is past the portable limit: the card refuses
+    the launch, the wrapper raises and counts nothing, and the next launch
+    runs. A cluster that does not divide the lines, a form the shape
+    cannot take and a board too large for a block's shared memory raise
+    likewise."""
+    board = _bytes((512, 512), 2, cuda_device)
+    before = _launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        byte_board.step_n(board, 3, cluster=16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        byte_board.step_n(_bytes((36, 64), 2, cuda_device), 3, cluster=8)  # 36 % 8 != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        byte_board.step_n(_bytes((24, 33), 2, cuda_device), 3, form="bits-cols")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        byte_board.step_n(_bytes((1024, 1024), 2, cuda_device), 3, cluster=1)  # 256 KiB
+    with pytest.raises(ValueError, match="form must be"):
+        byte_board.step_n(board, 3, form="words")
+    torch.cuda.synchronize()
+    assert _delta(before) == {}
+    assert torch.equal(byte_board.step_n(board, 3, form="bits-cols"),
+                       byte_board.step_n_plain(board, 3))
 
 
 @pytest.mark.cuda
@@ -335,6 +444,68 @@ def test_byte_tiled_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", ["wide", "small"])
+@pytest.mark.parametrize("shape", [(64, 256), (45, 300), (300, 45), (5, 7), (1, 1), (100, 1000)])
+def test_byte_tiled_kernel_on_either_tile(cuda_device, shape, tile):
+    """K6 with its tile forced, on ragged boards and boards smaller than a
+    window, at 1, 8 and 32 turns a launch, under a compiled rule and a
+    run-time one; cells alive as any byte; rows that are not 16-byte
+    aligned take the narrow loads."""
+    tile = byte_tiled.TILE if tile == "wide" else byte_tiled.SMALL_TILE
+    board = _bytes(shape, shape[1], cuda_device)
+    board[board == 255] = 3 + shape[0] % 250
+    for rule in (life.HIGHLIFE, ALL_RULES[-1]):
+        args = (rule.birth_mask, rule.survive_mask)
+        for k in (1, 8, 32):
+            before = _launches()
+            got = byte_tiled.step_n(board, k, *args, turns_per_launch=k, tile=tile)
+            torch.cuda.synchronize()
+            assert _delta(before) == {"byte_tiled": 1}
+            assert torch.equal(got, byte_tiled.step_n_plain(board, k, *args,
+                                                            turns_per_launch=k, tile=tile))
+            assert torch.equal(got, byte_board.step_n_plain(board, k, *args))
+            assert set(got.unique().tolist()) <= {0, 255}
+
+
+@pytest.mark.cuda
+def test_byte_tiled_kernel_on_a_misaligned_board(cuda_device):
+    """A board that starts off a 16-byte boundary takes the narrow loads and
+    stores and stays exact."""
+    backing = _bytes((1 + 64 * 128,), 9, cuda_device)
+    board = backing[1:].view(64, 128)
+    assert board.is_contiguous() and board.data_ptr() % 16 != 0
+    for module, args in ((byte_tiled, dict(turns_per_launch=8)), (byte_board, {})):
+        got = module.step_n(board, 8, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, byte_board.step_n_plain(board, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module,shape", [("byte_board", (512, 512)), ("byte_board", (24, 33)),
+                                          ("byte_tiled", (512, 512)), ("byte_tiled", (45, 300))])
+def test_step_sizes_is_one_launch_a_rung_on_two_scratch_boards(cuda_device, module, shape):
+    """A whole ladder in one call: one launch per rung, two scratch boards
+    however many the rungs, the input never written. K5's form is forced, so
+    the 512^2 board runs on its cluster wherever the gate stands."""
+    module = {"byte_board": byte_board, "byte_tiled": byte_tiled}[module]
+    forced = {"form": byte_board.form(shape)} if module is byte_board else {}
+    board = _bytes(shape, 7, cuda_device)
+    kept = board.clone()
+    sizes = [8] * 5 + [4, 1]
+    module.step_sizes(board, sizes, **forced)  # builds and warms the allocator
+    torch.cuda.synchronize()
+    before = _launches()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = module.step_sizes(board, sizes, **forced)
+    allocations = torch.cuda.memory_stats()["allocation.all.allocated"] - allocated
+    torch.cuda.synchronize()
+    assert _delta(before) == {module.__name__.rsplit(".", 1)[1]: len(sizes)}
+    assert allocations == 2
+    assert torch.equal(board, kept)
+    assert torch.equal(got, byte_board.step_n_plain(board, sum(sizes)))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("size", [16, 64, 512])
 @pytest.mark.parametrize("step", ["fused_step_n", "pallas_step_n_fn"])
 def test_golden_session_through_a_step_function_on_the_card(cuda_device, size, step, tmp_path):
@@ -348,7 +519,7 @@ def test_golden_session_through_a_step_function_on_the_card(cuda_device, size, s
     name = f"{size}x{size}x100.pgm"
     assert (tmp_path / name).read_bytes() == (REPO_ROOT / "check" / "images" / name).read_bytes()
     assert byte_board.plain_calls == byte_tiled.plain_calls == 0
-    if size < 512:
+    if byte_board.fits((size, size), cuda_device):
         assert byte_board.launches > 0 and byte_tiled.launches == 0
     else:
         assert byte_board.launches == 0 and byte_tiled.launches > 0
@@ -416,23 +587,26 @@ def test_fused_bit_step_n_batch_ladder_on_the_card(cuda_device, size, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,k", [((64, 64), 8), ((24, 33), 2), ((512, 512), 8),
-                                     ((512, 512), 4)])
+@pytest.mark.parametrize("shape,k", [((64, 64), 8), ((24, 33), 2), ((192, 192), 8),
+                                     ((512, 512), 8), ((512, 512), 4), ((2048, 2048), 8),
+                                     ((1056, 1000), 2)])
 def test_fused_step_n_ladder_on_the_card(cuda_device, shape, k):
-    """K5's ladder under its gate, K6's past it: one launch per rung."""
+    """K5's ladder under its gate (``byte_board.fits``), K6's past it (2048^2
+    and 1056 x 1000 under any gate): one launch per rung."""
     board = _bytes(shape, shape[0] + k, cuda_device)
     rule = life.DAY_AND_NIGHT
     before = _launches()
     got = fused.fused_step_n(board, 13, k=k, rule=rule)
     torch.cuda.synchronize()
-    kernel = "byte_tiled" if shape == (512, 512) else "byte_board"
+    kernel = "byte_board" if byte_board.fits(shape, cuda_device) else "byte_tiled"
+    assert kernel == "byte_tiled" or shape[0] <= 512
     assert _delta(before) == {kernel: _rungs(13, k)}
     assert torch.equal(got, byte_board.step_n_plain(board, 13, rule.birth_mask,
                                                     rule.survive_mask))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (512, 512)])
+@pytest.mark.parametrize("shape", [(64, 64), (192, 192), (512, 512), (2048, 2048)])
 def test_pallas_step_n_fn_on_the_card(cuda_device, shape):
     """One K5 launch under its gate; past it the byte tiles, 32 turns a
     launch, never the roll stencil."""
@@ -440,7 +614,9 @@ def test_pallas_step_n_fn_on_the_card(cuda_device, shape):
     before = _launches()
     got = pallas_stencil.pallas_step_n_fn(life.SEEDS)(board, 40)
     torch.cuda.synchronize()
-    assert _delta(before) == ({"byte_board": 1} if shape == (64, 64) else {"byte_tiled": 2})
+    on_k5 = byte_board.fits(shape, cuda_device)
+    assert on_k5 == (shape[0] * shape[1] <= byte_board.MAX_CELLS)
+    assert _delta(before) == ({"byte_board": 1} if on_k5 else {"byte_tiled": 2})
     seeds = (life.SEEDS.birth_mask, life.SEEDS.survive_mask)
     assert torch.equal(got, byte_board.step_n_plain(board, 40, *seeds))
 

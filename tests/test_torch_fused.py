@@ -60,6 +60,12 @@ def _launches(n, k):
     return full + len(rem_ks)
 
 
+def _byte_kernel(shape):
+    """The kernel a byte board of ``shape`` is routed to: K5 under its gate,
+    else K6."""
+    return "byte_board" if byte_board.fits(tuple(shape), "cpu") else "byte_tiled"
+
+
 # -- quantiser and ladder -----------------------------------------------------
 
 
@@ -79,17 +85,36 @@ def test_quantise_k_and_ladder_equal_jax():
 @pytest.mark.parametrize("shape", WIRE_GEOMETRIES + [(64, 128), (512, 512)])
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_fused_step_n_matches_jax(shape, k):
-    """n = 13 turns, K per launch: K5's ladder under the port's gate, K6's
-    past it (512^2, which the JAX package keeps on K5); one plain call per
-    launch of the ladder."""
+    """n = 13 turns, K per launch: K5's ladder under the port's gate
+    (``byte_board.fits``), K6's past it; one plain call per launch of the
+    ladder."""
     board = _board(*shape, seed=shape[0] + k)
     want = np.asarray(jfused.fused_step_n(board, 13, k=k, interpret=True))
     before = _plain_calls()
     got = fused.fused_step_n(torch.from_numpy(board.copy()), 13, k=k)
     np.testing.assert_array_equal(got.numpy(), want)
-    kernel = "byte_board" if byte_board.fits(shape, "cpu") else "byte_tiled"
-    assert kernel == ("byte_tiled" if shape == (512, 512) else "byte_board")
-    assert _delta(before) == {kernel: _launches(13, k)}
+    assert _delta(before) == {_byte_kernel(shape): _launches(13, k)}
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_fused_step_n_past_the_gate_takes_the_byte_tiles(k, monkeypatch):
+    """The gate is ``byte_board.fits`` alone: with its size limit lowered
+    under a board, that board's ladder is the byte tiles', launch for
+    launch."""
+    shape = (64, 128)
+    board = _board(*shape, seed=k)
+    want = np.asarray(jfused.fused_step_n(board, 13, k=k, interpret=True))
+    monkeypatch.setattr(byte_board, "MAX_CELLS", 64 * 128 - 1)
+    assert _byte_kernel(shape) == "byte_tiled"
+    before = _plain_calls()
+    got = fused.fused_step_n(torch.from_numpy(board.copy()), 13, k=k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert _delta(before) == {"byte_tiled": _launches(13, k)}
+    before = _plain_calls()
+    got = pallas_stencil.pallas_step_n_fn()(torch.from_numpy(board.copy()), 40)
+    assert _delta(before) == {"byte_tiled": 2}  # 32 turns a launch
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jfused.fused_step_n(
+        board, 40, interpret=True)))
 
 
 def test_fused_step_n_rules_and_defaults():
@@ -115,7 +140,7 @@ def test_fused_step_n_past_the_tiles_takes_the_roll_stencil():
     """A board with more rows of tiles than one launch's grid holds is
     the roll stencil's, as the JAX package's is for shapes its byte tiles
     refuse."""
-    shape = (65_535 * 32 + 32, 1)
+    shape = (byte_tiled.MAX_GRID_ROWS * byte_tiled.TILE[0] + 32, 1)
     assert not fused.can_tile_byte(shape) and not jfused.can_tile_byte(shape)
     board = _board(*shape, seed=2, density=0.5)
     before = _plain_calls()
@@ -129,7 +154,8 @@ def test_fused_step_n_past_the_tiles_takes_the_roll_stencil():
 def test_fused_step_n_off_the_cpu_never_takes_the_roll_stencil():
     """Off the CPU a board the tiles cannot take goes to the byte tiles all
     the same, which refuse it: no torch stand-in runs on a device."""
-    board = torch.zeros((65_535 * 32 + 32, 1), dtype=torch.uint8, device="meta")
+    board = torch.zeros((byte_tiled.MAX_GRID_ROWS * byte_tiled.TILE[0] + 32, 1),
+                        dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="no byte-tile kernel"):
         fused.fused_step_n(board, 2)
 
@@ -211,9 +237,9 @@ def test_pallas_step_n_fn_matches_jax(shape, rule):
     before = _plain_calls()
     got = pallas_stencil.pallas_step_n_fn(trule)(torch.from_numpy(board), 5)
     np.testing.assert_array_equal(got.numpy(), want)
-    # one K5 launch for all n under the gate; 512^2 is past it: one launch
-    # of the byte tiles, where the JAX package takes its roll stencil
-    assert _delta(before) == ({"byte_tiled": 1} if shape == (512, 512) else {"byte_board": 1})
+    # one K5 launch for all n under the gate; past it one launch of the byte
+    # tiles for up to 32 turns, where the JAX package takes its roll stencil
+    assert _delta(before) == {_byte_kernel(shape): 1}
 
 
 def test_pallas_step_n_fn_hands_boards_past_its_gate_to_the_fallback():
@@ -224,9 +250,11 @@ def test_pallas_step_n_fn_hands_boards_past_its_gate_to_the_fallback():
         return board
 
     step = pallas_stencil.pallas_step_n_fn(fallback=fallback)
-    board = torch.from_numpy(_board(512, 512, seed=1))
-    assert step(board, 7) is board and seen == [((512, 512), 7)]
-    step(torch.from_numpy(_board(256, 256, seed=1)), 7)
+    past = (int(byte_board.MAX_CELLS ** 0.5) + 32,) * 2
+    assert not byte_board.fits(past, "cpu")
+    board = torch.from_numpy(_board(*past, seed=1))
+    assert step(board, 7) is board and seen == [(past, 7)]
+    step(torch.from_numpy(_board(128, 128, seed=1)), 7)
     assert len(seen) == 1
 
 
@@ -326,8 +354,7 @@ def test_engine_with_a_step_function_matches_jax(how, emit_flips):
     got = engine.run(Params(turns=turns, image_width=size, image_height=size), board,
                      emit=tev.append, emit_flips=emit_flips, **trun)
     assert isinstance(engine._plane, plane.BytePlane)
-    kernel = "byte_board" if size == 64 else "byte_tiled"
-    assert set(_delta(before)) == {kernel}
+    assert set(_delta(before)) == {_byte_kernel((size, size))}
     assert got.turns_completed == want.turns_completed == turns
     np.testing.assert_array_equal(got.world, np.asarray(want.world))
     assert _cells(got.alive) == _cells(want.alive)
@@ -421,8 +448,7 @@ def test_golden_sessions_through_a_step_function(size, turns, step, tmp_path):
     assert (tmp_path / name).read_bytes() == (REPO_ROOT / "check" / "images" / name).read_bytes()
     assert _drain(events)[-1].completed_turns == turns
     # K5 under its gate, K6 past it
-    kernel = {16: "byte_board", 64: "byte_board", 512: "byte_tiled"}[size]
-    assert set(_delta(before)) == ({kernel} if turns else set())
+    assert set(_delta(before)) == ({_byte_kernel((size, size))} if turns else set())
 
 
 def test_per_turn_counts_through_fused_step_n_match_golden_csv():
