@@ -15,8 +15,15 @@ references, drives the engine's step-function override (the nine golden
 sessions through ``pallas_step_n_fn`` and through ``fused_step_n``, which
 run the byte kernels, and two seeded boards through both, held against the
 bitboard plane: the largest square under the whole-board byte kernel's
-gate, on a cluster, and 4096^2 past it, on the byte tiles), and times the kernels
-with CUDA events and the profiler's device time. The kernels compile the
+gate, on a cluster, and 4096^2 past it, on the byte tiles), drives
+checkpoints and resume (512^2 sessions with a checkpoint every 1000 turns
+read back against check/alive and resumed through ``Engine.run`` and the
+CLI's ``-resume``; a turn-50 checkpoint resumed in process and over brokers
+started with ``-resume`` and ``-ckpt-keep 2``; a packed checkpoint of the
+16384^2 R-pentomino) and the big-board entry point (the 65536^2
+R-pentomino, BASELINE config 5, through ``run_big_board`` and the
+``bigboard`` CLI, and a 16384^2 ``big_session`` whose streamed PGM is read
+back), and times the kernels with CUDA events and the profiler's device time. The kernels compile the
 four named rules in; the parity phases also run a rule outside them
 (B36/S125) and check, by the kernels' names in the profiler's trace, that
 it ran the run-time-rule instantiation. Any failed check
@@ -35,14 +42,17 @@ Game of Life is integer-exact: every comparison is equality (tolerance 0).
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import gc
+import io
 import inspect
 import json
 import os
 import pathlib
 import queue
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -367,7 +377,12 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing: {exc}", file=sys.stderr)
         return 1
+    from gol_distributed_final_tpu_torch import bigboard
     from gol_distributed_final_tpu_torch.engine import Engine, EngineConfig
+    from gol_distributed_final_tpu_torch.engine.checkpoint import (
+        generation_path, load_packed_checkpoint, load_verified_checkpoint,
+        rotate_generations, save_checkpoint, save_packed_checkpoint,
+    )
     from gol_distributed_final_tpu_torch.engine.controller import CLOSED
     from gol_distributed_final_tpu_torch.io.pgm import read_pgm
     from gol_distributed_final_tpu_torch.models import (
@@ -477,10 +492,25 @@ def main() -> int:
                                 f"max abs err {err}")
                 tiled_err = max(tiled_err, err)
                 tiled_cases += 1
+    # the 65536^2 board the big-board entry points give the kernel (phase
+    # 16): one 8-turn launch on random words, so every one of its 32768
+    # tiles, the last ones' torus wrap among them, holds live words
+    packed = random_words((2048, 65536))
+    got = tiled.step_n(packed, tiled.MAX_TURNS)
+    want = tiled.step_n_plain(packed, tiled.MAX_TURNS)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    del want
+    err = max(err, max_abs_err(got, bitpack.bit_step_n(packed, tiled.MAX_TURNS)))
+    check(err == 0, f"tiled 65536^2 Conway k=8: max abs err {err}")
+    tiled_err = max(tiled_err, err)
+    tiled_cases += 1
+    del packed, got
     print(f"phase 3 parity: tiled kernel equals its plain version and the "
           f"whole-torus bit_step_n in {tiled_cases} cases (4096^2 both packings, "
           f"1024x16384, 16384^2, and packed 45x300 / 300x45 with ragged tiles; "
-          f"Conway and B36/S125, k in 1/3/8, n=13)")
+          f"Conway and B36/S125, k in 1/3/8, n=13; and one 8-turn launch on random "
+          f"words at 65536^2)")
 
     k2_err = 0
     k2_cases = 0
@@ -1073,6 +1103,236 @@ def main() -> int:
         del board, reference, got
     close_window("step-function sessions", ("byte_board", "byte_tiled"))
 
+    # 14. periodic checkpoints and resume at 512^2, in chunks of 256 turns:
+    # growth ends with the first chunk, so every crossing of a multiple of
+    # 1000 lands on a pipelined chunk (a CUDA event, no synchronise) and
+    # each checkpoint must hold the committed board of its turn, which the
+    # next chunk's hook reads back against check/alive. The session quits
+    # after the turn-5000 crossing, at 5120. On the auto plane (K1) the checkpoints are
+    # packed and resume through Engine.run; through fused_step_n (the byte
+    # tiles) they are byte checkpoints, and the CLI's -resume continues the
+    # last one in a process of its own.
+    ck_dir = out_dir / "ckpt"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+
+    def checkpointed_512(name, **config):
+        path = ck_dir / f"{name}.npz"
+        path.unlink(missing_ok=True)
+        read = {}
+
+        def read_back(engine, state, turn):
+            if path.exists():
+                with np.load(path) as data:
+                    packed = "packed" in data
+                if packed:
+                    packed_ck, turn_ck, _, _ = load_packed_checkpoint(path)
+                    read[turn_ck] = int(np.unpackbits(packed_ck.view(np.uint8)).sum())
+                else:
+                    board_ck, turn_ck, _ = load_verified_checkpoint(path)
+                    read[turn_ck] = int(np.count_nonzero(board_ck))
+            if engine is not None and turn >= 5000:
+                engine.quit()
+
+        engine = Engine(EngineConfig(checkpoint_every=1000, min_chunk=256, max_chunk=256,
+                                     checkpoint_path=str(path), chunk_hook=read_back,
+                                     **config))
+        res = engine.run(Params(turns=10_000, image_width=512, image_height=512), board512)
+        read_back(None, None, 0)  # the last checkpoint, written after the last hook
+        check(res.checkpoint_error is None, f"{name}: {res.checkpoint_error}")
+        check(res.turns_completed == 5120, f"{name} quit at {res.turns_completed}")
+        check(sorted(read) == [1024, 2048, 3072, 4096, 5120],
+              f"{name} checkpoints read {sorted(read)}")
+        bad = [t for t, count in read.items() if count != golden_counts[t]]
+        check(not bad, f"{name}: checkpoints at {bad} differ from check/alive")
+        return path, res.turns_completed
+
+    open_window()
+    packed_ck, quit_turn = checkpointed_512("auto_512")
+    packed_words, ck_turn, ck_rule, ck_axis = load_packed_checkpoint(packed_ck)
+    check(ck_turn == quit_turn == 5120, f"last packed checkpoint at {ck_turn}, quit {quit_turn}")
+    resumed = Engine(EngineConfig(final_world=False)).run(
+        Params(turns=10_000, image_width=512, image_height=512), None,
+        plane=FusedBitPlane(ck_rule, ck_axis, dev),
+        initial_state=bitpack.state_from_numpy(packed_words, dev), initial_turn=ck_turn)
+    check(resumed.alive_count == golden_counts[10_000],
+          f"packed resume from {ck_turn}: alive {resumed.alive_count}")
+    byte_ck, byte_turn = checkpointed_512("fused_512", step_n_fn=fused_step_n)
+    check(load_verified_checkpoint(byte_ck)[1] == byte_turn == 5120, "byte checkpoint turn")
+    got = close_window("checkpointed 512^2 sessions", ("whole_board", "byte_tiled"))
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "gol_distributed_final_tpu_torch", "-w", "512", "-h", "512",
+         "-turns", "10000", "-noVis", "-resume", str(byte_ck)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=300)
+    cli_wall = time.monotonic() - t0
+    check(cli.returncode == 0, f"-resume CLI exit {cli.returncode}: {cli.stderr[-2000:]}")
+    resumed_pgm = read_pgm(REPO / "out" / "512x512x10000.pgm")
+    check(int(np.count_nonzero(resumed_pgm)) == golden_counts[10_000],
+          "-resume CLI from turn 5120: alive at 10000 differs from check/alive")
+    print(f"phase 14 resume: 512^2 in chunks of 256 with a checkpoint every 1000 turns, quit "
+          f"past 5000: the checkpoints at 1024..5120 read back equal check/alive, both on the "
+          f"auto plane (packed, {got['whole_board']} whole-board launches) and through "
+          f"fused_step_n (bytes, {got['byte_tiled']} byte-tile launches); the turn-5120 packed file "
+          f"resumed through Engine.run and the byte one through `-resume` in a process of its "
+          f"own (wall {cli_wall:.2f} s) reach check/alive's {golden_counts[10_000]} at 10000")
+
+    # 14b. a turn-50 checkpoint resumed to 100 through the CLI in this
+    # process, and over two brokers started with -resume (the second with
+    # -ckpt-keep 2 and its newest generation corrupt): check/images bytes
+    world50 = Engine(EngineConfig()).run(
+        Params(turns=50, image_width=512, image_height=512), board512).world
+    ck50 = save_checkpoint(ck_dir / "s50.npz", world50, 50)
+    chain = ck_dir / "chain.npz"
+    chain.write_bytes(ck50.read_bytes())
+    rotate_generations(chain, keep=2)
+    chain.write_bytes(b"a corrupt newest generation")
+    check(generation_path(chain, 1).exists(), "generation 1 of the chain")
+    golden100 = (REPO / "check" / "images" / "512x512x100.pgm").read_bytes()
+    os.chdir(REPO)  # the CLI writes out/ where it runs
+    open_window()
+    code = controller_main(["-w", "512", "-h", "512", "-turns", "100", "-noVis",
+                            "-resume", str(ck50)])
+    check(code == 0 and (REPO / "out" / "512x512x100.pgm").read_bytes() == golden100,
+          "-resume from turn 50: PGM bytes differ from check/images")
+    in_process = whole_board.launches
+    for flags in (["-resume", str(ck50)], ["-resume", str(chain), "-ckpt-keep", "2"]):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        addr = f"127.0.0.1:{port}"
+        served = threading.Thread(target=broker.main, args=(["-port", str(port), *flags],),
+                                  daemon=True)
+        served.start()
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                break
+            except OSError:
+                check(served.is_alive() and time.monotonic() < deadline,
+                      f"broker {flags} did not start listening")
+                time.sleep(0.05)
+        (REPO / "out" / "512x512x100.pgm").unlink()
+        code = controller_main(["-server", addr, "-w", "512", "-h", "512", "-turns", "100",
+                                "-noVis"])
+        check(code == 0 and (REPO / "out" / "512x512x100.pgm").read_bytes() == golden100,
+              f"-server session on a broker with {flags}: PGM bytes differ")
+        rb = RemoteBroker(addr)
+        rb.super_quit()
+        rb.close()
+        served.join(60)
+        check(not served.is_alive(), f"broker {flags} did not stop")
+    got = close_window("resumed 512^2 sessions", ("whole_board",))
+    print(f"phase 14b resume: a turn-50 checkpoint resumed to 100 through `-resume` in "
+          f"process ({in_process} whole-board launches) and over brokers started with "
+          f"`-resume` and with `-resume -ckpt-keep 2` past a corrupt newest generation "
+          f"({got['whole_board'] - in_process} launches) equal check/images/512x512x100.pgm "
+          "byte for byte")
+
+    # 15. a packed checkpoint at 16384^2: the R-pentomino's periodic
+    # checkpoint at turn 500, loaded and run on to 1000 (156 alive)
+    size16 = 16384
+    plane16 = BitPlane(CONWAY, 0, dev)
+    ck16 = ck_dir / "packed_16384.npz"
+    ck16.unlink(missing_ok=True)
+    open_window()
+    eng16 = Engine(EngineConfig(final_world=False, checkpoint_every=500,
+                                checkpoint_path=str(ck16)))
+    half = eng16.run(Params(turns=500, image_width=size16, image_height=size16), None,
+                     plane=plane16,
+                     initial_state=bigboard.seed_packed(size16, bigboard.r_pentomino(size16)))
+    check(half.checkpoint_error is None, f"16384^2 checkpoint: {half.checkpoint_error}")
+    words16, turn16, rule16, axis16 = load_packed_checkpoint(ck16)
+    check((turn16, rule16.rulestring, axis16) == (500, "B3/S23", 0), "16384^2 checkpoint")
+    state16 = bitpack.state_from_numpy(words16, dev)
+    check(torch.equal(state16, eng16.final_state()), "16384^2 checkpoint equals the state")
+    eng16b = Engine(EngineConfig(final_world=False))
+    full16 = eng16b.run(Params(turns=1000, image_width=size16, image_height=size16), None,
+                        plane=plane16, initial_state=state16, initial_turn=500)
+    check(full16.turns_completed == 1000 and full16.alive_count == 156,
+          f"16384^2 resumed from 500: alive {full16.alive_count}, want 156")
+    final16 = eng16b.final_state()
+    got = close_window("16384^2 packed checkpoint", ("tiled",))
+    t0 = time.monotonic()
+    save_packed_checkpoint(ck_dir / "timed.npz", final16, 1000)
+    write16 = time.monotonic() - t0
+    print(f"phase 15 packed checkpoint: the 16384^2 R-pentomino's checkpoint at turn 500 "
+          f"loads equal to the state and runs on to 156 alive at 1000 ({got['tiled']} tiled "
+          f"launches); one packed write takes {write16:.3f} s {card_tag}")
+
+    # 16. BASELINE config 5: the 65536^2 R-pentomino, 1000 turns, through
+    # run_big_board and through the bigboard CLI (no PGM: it would be a 4
+    # GiB raster), 125 tiled launches of 8 turns each; the window around
+    # the centre equals the 16384^2 run's
+    size65 = 65536
+    open_window()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    alive65 = bigboard.run_big_board(size65, 1000, None, cells=bigboard.r_pentomino(size65))
+    wall65 = time.monotonic() - t0
+    launches65 = tiled.launches
+    check(alive65 == 156, f"65536^2 R-pentomino alive at turn 1000: {alive65}, want 156")
+    check(launches65 == 125, f"65536^2 x 1000: {launches65} tiled launches, want 125")
+    printed = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(printed):
+        code = bigboard.main(["-size", str(size65), "-turns", "1000", "-out", ""])
+    cli65_wall = time.monotonic() - t0
+    check(code == 0 and printed.getvalue().strip() == "alive 156",
+          f"bigboard CLI at 65536^2: {printed.getvalue().strip()!r}")
+    check(tiled.launches == 250, f"the CLI's tiled launches: {tiled.launches - 125}")
+    state65 = plane16.step_n(bigboard.seed_packed(size65, bigboard.r_pentomino(size65)), 1000)
+    got = close_window("65536^2 R-pentomino", ("tiled",))
+    win = 1024
+    w65 = bigboard.decode_window(state65, size65 // 2 - win // 2, size65 // 2 - win // 2,
+                                 win, win)
+    w16 = bigboard.decode_window(final16, size16 // 2 - win // 2, size16 // 2 - win // 2,
+                                 win, win)
+    check(np.array_equal(w65, w16) and np.count_nonzero(w65) == 156,
+          "65536^2 centre window differs from the 16384^2 run's")
+    t0 = time.monotonic()
+    ck65 = save_packed_checkpoint(ck_dir / "packed_65536.npz", state65, 1000)
+    write65 = time.monotonic() - t0
+    words65, turn65, _, _ = load_packed_checkpoint(ck65)
+    check(turn65 == 1000 and torch.equal(bitpack.state_from_numpy(words65, dev), state65),
+          "65536^2 packed checkpoint round trip")
+    del words65
+    ck65.unlink()
+    print(f"phase 16 config 5: 65536^2 R-pentomino x 1000 turns: alive 156 through "
+          f"run_big_board (wall {wall65:.3f} s, {launches65} tiled launches) and the bigboard "
+          f"CLI (wall {cli65_wall:.3f} s); its {win}^2 centre window equals the 16384^2 "
+          f"run's ({got['tiled']} tiled launches in all); one packed checkpoint write takes "
+          f"{write65:.3f} s {card_tag}")
+
+    # 17. a 16384^2 big_session: its streamed PGM, read back packed, equals
+    # the engine's final state
+    open_window()
+    events = queue.Queue()
+    eng_s = Engine(EngineConfig(final_world=False))
+    t0 = time.monotonic()
+    res_s = bigboard.big_session(size16, 1000, cells=bigboard.r_pentomino(size16),
+                                 engine=eng_s, events=events, out_dir=out_dir,
+                                 tick_seconds=3600)
+    session16_wall = time.monotonic() - t0
+    finals = []
+    while True:
+        ev = events.get_nowait()
+        if ev is CLOSED:
+            break
+        if isinstance(ev, FinalTurnComplete):
+            finals.append(ev)
+    check(res_s.turns_completed == 1000 and len(finals) == 1 and len(finals[0].alive) == 156,
+          "16384^2 big_session: final alive")
+    big_pgm = out_dir / f"{size16}x{size16}x1000.pgm"
+    check(torch.equal(bigboard.load_packed_from_pgm(big_pgm), eng_s.final_state()),
+          "16384^2 big_session: the streamed PGM differs from the final state")
+    big_pgm.unlink()
+    got = close_window("16384^2 big_session", ("tiled",))
+    print(f"phase 17 big_session: 16384^2 R-pentomino x 1000 turns, 156 alive, its streamed "
+          f"PGM read back packed equals the final state (wall {session16_wall:.3f} s with the "
+          f"PGM, {got['tiled']} tiled launches) {card_tag}")
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -1114,6 +1374,17 @@ def main() -> int:
               f"launches); {one_launch:.4f} ms per 8-turn launch ({device:.4f} ms of "
               f"device time), bound {b_ms:.5f} ms ({b_by}), {one_launch / b_ms:.3g}x the "
               f"bound; plain {plain_ms:.3f} ms {card_tag}")
+
+    # the tiled kernel at 65536^2, the largest board an entry point gives it
+    t65_ms = cuda_ms(lambda: tiled.step_n(state65, tiled.MAX_TURNS), reps=10)
+    t65_dev, t65_traced = device_ms(lambda: tiled.step_n(state65, tiled.MAX_TURNS),
+                                    "tiled_kernel", reps=10)
+    t65_bound, t65_by = bound(state65.numel(), tiled.MAX_TURNS)
+    print(f"timing tiled 65536^2: {t65_dev:.4f} ms of device time per 8-turn launch "
+          f"({t65_traced} traced; events {t65_ms:.4f} ms per call), bound {t65_bound:.5f} ms "
+          f"({t65_by}), {t65_dev / t65_bound:.3g}x the bound; {launches65} launches for 1000 "
+          f"turns, {launches65 * t65_dev / 1e3:.4f} s of device time {card_tag}")
+    del state65
 
     k2_out = []
     k2_ms = cuda_ms(lambda: k2_out.append(batch_board.step_n(p8, turns8)), reps=20)

@@ -2,11 +2,11 @@
 
 Flags mirror the reference (main.go:17-46): -t threads, -w width, -h
 height, -turns, -noVis, -server (a broker's host:port, else the engine
-runs in process), plus -rule (a B.../S... rulestring) and -device (where
-an in-process session computes: default cuda; ``-device cpu`` runs on the
-CPU; with -server the broker's own -device decides). ``-h`` is board
-height as in the reference, so argparse's auto-help is disabled; use
---help.
+runs in process), plus -rule (a B.../S... rulestring), -resume (continue
+from a checkpoint, engine/checkpoint.py) and -device (where an in-process
+session computes: default cuda; ``-device cpu`` runs on the CPU; with
+-server the broker's own -device decides). ``-h`` is board height as in
+the reference, so argparse's auto-help is disabled; use --help.
 
 The visualiser is not ported yet, so -noVis is required. The run drains
 the event stream and prints every event with a non-empty string as
@@ -84,6 +84,12 @@ def main(argv=None) -> int:
         "-server", default="", help="broker address (empty: in-process engine)"
     )
     parser.add_argument(
+        "-resume", default=None, metavar="CKPT",
+        help="continue from an engine/checkpoint.py .npz instead of "
+             "images/<W>x<H>.pgm at turn 0; with -server the checkpoint's "
+             "board, turn, and rule are shipped to the remote broker",
+    )
+    parser.add_argument(
         "-rule", default=None, metavar="B.../S...",
         help="life-like rulestring (default Conway B3/S23)",
     )
@@ -97,6 +103,8 @@ def main(argv=None) -> int:
         parser.error(
             "the visualiser is not ported yet: pass -noVis for a headless run"
         )
+    if args.rule and args.resume:
+        parser.error("-rule conflicts with -resume (the checkpoint's rule wins)")
     rule = None
     if args.rule:
         # validate BEFORE any thread starts
@@ -106,6 +114,16 @@ def main(argv=None) -> int:
             rule = LifeRule.from_rulestring(args.rule)
         except ValueError as e:
             parser.error(str(e))
+    resume = None
+    if args.resume:
+        # verified now, with a typed refusal, and passed on so the file is
+        # read and hashed once
+        from .engine.checkpoint import CheckpointError, load_verified_checkpoint
+
+        try:
+            resume = load_verified_checkpoint(args.resume)
+        except CheckpointError as e:
+            parser.error(f"-resume {args.resume}: {e}")
     device = broker = None
     if args.server:
         if args.device is not None:
@@ -134,7 +152,8 @@ def main(argv=None) -> int:
     consumer = threading.Thread(target=drain_events, args=(events,))
     consumer.start()
     try:
-        run(params, events, keypresses, broker=broker, rule=rule, device=device)
+        run(params, events, keypresses, broker=broker, rule=rule, device=device,
+            resume_from=resume)
     finally:
         consumer.join()
         restore_tty()

@@ -65,8 +65,19 @@ class InProcessBroker:
             )
         self.engine = engine
 
-    def run(self, params, world, *, emit=None, emit_flips=False) -> RunResult:
-        return self.engine.run(params, world, emit=emit, emit_flips=emit_flips)
+    def run(
+        self, params, world, *, emit=None, emit_flips=False, initial_turn=0, rule=None,
+    ) -> RunResult:
+        if rule is not None and rule.rulestring != self.engine.config.rule.rulestring:
+            # the session builds the engine from a resumed checkpoint's
+            # rule, so a mismatch is a caller's engine configured otherwise
+            raise ValueError(
+                f"checkpoint rule {rule.rulestring} does not match the "
+                f"engine's {self.engine.config.rule.rulestring}"
+            )
+        return self.engine.run(
+            params, world, emit=emit, emit_flips=emit_flips, initial_turn=initial_turn,
+        )
 
     def pause(self):
         return self.engine.pause()
@@ -212,6 +223,7 @@ def run(
     out_dir="out",
     tick_seconds: float = 2.0,
     device=None,
+    resume_from=None,
 ) -> RunResult:
     """Run a full Game of Life session (gol.Run + distributor, gol/gol.go:12).
 
@@ -227,7 +239,43 @@ def run(
     (the reference's ``-server``). A remote broker computes on its own
     device and with the rule this session sends it, so ``device`` and
     ``engine_config`` belong to the in-process engine only.
+
+    ``resume_from`` continues from a checkpoint (engine/checkpoint.py)
+    instead of loading images/<W>x<H>.pgm at turn 0: a path, verified or
+    refused here, or a ``(board, turn, rule)`` tuple that
+    ``load_verified_checkpoint`` returned (the ``-resume`` CLI verifies
+    early and passes it on, so the file is read and hashed once). The
+    session runs under the checkpoint's rule, and a remote broker is sent
+    its board, turn and rule.
     """
+    initial_turn = 0
+    ckpt_rule = None
+    if resume_from is not None:
+        if isinstance(resume_from, tuple):
+            ckpt_world, initial_turn, ckpt_rule = resume_from
+        else:
+            from .checkpoint import load_verified_checkpoint
+
+            ckpt_world, initial_turn, ckpt_rule = load_verified_checkpoint(resume_from)
+        if ckpt_world.shape != (params.image_height, params.image_width):
+            raise ValueError(
+                f"checkpoint board is {ckpt_world.shape[1]}x"
+                f"{ckpt_world.shape[0]} but params say "
+                f"{params.image_width}x{params.image_height}: the output "
+                "filename and visualiser window would mislabel the board"
+            )
+        if params.turns <= initial_turn:
+            raise ValueError(
+                f"turns={params.turns} is not beyond the checkpoint's "
+                f"turn {initial_turn}: nothing would run, yet the output "
+                f"would be named ...x{params.turns}.pgm"
+            )
+    if rule is not None and ckpt_rule is not None and rule.rulestring != ckpt_rule.rulestring:
+        raise ValueError(
+            f"rule={rule.rulestring} conflicts with the checkpoint's "
+            f"{ckpt_rule.rulestring}: a resumed board must continue "
+            "under the rule it was evolved with"
+        )
     if events is None:
         events = queue.Queue()
     if broker is not None and (device is not None or engine_config is not None):
@@ -237,7 +285,7 @@ def run(
         )
     if engine_config is None:
         engine_config = EngineConfig(
-            rule=rule if rule is not None else CONWAY, device=device
+            rule=rule if rule is not None else (ckpt_rule or CONWAY), device=device
         )
     elif rule is not None or device is not None:
         raise ValueError(
@@ -248,16 +296,21 @@ def run(
 
     ticker = None
     try:
-        # a non-Conway rule rides along to a remote broker, which cannot
-        # otherwise know it; only when set, as the reference does
-        extra = {}
         if broker is None:
             broker = InProcessBroker(Engine(engine_config))
-        elif engine_config.rule.rulestring != CONWAY.rulestring:
-            extra["rule"] = engine_config.rule
-        world = read_board(params, images_dir)
+        world = ckpt_world if resume_from is not None else read_board(params, images_dir)
         ticker = _Ticker(params, events, keypresses, broker, out_dir, tick_seconds)
         ticker.start()
+        # a resumed checkpoint's rule, or a non-Conway session rule, rides
+        # along to the broker, which cannot otherwise know it (the
+        # in-process one checks it against its engine); only when set, as
+        # the reference does
+        wire_rule = ckpt_rule if ckpt_rule is not None else rule
+        if wire_rule is None and engine_config.rule.rulestring != CONWAY.rulestring:
+            wire_rule = engine_config.rule
+        extra = {} if wire_rule is None else {"rule": wire_rule}
+        if initial_turn:
+            extra["initial_turn"] = initial_turn
         result = broker.run(
             params,
             world,

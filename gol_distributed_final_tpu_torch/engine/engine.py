@@ -47,10 +47,6 @@ from ..utils.cell import Cell
 # ~depth dispatch-targets old
 _PIPELINE_DEPTH = 3
 
-# chunk doubling stops at the first chunk that takes this long on the
-# device, which keeps control latency (pause, quit, a 2 s tick) low
-_TARGET_CHUNK_SECONDS = 0.25
-
 
 class Snapshot(NamedTuple):
     """What ``RetrieveCurrentData`` returns (broker/broker.go:256-277).
@@ -60,6 +56,10 @@ class Snapshot(NamedTuple):
     turns_completed: int
     alive_count: int
 
+    @property
+    def alive(self) -> List[Cell]:
+        return [] if self.world is None else alive_cells(self.world)
+
 
 class RunResult:
     """What ``Operations.Run`` returns (broker/broker.go:228-230).
@@ -67,21 +67,28 @@ class RunResult:
     ``alive`` is derived on first access, from ``world`` when the run
     decoded one, else from the final plane state (a ``final_world=False``
     run, whose byte raster never exists), unless the caller hands the
-    cells over (a remote broker that ships them)."""
+    cells over (a remote broker that ships them). The positional order is
+    the JAX package's.
 
-    __slots__ = ("turns_completed", "world", "_alive", "_state", "_plane")
+    ``checkpoint_error`` is the last periodic checkpoint's failure, of any
+    type: a failed write does not end the run it protects."""
+
+    __slots__ = (
+        "turns_completed", "world", "checkpoint_error", "_alive", "_state", "_plane",
+    )
 
     def __init__(
         self,
         turns_completed: int,
         world: Optional[np.ndarray],
+        alive: Optional[List[Cell]] = None,
         state=None,
         plane=None,
-        *,
-        alive: Optional[List[Cell]] = None,
+        checkpoint_error: Optional[Exception] = None,
     ):
         self.turns_completed = turns_completed
         self.world = world
+        self.checkpoint_error = checkpoint_error
         self._alive = alive
         self._state = state
         self._plane = plane
@@ -109,14 +116,25 @@ class RunResult:
 @dataclasses.dataclass
 class EngineConfig:
     rule: LifeRule = CONWAY
-    # chunking: double from 1 turn up to max_chunk, but stop growing once a
-    # chunk takes longer than _TARGET_CHUNK_SECONDS
+    # chunking: double from min_chunk up to max_chunk, but stop growing
+    # once a chunk takes target_dispatch_seconds on the device, which keeps
+    # control latency (pause, quit, a 2 s tick) low; long headless runs can
+    # raise min_chunk to skip the warm-up doublings
+    min_chunk: int = 1
     max_chunk: int = 4096
+    target_dispatch_seconds: float = 0.25
+    # pick the data plane by shape (ops/auto.py); False keeps the byte
+    # plane's roll stencil
+    auto_fast: bool = True
     # False: RunResult ships world=None and derives `alive` from the plane
     # state instead of decoding the final board
     final_world: bool = True
-    # periodic checkpoints are not in the port yet: a nonzero value raises
+    # periodic crash-recovery checkpoints: each time the turn counter
+    # crosses a multiple of checkpoint_every, the committed state goes to
+    # checkpoint_path between chunks (packed .npz for a bitboard plane, no
+    # decode; the byte format otherwise); 0 disables them
     checkpoint_every: int = 0
+    checkpoint_path: Optional[str] = None
     # called between chunks as chunk_hook(engine, state, turn)
     chunk_hook: Optional[Callable] = None
     # optional override: a (board, n) -> board step on the uint8 {0,255}
@@ -137,10 +155,6 @@ class Engine:
 
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
-        if self.config.checkpoint_every:
-            raise NotImplementedError(
-                "periodic checkpoints (checkpoint_every) are not ported yet"
-            )
         self.device = resolve_device(self.config.device)
         if self.device.type == "cuda":
             # build the kernels now: a chunk whose wall included an nvcc
@@ -165,6 +179,7 @@ class Engine:
         self._paused = False
         self._parked = False  # run loop is actually waiting in the pause gate
         self._quit = False
+        self._super_quit = False
         self._running = False
 
     # -- compute ----------------------------------------------------------
@@ -186,7 +201,7 @@ class Engine:
             return self.config.plane
         if self.config.step_n_fn is not None:
             return BytePlane(rule, self.device, self.config.step_n_fn)
-        if not emit_flips:
+        if self.config.auto_fast and not emit_flips:
             from ..ops.auto import auto_plane
 
             fast = auto_plane(rule, world_shape, self.device)
@@ -211,11 +226,13 @@ class Engine:
         emit_flips: bool = False,
         step_n_fn: Optional[Callable] = None,
         plane=None,
+        initial_turn: int = 0,
         initial_state=None,
     ) -> RunResult:
         """Blocking: evolve ``world`` for ``params.turns`` turns (or until
-        quit). Resets the turn counter — a reattaching controller starts a
-        fresh run (README.md:187, broker/broker.go:64).
+        quit). Resets the turn counter to ``initial_turn`` — 0, so a
+        reattaching controller starts a fresh run (README.md:187,
+        broker/broker.go:64); a checkpoint's turn for a resume.
 
         With ``emit_flips`` every turn emits ``CellFlipped`` for each
         changed cell before ``TurnComplete`` (gol/event.go:50-60) —
@@ -267,7 +284,7 @@ class Engine:
                 self._state = self._plane.encode(world)
                 self._world_host = world
                 self._host_dirty = False
-            self._turn = 0
+            self._turn = initial_turn
             # _quit/_paused are NOT reset here: a quit() or pause() issued
             # after the controller started its ticker but before the run
             # loop initialised must still take effect
@@ -276,7 +293,8 @@ class Engine:
             if emit_flips and emit is not None:
                 for c in alive_cells(world):
                     emit(CellFlipped(0, c))
-            chunk = 1
+            chunk = max(1, min(self.config.min_chunk, self.config.max_chunk))
+            ckpt_error: Exception | None = None
             # once the chunk size stops growing, chunks are queued without
             # waiting and the loop only blocks when more than
             # _PIPELINE_DEPTH are outstanding (one CUDA event each)
@@ -331,7 +349,7 @@ class Engine:
                 elapsed = time.monotonic() - t0
                 if growing:
                     if chunk >= self.config.max_chunk or (
-                        elapsed >= _TARGET_CHUNK_SECONDS
+                        elapsed >= self.config.target_dispatch_seconds
                     ):
                         # whichever way doubling ends, later chunks go
                         # async and never re-trigger doubling
@@ -362,13 +380,22 @@ class Engine:
                     # advance past it
                     self.config.chunk_hook(self, new_state, turn_now)
 
+                every = self.config.checkpoint_every
+                if every and turn_now // every > (turn_now - n) // every:
+                    ckpt_error = self._write_checkpoint(new_state, turn_now) or ckpt_error
+
             with self._lock:
                 turns_done = self._turn
                 if self.config.final_world:
                     self._sync_host()
-                    return RunResult(turns_done, self._world_host)
+                    return RunResult(
+                        turns_done, self._world_host, checkpoint_error=ckpt_error
+                    )
                 state_f, plane_f = self._state, self._plane
-            return RunResult(turns_done, None, state=state_f, plane=plane_f)
+            return RunResult(
+                turns_done, None, state=state_f, plane=plane_f,
+                checkpoint_error=ckpt_error,
+            )
         finally:
             with self._lock:
                 self._running = False
@@ -376,6 +403,29 @@ class Engine:
                 self._quit = False  # consumed; a reattached run starts fresh
                 # _plane/_state stay: Retrieve keeps serving the final board
                 self._control.notify_all()
+
+    def _write_checkpoint(self, state, turn: int) -> Optional[Exception]:
+        """The periodic checkpoint of ``state`` at ``turn``, between chunks:
+        packed for a bitboard plane, the byte format otherwise, under the
+        ACTIVE plane's rule (an explicit ``BitPlane(HIGHLIFE)`` run must not
+        stamp a Conway checkpoint). Returns the failure, of any type,
+        instead of raising it: a full disk, a host buffer that cannot be
+        allocated or a failed decode must not end the run the checkpoint
+        protects.
+
+        ``state`` is the chunk just committed. No later chunk is queued yet,
+        and a plane's step never writes its input (ops/plane.py), so the
+        host copy, on the stream after that chunk, reads the state of
+        ``turn`` and nothing a queued chunk is writing."""
+        from .checkpoint import try_write_checkpoint
+
+        err = try_write_checkpoint(
+            self.config.checkpoint_path or "out/engine_ck.npz", turn,
+            getattr(self._plane, "rule", self.config.rule), self._plane, state,
+        )
+        if err is not None:
+            print(f"checkpoint at turn {turn} failed: {err}")
+        return err
 
     # -- control plane (broker/broker.go:236-277) -------------------------
 
@@ -409,9 +459,31 @@ class Engine:
             self._control.notify_all()
 
     def super_quit(self):
-        """Coordinated full shutdown (broker/broker.go:241-249). In process
-        there is no server to stop, so it is ``quit``."""
-        self.quit()
+        """Coordinated full shutdown (broker/broker.go:241-249). At engine
+        level this is quit and a flag the owning server reads to stop
+        serving."""
+        with self._lock:
+            self._super_quit = True
+            self._quit = True
+            self._control.notify_all()
+
+    @property
+    def super_quit_requested(self) -> bool:
+        with self._lock:
+            return self._super_quit
+
+    def final_state(self):
+        """The current state in its plane's representation, without a
+        decode: the latest committed chunk mid-run, the final board after
+        (what a big-board caller streams to PGM)."""
+        with self._lock:
+            return self._state
+
+    def state_snapshot(self):
+        """``(state, turns_completed)`` under one lock acquisition: two
+        separate reads could straddle a chunk commit and disagree."""
+        with self._lock:
+            return self._state, self._turn
 
     def retrieve(self, include_world: bool = True) -> Snapshot:
         """Mutex-guarded snapshot {World, TurnsCompleted, AliveCount}
@@ -425,7 +497,7 @@ class Engine:
                 "retrieve(include_world=True) on a final_world=False "
                 "engine would decode the full byte raster this "
                 "configuration promises never exists; use "
-                "include_world=False (count-only)"
+                "include_world=False (count-only) or state_snapshot()"
             )
         with self._lock:
             turn = self._turn

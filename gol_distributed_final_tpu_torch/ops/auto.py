@@ -1,9 +1,10 @@
 """Automatic data-plane selection for the engine.
 
 * a 32-divisible axis, packed board under the whole-board gate -> the
-  fused bitboard plane (one launch per chunk, counts included);
-* a 32-divisible axis past the gate -> the bitboard plane, whose steps
-  run on the tiled kernel;
+  fused bitboard plane (one launch per chunk, counts included), unless
+  ``GOL_FUSED=off`` (ops/fused.py::fused_enabled);
+* a 32-divisible axis past the gate, or ``GOL_FUSED=off`` -> the bitboard
+  plane, whose steps run on the whole-board or the tiled kernel by shape;
 * indivisible geometry -> None (the caller uses the roll stencil's
   byte plane, which handles every geometry).
 
@@ -24,7 +25,7 @@ from typing import Optional
 
 from ..device import resolve_device
 from .bitpack import packed_shape
-from .fused import FusedBitPlane
+from .fused import FusedBitPlane, fused_enabled
 from .plane import BitPlane
 from .whole_board import fits
 
@@ -46,7 +47,7 @@ def auto_plane(rule, shape: tuple[int, int], device):
     word_axis = choose_word_axis(shape)
     if word_axis is None:
         return None
-    if fits(packed_shape(*shape, word_axis), device):
+    if fused_enabled() and fits(packed_shape(*shape, word_axis), device):
         return FusedBitPlane(rule, word_axis, device)
     return BitPlane(rule, word_axis, device)
 

@@ -25,8 +25,9 @@ packages. Routing is by shape; nothing catches a failed launch:
   the card the byte tiles refuse it, so nothing there runs in torch ops;
 * ``fused_bit_step_n``: the whole-board kernel under its gate (K1), else
   the tiled kernel with K turns per launch (K3/K4), which takes any shape.
-  The tiled kernel's tile is fixed (ops/tiled.py::TILE), so where the JAX
-  package takes a block shape the port takes ``force_tiles``;
+  The tiled kernel's tile is fixed (ops/tiled.py::TILE): the JAX
+  package's ``interpret``, ``block_rows`` and ``block_cols`` are taken and
+  ignored, and ``force_tiles`` sends a board under the gate to the tiles;
 * ``fused_bit_step_n_batch``: the batched kernel under its per-universe
   gate (K2), else the tiled kernel universe by universe.
 
@@ -40,6 +41,7 @@ leaves them to XLA there (``_counted_fallback``).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -56,6 +58,13 @@ from .stencil import step_n as stencil_step_n
 #: them all, as in the JAX package. A power of two.
 FUSED_MAX_K = 8
 FUSED_K_DEFAULT = 8
+
+
+def fused_enabled() -> bool:
+    """The ``GOL_FUSED`` routing knob (ops/auto.py): ``on``/``auto``
+    (default) route bitboards under the whole-board gate to the fused
+    plane, ``off`` keeps them on ``BitPlane``."""
+    return os.environ.get("GOL_FUSED", "auto").lower() != "off"
 
 
 def quantise_k(k: int) -> int:
@@ -134,11 +143,17 @@ def fused_bit_step_n(
     rule=None,
     birth_mask: Optional[int] = None,
     survive_mask: Optional[int] = None,
+    interpret: Optional[bool] = None,
+    block_rows: Optional[int] = None,
+    block_cols: Optional[int] = None,
     force_tiles: bool = False,
 ):
     """n turns of an int32 bitboard, K turns per launch: the whole-board
     kernel's ladder under its gate, else (or with ``force_tiles``) the
     tiled kernel's. Equal to ``bit_step_n``."""
+    # the JAX package's keywords; the tiled kernel's tile is fixed at
+    # compile time and the kernels have no interpret mode
+    del interpret, block_rows, block_cols
     n = int(n)
     if n <= 0:
         return packed

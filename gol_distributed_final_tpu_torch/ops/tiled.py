@@ -129,10 +129,15 @@ def step_n(
     return _tiles.ping_pong(packed, sizes, launch)
 
 
-def tiled_bit_step_n_fn(*, rule=None, word_axis=0):
+def tiled_bit_step_n_fn(
+    *, interpret=None, rule=None, block_rows=None, block_cols=None, word_axis=0
+):
     """A ``(packed_int32, n) -> packed`` bitboard evolution for any size:
     one tiled launch per turn, as the JAX package's function of this name
     (``ops/pallas_tiled.py:397``) launches."""
+    # the JAX package's keywords; the tile is fixed (TILE) and the kernel
+    # has no interpret mode
+    del interpret, block_rows, block_cols
     birth = rule.birth_mask if rule else CONWAY_BIRTH_MASK
     survive = rule.survive_mask if rule else CONWAY_SURVIVE_MASK
 

@@ -14,9 +14,11 @@ controller; SuperQuit shuts the broker down (broker/broker.go:236-277,
 312-323).
 
 Run it with ``python -m gol_distributed_final_tpu_torch.rpc.broker -port P
-[-session-capacity N] [-device cuda|cpu]``. Not ported yet, and refused
-with an error naming them: the workers backend and its wires, mesh halo
-depths, checkpoints and resume, the observability flags, the canary, and
+[-session-capacity N] [-resume CKPT [-ckpt-keep N]] [-device cuda|cpu]``.
+``-resume`` reattaches a crashed run: the first fresh Run continues from
+the checkpoint's board, turn and rule. Not ported yet, and refused with an
+error naming them: the workers backend and its wires (``-auto-checkpoint``
+among them), mesh halo depths, the observability flags, the canary, and
 the Status verb.
 """
 
@@ -81,8 +83,6 @@ class DeviceBackend:
     def run(self, req: Request) -> RunResult:
         from ..params import Params
 
-        if getattr(req, "initial_turn", 0):
-            raise ValueError("resuming a Run at a nonzero turn is not ported yet")
         params = Params(
             turns=req.turns,
             threads=req.threads,
@@ -90,7 +90,11 @@ class DeviceBackend:
             image_height=req.image_height,
         )
         plane = self._plane_for(req.image_height, req.image_width, _rule_of(req))
-        return self.engine.run(params, req.world, plane=plane)
+        # initial_turn is an extension field: absent from an older
+        # client's Request, meaning 0 (a fresh run)
+        return self.engine.run(
+            params, req.world, plane=plane, initial_turn=getattr(req, "initial_turn", 0)
+        )
 
     def pause(self):
         self.engine.pause()
@@ -279,11 +283,24 @@ def _reply(result) -> Response:
 
 class BrokerService:
     """Maps the wire verbs onto a backend; owns process shutdown. Every
-    board a reply carries is a numpy uint8 array."""
+    board a reply carries is a numpy uint8 array.
 
-    def __init__(self, server: RpcServer, backend: DeviceBackend, session_capacity: int = 256):
+    ``resume`` is the crash-recovery stash of ``-resume``: a ``(world,
+    turn, rule)`` checkpoint loaded at broker start. The first fresh Run
+    (initial_turn 0) is rewritten to continue from the stashed turn, and
+    the stash is consumed once that run has progressed past it; later
+    Runs start fresh, the reference's reset-on-Run semantics."""
+
+    def __init__(
+        self,
+        server: RpcServer,
+        backend: DeviceBackend,
+        resume=None,
+        session_capacity: int = 256,
+    ):
         self._server = server
         self.backend = backend
+        self._resume = resume  # (world, turn, rule) | None
         self.quit_event = threading.Event()
         # built lazily: a broker that never serves sessions never starts
         # the driver
@@ -299,8 +316,43 @@ class BrokerService:
                 )
             return self._sessions
 
+    def _apply_resume(self, req: Request) -> None:
+        """Rewrite a fresh Run to continue from the ``-resume`` checkpoint.
+        A mismatch is an error: an operator who restarted with -resume must
+        not silently get a run from turn 0, or a mislabelled board."""
+        world, turn, rule = self._resume
+        if req.world is None or req.world.shape != world.shape:
+            raise ValueError(
+                f"-resume checkpoint board is "
+                f"{world.shape[1]}x{world.shape[0]} but the Run asks "
+                f"{req.image_width}x{req.image_height}"
+            )
+        if req.turns <= turn:
+            raise ValueError(
+                f"-resume checkpoint is at turn {turn}, not before "
+                f"turns={req.turns}: nothing would run"
+            )
+        requested = getattr(req, "rulestring", "")
+        if requested:
+            # canonical before comparing: "b3/s23" is the Conway it spells
+            requested = LifeRule.from_rulestring(requested).rulestring
+            if requested != rule.rulestring:
+                raise ValueError(
+                    f"-resume checkpoint rule {rule.rulestring} conflicts "
+                    f"with the Run's {requested}"
+                )
+        req.world = world
+        req.initial_turn = turn
+        if rule.rulestring != CONWAY.rulestring:
+            req.rulestring = rule.rulestring
+        logger.info("Run reattached to -resume checkpoint at turn %d", turn)
+
     def run(self, req: Request) -> Response:
         req = _require_request(req)
+        resumed = False
+        if self._resume is not None and not getattr(req, "initial_turn", 0):
+            self._apply_resume(req)
+            resumed = True
         initial_turn = getattr(req, "initial_turn", 0)
         if not 0 <= initial_turn <= req.turns:
             raise ValueError(f"initial_turn {initial_turn} outside [0, {req.turns}]")
@@ -309,7 +361,13 @@ class BrokerService:
                 f"world shape {req.world.shape} does not match params "
                 f"{req.image_width}x{req.image_height}"
             )
-        return _reply(self.backend.run(req))
+        result = self.backend.run(req)
+        if resumed and result.turns_completed > initial_turn:
+            # consumed only once the run progressed past the checkpoint: a
+            # Run that a buffered Quit ended at once must not burn it, or
+            # the retried Run would silently start from turn 0
+            self._resume = None
+        return _reply(result)
 
     def session_run(self, req: Request) -> Response:
         """Operations.SessionRun — Run's blocking contract, many at once:
@@ -375,14 +433,18 @@ def serve(
     host: str = "127.0.0.1",
     session_capacity: int = 256,
     device=None,
+    resume=None,
 ) -> tuple[RpcServer, BrokerService]:
     """Start a broker on ``device`` (None is the CUDA card, and raises
     without one; "cpu" for the tests) listening on ``host:port`` (0 picks
     a free port, ``server.port`` says which), serving in background
-    threads. Stop it with ``service.shutdown()``."""
+    threads; ``resume`` is a verified ``(world, turn, rule)`` checkpoint
+    for the first fresh Run. Stop it with ``service.shutdown()``."""
     backend = DeviceBackend(device)
     server = RpcServer(host=host, port=port)
-    service = BrokerService(server, backend, session_capacity=session_capacity)
+    service = BrokerService(
+        server, backend, resume=resume, session_capacity=session_capacity
+    )
     server.register(Methods.BROKER_RUN, service.run)
     server.register(Methods.SESSION_RUN, service.session_run)
     server.register(Methods.PAUSE, service.pause)
@@ -397,8 +459,7 @@ def serve(
 #: by name
 _NOT_PORTED = (
     "-workers", "-wire", "-sync-interval", "-grid", "-sparse-sync",
-    "-rpc-deadline", "-auto-checkpoint", "-resume", "-ckpt-keep",
-    "-probe-interval", "-metrics", "-timeline", "-trace", "-journal",
+    "-rpc-deadline", "-auto-checkpoint", "-probe-interval", "-metrics", "-timeline", "-trace", "-journal",
     "-profile", "-canary", "-canary-verb",
 )
 
@@ -433,6 +494,20 @@ def main(argv=None) -> None:
              "admissions past it are refused with an error reply",
     )
     parser.add_argument(
+        "-resume", default=None, metavar="CKPT",
+        help="reattach a crashed run: the first fresh Run continues from "
+             "this checkpoint's board and turn instead of turn 0 "
+             "(consumed once; later Runs start fresh). The checkpoint "
+             "must VERIFY (embedded digest, engine/checkpoint.py); with "
+             "-ckpt-keep N an unverifiable newest generation falls back "
+             "to the newest one that does verify",
+    )
+    parser.add_argument(
+        "-ckpt-keep", dest="ckpt_keep", type=int, default=1, metavar="N",
+        help="checkpoint generations -resume searches, newest first, for "
+             "one that verifies (default 1: current only)",
+    )
+    parser.add_argument(
         "-device", default="cuda",
         help="where boards live: cuda (default; fails without a card) or cpu",
     )
@@ -447,18 +522,40 @@ def main(argv=None) -> None:
         parser.error("-backend workers is not ported yet")
     if args.halo_depth != 1:
         parser.error("-halo-depth other than 1 is not ported yet (no mesh planes)")
+    if args.ckpt_keep < 1:
+        parser.error(f"-ckpt-keep must be >= 1, got {args.ckpt_keep}")
+    if args.ckpt_keep != 1 and not args.resume:
+        parser.error("-ckpt-keep rotates -auto-checkpoint generations "
+                     "(workers backend) and widens -resume's fallback "
+                     "search; it does nothing here")
     if args.session_capacity < 1:
         parser.error(f"-session-capacity must be >= 1, got {args.session_capacity}")
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
+    )
+    resume = None
+    if args.resume:
+        from ..engine.checkpoint import CheckpointError, load_resume_checkpoint
+
+        try:
+            board, turn, rule, gen = load_resume_checkpoint(args.resume, keep=args.ckpt_keep)
+        except CheckpointError as exc:
+            parser.error(f"-resume {args.resume}: {exc}")
+        if gen > 0:
+            logger.warning(
+                "-resume %s: newest generation(s) failed verification; "
+                "fell back to verified generation %d (turn %d)",
+                args.resume, gen, turn,
+            )
+        resume = (board, turn, rule)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         parser.error(str(e))
-    logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
-    )
     _integrity.set_enabled(args.integrity == "on")
     server, service = serve(
-        args.port, host=args.host, session_capacity=args.session_capacity, device=device
+        args.port, host=args.host, session_capacity=args.session_capacity,
+        device=device, resume=resume,
     )
     print(f"broker listening on :{server.port} (backend={args.backend})", flush=True)
     service.quit_event.wait()

@@ -647,3 +647,60 @@ def test_bit_step_functions_on_the_card(cuda_device, h, w):
     torch.cuda.synchronize()
     assert _delta(before) == {"tiled": 9}
     assert torch.equal(bitpack.unpack(got, word_axis), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [None, "fused_step_n"])
+def test_periodic_checkpoints_hold_their_turn_on_the_card(cuda_device, step, tmp_path):
+    """Chunks of 64 turns pipelined on CUDA events, a checkpoint every 100
+    turns: each file holds the committed board of its turn (packed on the
+    auto plane, bytes through the step function), equal to the plain
+    torch turn walked on the CPU."""
+    from gol_distributed_final_tpu_torch.engine.checkpoint import (
+        load_packed_checkpoint, load_verified_checkpoint,
+    )
+
+    path = tmp_path / "ck.npz"
+    board = read_pgm(REPO_ROOT / "images" / "512x512.pgm")
+    read = {}
+
+    def read_back(engine, state, turn):
+        if path.exists():
+            with np.load(path) as data:
+                packed = "packed" in data
+            if packed:
+                words, turn_ck, _, axis = load_packed_checkpoint(path)
+                read[turn_ck] = bitpack.unpack(torch.from_numpy(words), axis).numpy()
+            else:
+                world, turn_ck, _ = load_verified_checkpoint(path)
+                read[turn_ck] = world
+
+    config = EngineConfig(checkpoint_every=100, min_chunk=64, max_chunk=64,
+                          checkpoint_path=str(path), chunk_hook=read_back,
+                          step_n_fn=fused.fused_step_n if step else None)
+    result = Engine(config).run(Params(turns=500, image_width=512, image_height=512), board)
+    read_back(None, None, 500)
+    assert result.checkpoint_error is None and sorted(read) == [128, 256, 320, 448, 500]
+    walk = bitpack.pack(board, 0, "cpu")
+    for turn in range(1, 501):
+        walk = bitpack.bit_step(walk)
+        if turn in read:
+            np.testing.assert_array_equal(read[turn], bitpack.unpack(walk, 0).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [2048, 4096])
+def test_big_board_on_the_card_equals_the_plain_version(cuda_device, size, tmp_path):
+    from gol_distributed_final_tpu_torch import bigboard
+
+    cells = bigboard.r_pentomino(size)
+    before = tiled.launches
+    out = tmp_path / "card.pgm"
+    alive = bigboard.run_big_board(size, 64, out, cells=cells, row_block=512)
+    assert tiled.launches - before == 8
+    plain = tmp_path / "cpu.pgm"
+    assert bigboard.run_big_board(size, 64, plain, cells=cells, row_block=512,
+                                  device="cpu") == alive
+    assert out.read_bytes() == plain.read_bytes()
+    state = bigboard.load_packed_from_pgm(out, row_block=512)
+    assert state.is_cuda and bitpack.alive_count_packed(state) == alive

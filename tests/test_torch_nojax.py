@@ -43,9 +43,10 @@ def test_forbidden_matches_the_prefix_exactly():
 
 _PROBE = """
 import json, runpy, sys
-sys.argv = ["gol_distributed_final_tpu_torch"] + sys.argv[1:]
+module = sys.argv[1]
+sys.argv = [module] + sys.argv[2:]
 try:
-    runpy.run_module("gol_distributed_final_tpu_torch", run_name="__main__")
+    runpy.run_module(module, run_name="__main__")
 except SystemExit as e:
     if e.code:
         raise
@@ -53,19 +54,27 @@ print("MODULES " + json.dumps(sorted(sys.modules)))
 """
 
 
-def test_cli_session_imports_no_jax(tmp_path):
-    (tmp_path / "images").symlink_to(REPO_ROOT / "images")
+def _probe(module, args, cwd):
     env = dict(os.environ, PYTHONPATH=str(REPO_ROOT))
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, "-w", "64", "-h", "64", "-turns", "10",
-         "-noVis", "-device", "cpu"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", _PROBE, module, *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "Completed Turns 10 Quitting" in proc.stdout
     modules = json.loads(proc.stdout.split("MODULES ", 1)[1])
-    assert "gol_distributed_final_tpu_torch.engine.engine" in modules
     assert [m for m in modules if _forbidden(m)] == []
+    return proc.stdout, modules
+
+
+def test_cli_session_imports_no_jax(tmp_path):
+    """The session CLI and the big-board CLI, each in a process of its
+    own on the CPU: neither loads jax or the JAX package."""
+    (tmp_path / "images").symlink_to(REPO_ROOT / "images")
+    out, modules = _probe(
+        "gol_distributed_final_tpu_torch",
+        ["-w", "64", "-h", "64", "-turns", "10", "-noVis", "-device", "cpu"], tmp_path)
+    assert "Completed Turns 10 Quitting" in out
+    assert "gol_distributed_final_tpu_torch.engine.engine" in modules
 
     from gol_distributed_final_tpu_torch.io.pgm import read_pgm
 
@@ -73,6 +82,14 @@ def test_cli_session_imports_no_jax(tmp_path):
     for _ in range(10):
         want = vector_step(want)
     np.testing.assert_array_equal(read_pgm(tmp_path / "out" / "64x64x10.pgm"), want)
+
+    out, modules = _probe(
+        "gol_distributed_final_tpu_torch.bigboard",
+        ["-size", "256", "-turns", "3", "-out", str(tmp_path / "big.pgm"), "-device", "cpu"],
+        tmp_path)
+    assert "alive 9\n" in out
+    assert "gol_distributed_final_tpu_torch.io.sharded" in modules
+    assert np.count_nonzero(read_pgm(tmp_path / "big.pgm")) == 9
 
 
 _BROKER_PROBE = """
@@ -197,13 +214,6 @@ def test_cli_refuses_the_visualiser_and_a_missing_card(monkeypatch, capsys):
         main(["-w", "16", "-h", "16", "-turns", "1", "-noVis"])  # -device cuda
     assert exc.value.code == 2
     assert "no CUDA device" in capsys.readouterr().err
-
-
-def test_engine_config_rejects_checkpoints():
-    from gol_distributed_final_tpu_torch.engine import Engine, EngineConfig
-
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Engine(EngineConfig(checkpoint_every=10, device="cpu"))
 
 
 def test_chip_smoke_exits_nonzero_alone(tmp_path):

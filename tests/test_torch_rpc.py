@@ -489,8 +489,8 @@ def test_unported_status_verb_is_an_unknown_method(port_broker):
 
 @pytest.mark.parametrize("flags", [
     ["-backend", "workers"], ["-workers", "127.0.0.1:1"], ["-wire", "resident"],
-    ["-halo-depth", "2"], ["-resume", "x.npz"], ["-auto-checkpoint", "1"],
-    ["-ckpt-keep", "2"], ["-metrics"], ["-timeline", "0.5"], ["-trace"],
+    ["-halo-depth", "2"], ["-auto-checkpoint", "1"],
+    ["-metrics"], ["-timeline", "0.5"], ["-trace"],
     ["-journal"], ["-profile"], ["-canary"],
 ])
 def test_broker_cli_refuses_what_is_not_ported(flags, capsys):
@@ -498,6 +498,31 @@ def test_broker_cli_refuses_what_is_not_ported(flags, capsys):
         port_broker_mod.main([*flags, "-device", "cpu", "-port", "0"])
     assert exc.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", [
+    ["-resume", "x.npz"], ["-ckpt-keep", "2"], ["-ckpt-keep", "0"],
+    ["-resume", "GARBAGE"], ["-resume", "LEGACY"], ["-resume", "GOOD.npz", "-ckpt-keep", "0"],
+])
+def test_broker_cli_resume_flags_refuse_as_the_reference(case, tmp_path, capsys, monkeypatch):
+    """The broker's -resume and -ckpt-keep: each bad use exits 2 with the
+    reference broker's own message."""
+    from gol_distributed_final_tpu.rpc import broker as jax_broker
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "GARBAGE").write_bytes(b"zip? no")
+    np.savez(tmp_path / "LEGACY", board=np.zeros((4, 4), np.uint8), turn=np.int64(1),
+             rulestring=np.str_("B3/S23"))
+    (tmp_path / "LEGACY.npz").rename(tmp_path / "LEGACY")
+    errors = []
+    for main, extra in ((port_broker_mod.main, ["-device", "cpu"]), (jax_broker.main, [])):
+        with pytest.raises(SystemExit) as exc:
+            main([*case, "-port", "0", *extra])
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert "Traceback" not in err
+        errors.append(err[err.index("error: ") + len("error: "):].strip())
+    assert errors[0] == errors[1]
 
 
 def test_broker_cli_needs_a_card_by_default(monkeypatch, capsys):
@@ -534,3 +559,201 @@ def test_remote_quit_then_super_quit_stops_the_broker(tmp_path):
         assert proc.proc.wait(timeout=TIMEOUT) == 0
     finally:
         proc.stop()
+
+
+# -- resume over RPC ----------------------------------------------------------
+
+
+def _checkpoint_at_40(tmp_path, name="ck.npz"):
+    from gol_distributed_final_tpu_torch.engine.checkpoint import save_checkpoint
+    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+
+    board = read_pgm(REPO_ROOT / "images" / "64x64.pgm")
+    return save_checkpoint(tmp_path / name, _seq(board, 40), 40), board
+
+
+GOLDEN_64_100 = REPO_ROOT / "check" / "images" / "64x64x100.pgm"
+
+
+def test_remote_resume_from_checkpoint(port_broker, tmp_path):
+    """A checkpoint at turn 40 resumed through the port controller on a
+    port broker lands on the turn-100 golden."""
+    ck, _ = _checkpoint_at_40(tmp_path)
+    remote = RemoteBroker(port_broker)
+    try:
+        result = run(Params(turns=100, image_width=64, image_height=64), queue.Queue(),
+                     broker=remote, out_dir=tmp_path / "out", tick_seconds=3600,
+                     resume_from=ck)
+    finally:
+        remote.close()
+    assert result.turns_completed == 100
+    assert (tmp_path / "out" / "64x64x100.pgm").read_bytes() == GOLDEN_64_100.read_bytes()
+
+
+def test_reference_controller_resumes_on_the_port_broker(port_broker, tmp_path):
+    from gol_distributed_final_tpu import Params as JParams
+    from gol_distributed_final_tpu import run as jax_run
+    from gol_distributed_final_tpu.engine.checkpoint import save_checkpoint as jsave
+    from gol_distributed_final_tpu.models import HIGHLIFE as J_HIGHLIFE
+    from gol_distributed_final_tpu.rpc.client import RemoteBroker as JaxRemote
+
+    rng = np.random.default_rng(23)
+    board = np.where(rng.random((64, 64)) < 0.3, 255, 0).astype(np.uint8)
+    ck = jsave(tmp_path / "hl.npz", board, 10, J_HIGHLIFE)
+    remote = JaxRemote(port_broker)
+    try:
+        result = jax_run(JParams(turns=40, image_width=64, image_height=64), queue.Queue(),
+                         broker=remote, out_dir=tmp_path, tick_seconds=3600, resume_from=ck)
+    finally:
+        remote.close()
+    assert result.turns_completed == 40
+    np.testing.assert_array_equal(result.world, _seq(board, 30, (3, 6), (2, 3)))
+
+
+def test_port_controller_resumes_on_the_reference_broker(tmp_path):
+    from gol_distributed_final_tpu.rpc import broker as jax_broker
+
+    ck, _ = _checkpoint_at_40(tmp_path)
+    server, service = jax_broker.serve(port=0)
+    remote = RemoteBroker(f"127.0.0.1:{server.port}")
+    try:
+        result = run(Params(turns=100, image_width=64, image_height=64), queue.Queue(),
+                     broker=remote, out_dir=tmp_path, tick_seconds=3600, resume_from=ck)
+    finally:
+        remote.close()
+        server.stop()
+    assert result.turns_completed == 100
+    assert (tmp_path / "64x64x100.pgm").read_bytes() == GOLDEN_64_100.read_bytes()
+
+
+def test_device_backend_resumes_under_the_requests_rule():
+    """A Run at a nonzero initial_turn, with a non-Conway rule on the wire,
+    equals the reference's backend and the oracle."""
+    from gol_distributed_final_tpu.rpc.broker import TpuBackend
+    from gol_distributed_final_tpu.rpc.protocol import Request as JRequest
+
+    rng = np.random.default_rng(17)
+    board = np.where(rng.random((64, 64)) < 0.3, 255, 0).astype(np.uint8)
+    fields = dict(world=board, turns=30, image_height=64, image_width=64, initial_turn=10,
+                  rulestring="B36/S23")
+    mine = port_broker_mod.DeviceBackend("cpu").run(protocol.Request(**fields))
+    theirs = TpuBackend(use_mesh=False).run(JRequest(**fields))
+    assert mine.turns_completed == theirs.turns_completed == 30
+    np.testing.assert_array_equal(mine.world, _seq(board, 20, (3, 6), (2, 3)))
+    np.testing.assert_array_equal(mine.world, theirs.world)
+
+
+def test_broker_service_validates_resume_bounds(inproc_broker):
+    addr, _ = inproc_broker
+    client = RpcClient(addr)
+    board = np.zeros((16, 16), np.uint8)
+    try:
+        for initial_turn, match in ((-1, "outside"), (11, "outside")):
+            with pytest.raises(RpcError, match=match):
+                client.call(protocol.Methods.BROKER_RUN, protocol.Request(
+                    world=board, turns=10, image_height=16, image_width=16,
+                    initial_turn=initial_turn), timeout=TIMEOUT)
+        with pytest.raises(RpcError, match="does not match"):
+            client.call(protocol.Methods.BROKER_RUN, protocol.Request(
+                world=board, turns=10, image_height=32, image_width=16), timeout=TIMEOUT)
+    finally:
+        client.close()
+
+
+@pytest.mark.parametrize("case", ["shape", "turns", "rule"])
+def test_resume_mismatches_refuse_as_the_reference(case):
+    from gol_distributed_final_tpu.models import CONWAY as J_CONWAY
+    from gol_distributed_final_tpu.rpc import broker as jax_broker
+    from gol_distributed_final_tpu.rpc.protocol import Request as JRequest
+    from gol_distributed_final_tpu_torch.models import CONWAY
+
+    board = np.zeros((64, 64), np.uint8)
+    fields = {"shape": dict(world=np.zeros((16, 16), np.uint8), turns=100, image_height=16,
+                            image_width=16),
+              "turns": dict(world=board, turns=40, image_height=64, image_width=64),
+              "rule": dict(world=board, turns=100, image_height=64, image_width=64,
+                           rulestring="B36/S23")}[case]
+    errors = []
+    for service_cls, req_cls, rule in ((port_broker_mod.BrokerService, protocol.Request, CONWAY),
+                                       (jax_broker.BrokerService, JRequest, J_CONWAY)):
+        service = service_cls(None, None, resume=(board, 40, rule))
+        with pytest.raises(ValueError) as exc:
+            service._apply_resume(req_cls(**fields))
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+
+
+def test_resume_is_consumed_once_the_run_progresses(tmp_path):
+    """A Run that a buffered Quit ends at the checkpoint's turn keeps the
+    stash; the next Run resumes, and the one after starts fresh."""
+    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+    from gol_distributed_final_tpu_torch.models import CONWAY
+
+    board = read_pgm(REPO_ROOT / "images" / "64x64.pgm")
+    resume = (_seq(board, 40), 40, CONWAY)
+    server, service = port_broker_mod.serve(port=0, device="cpu", resume=resume)
+
+    def fresh_run(turns):
+        return service.run(protocol.Request(world=board, turns=turns, image_height=64,
+                                            image_width=64))
+    try:
+        service.quit(protocol.Request())
+        first = fresh_run(100)
+        assert first.turns_completed == 40
+        second = fresh_run(100)
+        assert second.turns_completed == 100
+        assert second.world.tobytes() == read_pgm(GOLDEN_64_100).tobytes()
+        third = fresh_run(7)
+        np.testing.assert_array_equal(third.world, _seq(board, 7))
+    finally:
+        service.shutdown()
+
+
+def test_broker_cli_resume_serves_the_first_run(tmp_path):
+    """`rpc.broker -resume CK`: the first fresh Run continues from turn 40
+    to the golden; the next starts from turn 0."""
+    ck, board = _checkpoint_at_40(tmp_path)
+    proc, addr = _start_port_broker("-resume", str(ck))
+    try:
+        remote = RemoteBroker(addr)
+        try:
+            first = run(Params(turns=100, image_width=64, image_height=64), queue.Queue(),
+                        broker=remote, images_dir=REPO_ROOT / "images",
+                        out_dir=tmp_path / "a", tick_seconds=3600)
+            proc.wait_for("Run reattached to -resume checkpoint at turn 40")
+            second = remote.run(Params(turns=9, image_width=64, image_height=64), board)
+        finally:
+            remote.close()
+    finally:
+        proc.stop()
+    assert first.turns_completed == 100
+    assert (tmp_path / "a" / "64x64x100.pgm").read_bytes() == GOLDEN_64_100.read_bytes()
+    np.testing.assert_array_equal(second.world, _seq(board, 9))
+
+
+def test_broker_cli_ckpt_keep_falls_back_past_a_corrupt_newest(tmp_path):
+    from gol_distributed_final_tpu_torch.engine.checkpoint import (
+        generation_path,
+        rotate_generations,
+    )
+
+    base = tmp_path / "ck.npz"
+    ck, _ = _checkpoint_at_40(tmp_path)
+    ck.replace(base)
+    rotate_generations(base, keep=2)  # the turn-40 file becomes generation 1
+    base.write_bytes(b"scribble")
+    assert generation_path(base, 1).exists()
+    proc, addr = _start_port_broker("-resume", str(base), "-ckpt-keep", "2")
+    try:
+        assert "fell back to verified generation 1 (turn 40)" in "".join(proc.seen)
+        remote = RemoteBroker(addr)
+        try:
+            result = run(Params(turns=100, image_width=64, image_height=64), queue.Queue(),
+                         broker=remote, images_dir=REPO_ROOT / "images",
+                         out_dir=tmp_path / "out", tick_seconds=3600)
+        finally:
+            remote.close()
+    finally:
+        proc.stop()
+    assert result.turns_completed == 100
+    assert (tmp_path / "out" / "64x64x100.pgm").read_bytes() == GOLDEN_64_100.read_bytes()

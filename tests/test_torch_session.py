@@ -234,3 +234,167 @@ def test_cell_flips_match_the_jax_session(tmp_path):
     theirs = stream(jax_run, JAX_CLOSED, "j")
     assert mine == theirs
     assert sum(1 for e in mine if e[0] == "TurnComplete") == 4
+
+
+# -- the engine's surface, field by field against the JAX engine -------------
+
+
+def _ref_engine(**config):
+    from gol_distributed_final_tpu.engine.engine import Engine as JEngine
+    from gol_distributed_final_tpu.engine.engine import EngineConfig as JEngineConfig
+
+    return JEngine(JEngineConfig(**config))
+
+
+def _chunk_turns(engine, board, turns, **run_kwargs):
+    seen = []
+    engine.config.chunk_hook = lambda eng, state, turn: seen.append(turn)
+    result = engine.run(Params(turns=turns, image_width=board.shape[1],
+                               image_height=board.shape[0]), board, **run_kwargs)
+    return seen, result
+
+
+@pytest.mark.parametrize("min_chunk,max_chunk,target", [
+    (1, 4096, 3600.0), (10, 10, 3600.0), (3, 64, 3600.0), (50, 8, 3600.0), (4, 4096, 0.0),
+])
+def test_chunk_sizes_equal_the_jax_engine(min_chunk, max_chunk, target):
+    """min_chunk, max_chunk and target_dispatch_seconds give the same chunk
+    boundaries in both engines (a target no chunk reaches doubles to
+    max_chunk; a target of 0 stops growth after the first chunk)."""
+    board = read_pgm(REPO_ROOT / "images" / "64x64.pgm")
+    config = dict(min_chunk=min_chunk, max_chunk=max_chunk, target_dispatch_seconds=target)
+    mine, res = _chunk_turns(Engine(EngineConfig(device="cpu", **config)), board, 300)
+    theirs, jres = _chunk_turns(_ref_engine(**config), board, 300)
+    assert mine == theirs
+    np.testing.assert_array_equal(res.world, jres.world)
+
+
+def test_initial_turn_and_auto_fast_equal_the_jax_engine():
+    rng = np.random.default_rng(41)
+    board = np.where(rng.random((64, 64)) < 0.3, 255, 0).astype(np.uint8)
+    for auto_fast in (True, False):
+        # a target no chunk reaches: growth by doubling alone, whatever
+        # the first chunk's compile or the host's load costs
+        config = dict(auto_fast=auto_fast, max_chunk=8, target_dispatch_seconds=3600.0)
+        mine, res = _chunk_turns(Engine(EngineConfig(device="cpu", **config)), board, 30,
+                                 initial_turn=10)
+        theirs, jres = _chunk_turns(_ref_engine(**config), board, 30, initial_turn=10)
+        assert mine == theirs and mine[0] == 11 and mine[-1] == 30
+        assert res.turns_completed == jres.turns_completed == 30
+        np.testing.assert_array_equal(res.world, jres.world)
+    from gol_distributed_final_tpu_torch.ops.plane import BytePlane
+
+    engine = Engine(EngineConfig(auto_fast=False, device="cpu"))
+    engine.run(Params(turns=1, image_width=64, image_height=64), board)
+    assert type(engine._plane) is BytePlane
+
+
+def test_snapshot_run_result_and_state_accessors_equal_the_jax_engine():
+    from gol_distributed_final_tpu.engine.engine import RunResult as JRunResult
+    from gol_distributed_final_tpu.engine.engine import Snapshot as JSnapshot
+    from gol_distributed_final_tpu_torch.engine import RunResult, Snapshot
+    from gol_distributed_final_tpu_torch.utils.cell import Cell
+
+    board = read_pgm(REPO_ROOT / "images" / "16x16.pgm")
+    assert Snapshot(board, 3, 9).alive == JSnapshot(board, 3, 9).alive != []
+    assert Snapshot(None, 3, 9).alive == JSnapshot(None, 3, 9).alive == []
+    cells = [Cell(1, 2)]
+    # the JAX package's positional order: alive third
+    mine, theirs = RunResult(5, board, cells), JRunResult(5, board, cells)
+    assert mine.alive == theirs.alive == cells and mine.alive_count == 1
+    assert RunResult(5, board).checkpoint_error is None
+    err = OSError("disk full")
+    assert RunResult(5, board, None, None, None, err).checkpoint_error is err
+
+    engine = Engine(EngineConfig(final_world=False, device="cpu"))
+    assert engine.final_state() is None and engine.state_snapshot() == (None, 0)
+    from gol_distributed_final_tpu_torch.ops import bitpack
+    from gol_distributed_final_tpu_torch.ops.plane import BitPlane
+
+    board = read_pgm(REPO_ROOT / "images" / "64x64.pgm")
+    packed = bitpack.pack(board, 1, "cpu")
+    res = engine.run(Params(turns=7, image_width=64, image_height=64), None,
+                     plane=BitPlane(word_axis=1, device="cpu"), initial_state=packed)
+    state, turn = engine.state_snapshot()
+    assert turn == 7 and state is engine.final_state() is res._state
+    assert _equals_the_oracle(state, board, 7)
+    assert not engine.super_quit_requested
+    engine.super_quit()
+    assert engine.super_quit_requested
+    with pytest.raises(ValueError, match="state_snapshot"):
+        engine.retrieve(include_world=True)
+
+
+def _equals_the_oracle(state, board, turns):
+    from gol_distributed_final_tpu_torch.ops import bitpack
+    from oracle import vector_step
+
+    for _ in range(turns):
+        board = vector_step(board)
+    return np.array_equal(bitpack.unpack(state, 1).numpy(), board)
+
+
+def test_super_quit_ends_a_run_and_is_remembered():
+    board = read_pgm(REPO_ROOT / "images" / "64x64.pgm")
+
+    def hook(engine, state, turn):
+        if turn >= 20:
+            engine.super_quit()
+
+    engine = Engine(EngineConfig(max_chunk=4, chunk_hook=hook, device="cpu"))
+    res = engine.run(Params(turns=10_000, image_width=64, image_height=64), board)
+    assert 20 <= res.turns_completed < 10_000 and engine.super_quit_requested
+    # quit is consumed by the run; the engine serves the next one
+    again = engine.run(Params(turns=3, image_width=64, image_height=64), board)
+    assert again.turns_completed == 3
+
+
+@pytest.mark.parametrize("knob,fused", [(None, True), ("auto", True), ("on", True),
+                                        ("off", False), ("OFF", False)])
+def test_gol_fused_routes_as_the_jax_package(knob, fused, monkeypatch):
+    from gol_distributed_final_tpu.ops import auto as jauto
+    from gol_distributed_final_tpu.ops.fused import FusedBitPlane as JFused
+    from gol_distributed_final_tpu_torch.models import CONWAY
+    from gol_distributed_final_tpu_torch.ops.auto import auto_plane
+    from gol_distributed_final_tpu_torch.ops.fused import FusedBitPlane, fused_enabled
+    from gol_distributed_final_tpu_torch.ops.plane import BitPlane
+
+    if knob is None:
+        monkeypatch.delenv("GOL_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("GOL_FUSED", knob)
+    monkeypatch.setattr(jauto, "_PLANE_CACHE", {})
+    from gol_distributed_final_tpu.models import CONWAY as J_CONWAY
+
+    assert fused_enabled() is fused
+    for shape in ((64, 64), (512, 512)):
+        mine = auto_plane(CONWAY, shape, "cpu")
+        theirs = jauto.auto_plane(J_CONWAY, shape)
+        assert isinstance(mine, FusedBitPlane) is isinstance(theirs, JFused) is fused
+        assert type(mine) is (FusedBitPlane if fused else BitPlane)
+    # past the gate both packages keep the plain bitboard plane
+    assert type(auto_plane(CONWAY, (2048, 2048), "cpu")) is BitPlane
+    board = read_pgm(REPO_ROOT / "images" / "64x64.pgm")
+    res = Engine(EngineConfig(device="cpu")).run(
+        Params(turns=100, image_width=64, image_height=64), board)
+    golden = read_pgm(REPO_ROOT / "check" / "images" / "64x64x100.pgm")
+    np.testing.assert_array_equal(res.world, golden)
+
+
+def test_ladders_take_the_jax_packages_keywords():
+    """The JAX package's interpret/block_rows/block_cols are accepted and
+    change nothing: the port's tile is fixed."""
+    import torch
+
+    from gol_distributed_final_tpu_torch.ops import bitpack, tiled
+    from gol_distributed_final_tpu_torch.ops.fused import fused_bit_step_n
+
+    rng = np.random.default_rng(5)
+    board = np.where(rng.random((64, 256)) < 0.3, 255, 0).astype(np.uint8)
+    packed = bitpack.pack(board, 0, "cpu")
+    want = bitpack.bit_step_n(packed, 13, 0)
+    for kwargs in ({}, {"interpret": True, "block_rows": 8, "block_cols": 128},
+                   {"interpret": False, "force_tiles": True, "block_rows": None}):
+        assert torch.equal(fused_bit_step_n(packed, 13, **kwargs), want)
+    step = tiled.tiled_bit_step_n_fn(interpret=True, block_rows=8, block_cols=128)
+    assert torch.equal(step(packed, 13), want)
