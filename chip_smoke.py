@@ -23,7 +23,13 @@ started with ``-resume`` and ``-ckpt-keep 2``; a packed checkpoint of the
 16384^2 R-pentomino) and the big-board entry point (the 65536^2
 R-pentomino, BASELINE config 5, through ``run_big_board`` and the
 ``bigboard`` CLI, and a 16384^2 ``big_session`` whose streamed PGM is read
-back), and times the kernels with CUDA events and the profiler's device time. The kernels compile the
+back), drives the activity-sparse plane (the 16384^2 R-pentomino on the
+auto route, the 65536^2 one adopted with ``SparseBitPlane.from_packed``,
+and a 512^2 sparse session with periodic checkpoints resumed to its
+golden), runs a controller session without ``-noVis`` through the
+visualiser and holds the native PGM codec against the Python one, and
+times the kernels with CUDA events and the profiler's device time,
+sparse against dense included. The kernels compile the
 four named rules in; the parity phases also run a rule outside them
 (B36/S125) and check, by the kernels' names in the profiler's trace, that
 it ran the run-time-rule instantiation. Any failed check
@@ -33,7 +39,8 @@ exits non-zero before printing any result.
 
     python3 chip_smoke.py --kernel-times [TREE]
 
-times only the kernels (K1, K2, the tiled kernel, K5 and K6) of the port in
+times only the kernels (K1, K2, the tiled kernel, K5, K6 and, where the
+tree has it, the sparse kernel) of the port in
 the checkout TREE (default: this one) and prints one JSON line, so that two
 trees can be compared in turns within one call on one card.
 
@@ -195,7 +202,8 @@ def kernel_label(mangled: str) -> str:
     """A kernel instantiation's short name from its mangled one, e.g.
     ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
     kernel = re.search(
-        r"(whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled)_kernel",
+        r"(whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
+        r"sparse_step|sparse_scatter|sparse_dilate|sparse_list)_kernel",
         mangled)
     name = kernel.group(1) if kernel else mangled[:40]
     args = re.findall(r"Li(\d+)E", mangled)
@@ -360,6 +368,25 @@ def kernel_times(tree: str) -> int:
     for name, (fn, kernel, reps) in byte_calls.items():
         device[name] = device_ms(fn, kernel, reps=reps)[0]
         times[name] = cuda_ms(fn, reps=reps)
+    if (pathlib.Path(tree) / "gol_distributed_final_tpu_torch" / "ops" / "sparse_tiles.py").exists():
+        # the sparse kernel, in the trees that have it: one 8-turn block
+        # (with the dispatch's list pass) on 16384^2 with random words in
+        # about 5% of the default tiles
+        from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+
+        tile = sparse.sparse_tile_shape((512, 16384))
+        chosen = torch.from_numpy(rng.random((512 // tile[0], 16384 // tile[1])) < 0.0057)
+        mask = chosen.to(dev).repeat_interleave(tile[0], 0).repeat_interleave(tile[1], 1)
+        soup = torch.where(mask, t16k, torch.zeros_like(t16k))
+        grid = sparse.occupancy_grid(soup, *tile)
+        cap = sparse._pow2_ceil(grid.numel())
+
+        def block():
+            return sparse_tiles.dispatch(soup, grid, 1, tile, 8, cap, 8, 12)
+
+        device["sparse_16384_5pct_block"] = device_ms(
+            block, "sparse_(?:list|step|scatter|dilate)_kernel", reps=20, per_call=4)[0] * 4
+        times["sparse_16384_5pct_block"] = cuda_ms(block, reps=20)
     print(json.dumps({"tree": tree, "card": nvidia_smi("name,power.limit"), "ms": times,
                       "device_ms": device}))
     return 0
@@ -391,13 +418,15 @@ def main() -> int:
     from gol_distributed_final_tpu_torch.__main__ import main as controller_main
     from gol_distributed_final_tpu_torch.engine.sessions import SessionTable
     from gol_distributed_final_tpu_torch.ops import (
-        _build, batch_board, bitpack, byte_board, byte_tiled, tiled, whole_board,
+        _build, batch_board, bitpack, byte_board, byte_tiled, sparse, sparse_tiles, tiled,
+        whole_board,
     )
     from gol_distributed_final_tpu_torch.ops.auto import auto_batch_plane, auto_plane
     from gol_distributed_final_tpu_torch.ops.batched import BatchBitPlane
     from gol_distributed_final_tpu_torch.ops.fused import FusedBitPlane, fused_step_n
     from gol_distributed_final_tpu_torch.ops.pallas_stencil import pallas_step_n_fn
     from gol_distributed_final_tpu_torch.ops.plane import BitPlane
+    from gol_distributed_final_tpu_torch.ops.sparse import SparseBitPlane
     from gol_distributed_final_tpu_torch.rpc import broker
     from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker, RpcError
 
@@ -440,6 +469,24 @@ def main() -> int:
         return torch.from_numpy(
             rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
         ).to(dev)
+
+    def tile_soup(shape, tile, frac, seed):
+        """Random words in round(q x tiles) random tiles of ``tile`` words
+        (at least one), q drawn so that about ``frac`` of the tiles are
+        active once the occupancy grid is dilated (1 - (1 - q)^9 = frac);
+        made on the card."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        tr, tc = tile
+        grid_shape = (shape[0] // tr, shape[1] // tc)
+        tiles = grid_shape[0] * grid_shape[1]
+        q = 1 - (1 - frac) ** (1 / 9)
+        chosen = torch.zeros(tiles, dtype=torch.bool, device=dev)
+        chosen[torch.randperm(tiles, device=dev, generator=gen)[:max(1, round(q * tiles))]] = True
+        mask = chosen.view(grid_shape).repeat_interleave(tr, 0).repeat_interleave(tc, 1)
+        words = torch.randint(-2**31, 2**31, shape, dtype=torch.int64, device=dev,
+                              generator=gen).to(torch.int32)
+        return torch.where(mask, words, torch.zeros_like(words))
 
     rules = (CONWAY, HIGHLIFE, SEEDS, DAY_AND_NIGHT)
     # the bitboard kernels compile those four in; any other rule runs their
@@ -681,6 +728,146 @@ def main() -> int:
             r"::byte_(board|tiled)\w*_kernel", complete)
         print(f"phase 3 rule: {rule.name} ({rule.rulestring}) ran {'; '.join(names)}")
 
+    # the activity-sparse kernel against its plain program (the same torch
+    # ops, on the card): dispatches of 3 blocks from soups of random words
+    # in random tiles, 5% and 20% of the grid active once dilated, at
+    # 4096^2 and 16384^2 (the default tile) for h = 1..8 and with a capacity
+    # a quarter of the count (an overflow); each compiled rule and B36/S125;
+    # the R-pentomino across tile edges and a glider across the torus
+    # corner on every explicit tile of the tests, in long dispatches from a
+    # tight capacity; then the plane itself on the card against the plane
+    # on the CPU after every step_n call
+    def sparse_case(label, packed, tile, h_turns, capacity, rule, n_blocks=3):
+        grid = sparse.occupancy_grid(packed, *tile)
+        masks = (rule.birth_mask, rule.survive_mask)
+        got = sparse_tiles.dispatch(packed, grid, n_blocks, tile, h_turns, capacity, *masks)
+        want = sparse_tiles.dispatch_plain(packed, grid, n_blocks, tile, h_turns, capacity,
+                                           *masks)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got.packed, want.packed), max_abs_err(got.grid, want.grid))
+        same = (got.blocks_done, got.overflow, got.active_sum, got.count) == (
+            want.blocks_done, want.overflow, want.active_sum, want.count)
+        check(err == 0 and same, f"sparse {label}: max abs err {err}, kernel "
+                                 f"{got[2:]} plain {want[2:]}")
+        return err, got
+
+    sp_err = sp_cases = sp_overflows = 0
+    for size in (4096, 16384):
+        shape = bitpack.packed_shape(size, size)
+        tile = sparse.sparse_tile_shape(shape)
+        total = (shape[0] // tile[0]) * (shape[1] // tile[1])
+        for frac in (0.05, 0.20):
+            packed = tile_soup(shape, tile, frac, seed=size + int(frac * 100))
+            count = int(sparse.occupancy_grid(packed, *tile).sum())
+            capacity = min(sparse._pow2_ceil(max(count, 8) * 2), sparse._pow2_ceil(total))
+            for h_turns in range(1, 9):
+                err, _ = sparse_case(f"{size}^2 {count}/{total} active h={h_turns}",
+                                     packed, tile, h_turns, capacity, CONWAY)
+                sp_err, sp_cases = max(sp_err, err), sp_cases + 1
+            err, run_ = sparse_case(f"{size}^2 overflow", packed, tile, 8,
+                                    max(1, count // 4), CONWAY)
+            check(run_.overflow and run_.blocks_done == 0, f"{size}^2: no overflow")
+            sp_err, sp_cases, sp_overflows = max(sp_err, err), sp_cases + 1, sp_overflows + 1
+
+    def with_edge_tiles(packed, tile, seed):
+        """``packed`` with random words in the eight tiles on the torus's
+        edges: the four corners and the middle of each side, whose halos
+        and dilation wrap."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        tr, tc = tile
+        gr, gc = packed.shape[0] // tr, packed.shape[1] // tc
+        out = packed.clone()
+        for ty, tx in ((0, 0), (0, gc - 1), (gr - 1, 0), (gr - 1, gc - 1),
+                       (0, gc // 2), (gr - 1, gc // 2), (gr // 2, 0), (gr // 2, gc - 1)):
+            out[ty * tr:(ty + 1) * tr, tx * tc:(tx + 1) * tc] = torch.randint(
+                -2**31, 2**31, (tr, tc), dtype=torch.int64, device=dev,
+                generator=gen).to(torch.int32)
+        return out
+
+    # the shapes the main path gives the kernel beyond the soups above:
+    # 65536^2 (phase 16b, a 256 x 512 grid of 8 x 128 tiles) and 512^2 with
+    # its default tile (phase 18), each a soup plus live tiles on the
+    # torus's edges and corners, and 512^2's own board; each bucket is the
+    # plane's for its count, and one a quarter of the count overflows
+    edge_boards = []
+    shape65 = bitpack.packed_shape(65536, 65536)
+    tile65 = sparse.sparse_tile_shape(shape65)
+    edge_boards.append(("65536^2 soup and torus-edge tiles", tile65, (1, 8), with_edge_tiles(
+        tile_soup(shape65, tile65, 0.01, seed=65536), tile65, seed=1)))
+    edge_boards.append(("65536^2 torus-edge tiles alone", tile65, (8,), with_edge_tiles(
+        torch.zeros(shape65, dtype=torch.int32, device=dev), tile65, seed=2)))
+    shape512 = bitpack.packed_shape(512, 512)
+    tile512 = sparse.sparse_tile_shape(shape512)
+    edge_boards.append(("512^2 soup and torus-edge tiles", tile512, range(1, 9), with_edge_tiles(
+        tile_soup(shape512, tile512, 0.2, seed=512), tile512, seed=3)))
+    edge_boards.append(("512^2 images/512x512.pgm", tile512, (1, 8),
+                        bitpack.pack(read_pgm(REPO / "images" / "512x512.pgm"), 0, dev)))
+    for label, tile, hs, packed in edge_boards:
+        total = (packed.shape[0] // tile[0]) * (packed.shape[1] // tile[1])
+        count = int(sparse.occupancy_grid(packed, *tile).sum())
+        capacity = min(sparse._pow2_ceil(max(count, 8) * 2), sparse._pow2_ceil(total))
+        for h_turns in hs:
+            err, run_ = sparse_case(f"{label}, tile {tile}, {count}/{total} active h={h_turns}",
+                                    packed, tile, h_turns, capacity, CONWAY)
+            check(run_.blocks_done > 0, f"sparse {label} h={h_turns}: no block ran")
+            sp_err, sp_cases = max(sp_err, err), sp_cases + 1
+        if count >= 8:
+            err, run_ = sparse_case(f"{label} overflow", packed, tile, 8, max(1, count // 4),
+                                    CONWAY)
+            check(run_.overflow and run_.blocks_done == 0, f"{label}: no overflow")
+            sp_err, sp_cases, sp_overflows = max(sp_err, err), sp_cases + 1, sp_overflows + 1
+    del edge_boards, packed
+    shape4k = bitpack.packed_shape(4096, 4096)
+    tile4k = sparse.sparse_tile_shape(shape4k)
+    packed = tile_soup(shape4k, tile4k, 0.05, seed=7)
+    count = int(sparse.occupancy_grid(packed, *tile4k).sum())
+    for rule in bit_rules:
+        err, _ = sparse_case(f"4096^2 {rule.name}", packed, tile4k, 8,
+                             sparse._pow2_ceil(max(count, 8) * 2), rule)
+        sp_err, sp_cases = max(sp_err, err), sp_cases + 1
+
+    def rpent(h, w):
+        board = np.zeros((h, w), np.uint8)
+        for dx, dy in ((1, 0), (2, 0), (0, 1), (1, 1), (1, 2)):
+            board[h // 2 + dy, w // 2 + dx] = 255
+        return board
+
+    def corner_glider(h, w):
+        board = np.zeros((h, w), np.uint8)
+        for dy, dx in ((0, 1), (1, 2), (2, 0), (2, 1), (2, 2)):
+            board[(h - 4 + dy) % h, (w - 4 + dx) % w] = 255
+        return board
+
+    explicit = [((1, 2), 64), ((1, 8), 64), ((1, 16), 256), ((2, 16), 128), ((3, 12), 96)]
+    for tile, side in explicit:
+        for name, board in (("R-pentomino", rpent(side, side)),
+                            ("corner glider", corner_glider(side, side))):
+            packed = bitpack.pack(board, 0, dev)
+            for h_turns in sorted({1, sparse.sparse_block_turns(*tile)}):
+                err, run_ = sparse_case(f"{name} {side}^2 tile {tile} h={h_turns}", packed,
+                                        tile, h_turns, 8, CONWAY, n_blocks=40)
+                sp_err, sp_cases = max(sp_err, err), sp_cases + 1
+                sp_overflows += run_.overflow
+            card, cpu = (sparse.SparseBitPlane(CONWAY, tile=tile, device=d) for d in (dev, "cpu"))
+            a, b = card.encode(board), cpu.encode(board)
+            for n in (1, 150, 7, 300):
+                a, b = card.step_n(a, n), cpu.step_n(b, n)
+                check(np.array_equal(card.decode(a), cpu.decode(b))
+                      and (a.count, a.steady) == (b.count, b.steady),
+                      f"sparse plane {name} {side}^2 tile {tile} after n={n}: card "
+                      f"{(a.count, a.steady)} cpu {(b.count, b.steady)}")
+            sp_cases += 1
+    check(sp_overflows >= 3, f"only {sp_overflows} sparse dispatches overflowed")
+    print(f"phase 3 parity: sparse kernel equals its plain program in {sp_cases} cases "
+          f"(boards, grids, blocks done, overflow, active sums and counts; 4096^2 and 16384^2 "
+          f"soups with 5% and 20% of the tiles active, h = 1..8; 65536^2 and 512^2 (tiles "
+          f"{tile65} and {tile512}) with live tiles on the torus's edges and corners, and "
+          f"512^2's own board; 4 rules and B36/S125; the "
+          f"R-pentomino and a corner glider on tiles {[t for t, _ in explicit]}, and the "
+          f"plane on the card against the plane on the CPU after every step_n; "
+          f"{sp_overflows} dispatches overflowed)")
+
     out_dir = REPO / "out" / "chip_smoke"
 
     # 5. per-turn alive counts of 512^2 for turns 1..10000, one turn per
@@ -746,7 +933,8 @@ def main() -> int:
     # each path runs with every count set to 0 just before it and read just
     # after; launches made to compare a kernel with a reference stay out
     counted = {"whole_board": whole_board, "tiled": tiled, "batch_board": batch_board,
-               "byte_board": byte_board, "byte_tiled": byte_tiled}
+               "byte_board": byte_board, "byte_tiled": byte_tiled,
+               "sparse_tiles": sparse_tiles}
     launches = dict.fromkeys(counted, 0)
     plain = dict.fromkeys(counted, 0)
 
@@ -801,32 +989,47 @@ def main() -> int:
           f"{10_000 * 512 * 512 / wall:.4g} cell-updates/s, {session_launches} "
           f"whole-board launches ({session_launches / 10:.1f} per 1000 turns) {card_tag}")
 
-    # 6. real size: an R-pentomino on 16384^2, 1000 turns on the tiled kernel
+    # 6. real size: an R-pentomino on 16384^2, 1000 turns through
+    # Engine.run on the auto route, the activity-sparse plane (the sparse
+    # kernel), and again on an explicit BitPlane (the tiled kernel)
     size = 16384
     plane = auto_plane(CONWAY, (size, size), dev)
-    check(type(plane) is BitPlane, f"16384^2 routes to BitPlane, got {type(plane)}")
+    check(type(plane) is SparseBitPlane, f"16384^2 routes to SparseBitPlane, got {type(plane)}")
     seed = np.zeros(bitpack.packed_shape(size, size, plane.word_axis), np.int32)
     cx = cy = size // 2
     for dx, dy in ((1, 0), (2, 0), (0, 1), (1, 1), (1, 2)):
         x, y = cx + dx, cy + dy
         seed.view(np.uint32)[y // 32, x] |= np.uint32(1 << (y % 32))
-    state = bitpack.state_from_numpy(seed, dev)
-    torch.cuda.synchronize()
-    before = tiled.launches
-    t0 = time.monotonic()
-    big = Engine(EngineConfig(final_world=False)).run(
-        Params(turns=1000, image_width=size, image_height=size), None,
-        plane=plane, initial_state=state,
-    )
-    big_alive = big.alive_count
-    big_wall = time.monotonic() - t0
-    check(big.turns_completed == 1000, "16384^2 turns")
-    check(big_alive == 156, f"16384^2 R-pentomino alive at turn 1000: {big_alive}, want 156")
-    print(f"phase 6 real size: 16384^2 R-pentomino x 1000 turns through Engine.run: "
-          f"alive 156, wall {big_wall:.3f} s, {tiled.launches - before} tiled "
-          f"launches {card_tag}")
+    walls16 = {}
+    for route, run_plane in (("sparse", plane), ("dense", BitPlane(CONWAY, 0, dev))):
+        state = bitpack.state_from_numpy(seed, dev)
+        if route == "sparse":
+            state = run_plane.from_packed(state)
+        torch.cuda.synchronize()
+        before = {name: m.launches for name, m in counted.items()}
+        eng6 = Engine(EngineConfig(final_world=False))
+        t0 = time.monotonic()
+        big = eng6.run(Params(turns=1000, image_width=size, image_height=size), None,
+                       plane=run_plane, initial_state=state)
+        big_alive = big.alive_count
+        walls16[route] = (time.monotonic() - t0, {
+            name: m.launches - before[name] for name, m in counted.items()
+            if m.launches > before[name]})
+        check(big.turns_completed == 1000, f"16384^2 turns ({route})")
+        check(big_alive == 156, f"16384^2 R-pentomino alive at turn 1000 ({route}): "
+                                f"{big_alive}, want 156")
+        if route == "sparse":
+            sparse16 = eng6.final_state()
+    check(set(walls16["sparse"][1]) == {"sparse_tiles"} and set(walls16["dense"][1]) == {"tiled"},
+          f"16384^2 launches: {walls16}")
+    print(f"phase 6 real size: 16384^2 R-pentomino x 1000 turns through Engine.run: alive 156 "
+          f"on the auto route, SparseBitPlane (wall {walls16['sparse'][0]:.3f} s, "
+          f"{walls16['sparse'][1]['sparse_tiles']} sparse launches, {sparse16.count} tiles "
+          f"active at the end) and on an explicit BitPlane (wall {walls16['dense'][0]:.3f} s, "
+          f"{walls16['dense'][1]['tiled']} tiled launches) {card_tag}")
 
-    close_window("in-process sessions and the 16384^2 run", ("whole_board", "tiled"))
+    close_window("in-process sessions and the 16384^2 runs",
+                 ("whole_board", "tiled", "sparse_tiles"))
 
     # 9. a broker on loopback, in this process so its counts are readable:
     # the controller's -server sessions (the Run verb, K1 under the gate)
@@ -1305,6 +1508,28 @@ def main() -> int:
           f"run's ({got['tiled']} tiled launches in all); one packed checkpoint write takes "
           f"{write65:.3f} s {card_tag}")
 
+    # 16b. the same board on the activity-sparse plane, adopted with
+    # SparseBitPlane.from_packed(seed_packed(...)): 1000 turns in one
+    # step_n, 156 alive, its centre window equal to the dense run's
+    open_window()
+    plane65 = SparseBitPlane(CONWAY, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sparse65 = plane65.step_n(
+        plane65.from_packed(bigboard.seed_packed(size65, bigboard.r_pentomino(size65))), 1000)
+    alive_s65 = plane65.alive_count(sparse65)
+    wall_s65 = time.monotonic() - t0
+    got = close_window("65536^2 sparse R-pentomino", ("sparse_tiles",))
+    check(alive_s65 == 156, f"65536^2 sparse R-pentomino alive at turn 1000: {alive_s65}")
+    ws65 = bigboard.decode_window(sparse65.packed, size65 // 2 - win // 2,
+                                  size65 // 2 - win // 2, win, win)
+    check(np.array_equal(ws65, w65), "65536^2 sparse centre window differs from the dense run's")
+    print(f"phase 16b config 5 sparse: 65536^2 R-pentomino x 1000 turns through "
+          f"SparseBitPlane.from_packed(seed_packed(...)): alive 156, wall {wall_s65:.3f} s, "
+          f"{got['sparse_tiles']} sparse launches, {sparse65.count} of "
+          f"{(2048 // 8) * (65536 // 128)} tiles active at the end; its {win}^2 centre window "
+          f"equals the dense run's {card_tag}")
+
     # 17. a 16384^2 big_session: its streamed PGM, read back packed, equals
     # the engine's final state
     open_window()
@@ -1332,6 +1557,167 @@ def main() -> int:
     print(f"phase 17 big_session: 16384^2 R-pentomino x 1000 turns, 156 alive, its streamed "
           f"PGM read back packed equals the final state (wall {session16_wall:.3f} s with the "
           f"PGM, {got['tiled']} tiled launches) {card_tag}")
+
+    # 18. a sparse run with periodic checkpoints, resumed to its golden:
+    # 512^2 on an explicit SparseBitPlane to turn 5000 in chunks of 256 with
+    # a checkpoint every 1000 turns. Its state is no int32 tensor, so the
+    # checkpoints are byte files; each is read back against check/alive,
+    # the one the early exit writes when the board turns steady among them
+    # (the jump crosses the rest at once), and the turn-5000 file resumes
+    # on a SparseBitPlane to check/alive's count at 10000.
+    sparse_ck = ck_dir / "sparse_512.npz"
+    sparse_ck.unlink(missing_ok=True)
+    sparse_read = {}
+
+    def sparse_read_back(engine, state, turn):
+        if sparse_ck.exists():
+            board_ck, turn_ck, _ = load_verified_checkpoint(sparse_ck)
+            sparse_read[turn_ck] = int(np.count_nonzero(board_ck))
+
+    open_window()
+    eng18 = Engine(EngineConfig(checkpoint_every=1000, min_chunk=256, max_chunk=256,
+                                checkpoint_path=str(sparse_ck), chunk_hook=sparse_read_back,
+                                plane=SparseBitPlane(CONWAY, device=dev)))
+    res18 = eng18.run(Params(turns=5000, image_width=512, image_height=512), board512)
+    sparse_read_back(None, None, 0)  # the last checkpoint, written after the last hook
+    steady18 = eng18.final_state().steady
+    check(res18.checkpoint_error is None and res18.turns_completed == 5000,
+          f"sparse 512^2: {res18.turns_completed} turns, {res18.checkpoint_error}")
+    bad = [t for t, count in sparse_read.items() if count != golden_counts[t]]
+    check(5000 in sparse_read and not bad, f"sparse checkpoints {sorted(sparse_read)}, "
+                                           f"differing from check/alive at {bad}")
+    board_ck, turn_ck, rule_ck = load_verified_checkpoint(sparse_ck)
+    resumed = Engine(EngineConfig()).run(
+        Params(turns=10_000, image_width=512, image_height=512), board_ck,
+        plane=SparseBitPlane(rule_ck, device=dev), initial_turn=turn_ck)
+    check(resumed.alive_count == golden_counts[10_000],
+          f"sparse resume from {turn_ck}: alive {resumed.alive_count}")
+    got = close_window("checkpointed sparse 512^2 session", ())
+    print(f"phase 18 sparse resume: 512^2 on SparseBitPlane to 5000 in chunks of 256 with a "
+          f"checkpoint every 1000 turns: the byte checkpoints at {sorted(sparse_read)} read "
+          f"back equal check/alive (the state ends {steady18 or 'not steady'}), and the "
+          f"turn-5000 file resumed on SparseBitPlane reaches check/alive's "
+          f"{golden_counts[10_000]} at 10000 (launches {got})")
+
+    # 19. a controller session without -noVis: 512^2 x 100 through the CLI
+    # with the visualiser loop on the window make_window gives this host
+    # (headless unless it has libSDL2 and a display); the window's pixels
+    # at the end equal FinalTurnComplete's alive cells and the PGM is the
+    # golden one. The PGM of 512^2 is under the native codec's 1 MiB
+    # threshold, so the codec is held against the Python one on that board
+    # and writes a 2048^2 board through write_pgm, read back by numpy.
+    from gol_distributed_final_tpu_torch.events import FinalTurnComplete as FinalEvent
+    from gol_distributed_final_tpu_torch.io import native
+    from gol_distributed_final_tpu_torch.io.pgm import write_pgm
+    from gol_distributed_final_tpu_torch.viz import loop as viz_loop
+
+    windows, finals = [], []
+    real_make_window, real_viz_run = viz_loop.make_window, viz_loop.run
+
+    def capture_window(*args, **kwargs):
+        windows.append(real_make_window(*args, **kwargs))
+        return windows[-1]
+
+    def capture_finals(params, events, keypresses=None, **kwargs):
+        real_get = events.get
+
+        def get(*a, **k):
+            ev = real_get(*a, **k)
+            if isinstance(ev, FinalEvent):
+                finals.append(ev)
+            return ev
+
+        events.get = get
+        return real_viz_run(params, events, keypresses, **kwargs)
+
+    viz_loop.make_window = capture_window
+    gol_viz = sys.modules["gol_distributed_final_tpu_torch.viz"]
+    gol_viz.run = capture_finals
+    (REPO / "out" / "512x512x100.pgm").unlink(missing_ok=True)
+    open_window()
+    t0 = time.monotonic()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            code = controller_main(["-w", "512", "-h", "512", "-turns", "100"])
+    finally:
+        viz_loop.make_window, gol_viz.run = real_make_window, real_viz_run
+    vis_wall = time.monotonic() - t0
+    got = close_window("512^2 session with the visualiser", ())
+    check(code == 0 and (REPO / "out" / "512x512x100.pgm").read_bytes() == golden100,
+          "512^2 x 100 without -noVis: PGM bytes differ from check/images")
+    check(len(windows) == 1 and len(finals) == 1, f"{len(windows)} windows, {len(finals)} finals")
+    window = windows[0]
+    check(window.count_pixels() == len(finals[0].alive) == int(np.count_nonzero(
+        read_pgm(REPO / "check" / "images" / "512x512x100.pgm"))),
+        f"window pixels {window.count_pixels()} against {len(finals[0].alive)} alive")
+    check(window.frames_rendered == 100, f"{window.frames_rendered} frames rendered")
+    check(native.available(), "the native PGM codec did not build")
+    used = native.used
+    native_copy = out_dir / "native_512.pgm"
+    check(native.write_board(native_copy, read_pgm(REPO / "out" / "512x512x100.pgm"))
+          and native_copy.read_bytes() == golden100, "the native codec's 512^2 bytes differ")
+    big_board = np.where(rng.random((2048, 2048)) < 0.35, 255, 0).astype(np.uint8)
+    write_pgm(out_dir / "native_2048.pgm", big_board)
+    check(np.array_equal(read_pgm(out_dir / "native_2048.pgm"), big_board),
+          "a 2048^2 board through the native codec")
+    check(native.used - used == 2, f"the native codec served {native.used - used} of 2 writes")
+    print(f"phase 19 visualiser: 512^2 x 100 through the CLI without -noVis on a "
+          f"{type(window).__name__} window: PGM equals check/images byte for byte, "
+          f"{window.count_pixels()} pixels lit = FinalTurnComplete's alive cells, "
+          f"{window.frames_rendered} frames, wall {vis_wall:.2f} s (launches {got}); the "
+          f"native codec built in {native.BUILD_DIR} writes the golden bytes and served a "
+          f"2048^2 write")
+
+    # the two PGM codecs on this host: write_pgm, whose native route starts
+    # at 1 MiB, against the same call with that threshold lifted past every
+    # board (the numpy codec), and read_pgm (numpy at every size) against
+    # the native codec's read of the same rows; best of three, alternating;
+    # both write the same bytes and fsync
+    from gol_distributed_final_tpu_torch.io import pgm as pgm_mod
+
+    def codec_times(board, path, numpy_codec):
+        saved = pgm_mod._NATIVE_THRESHOLD_BYTES
+        if numpy_codec:
+            pgm_mod._NATIVE_THRESHOLD_BYTES = 1 << 62
+        try:
+            used = native.used
+            t0 = time.monotonic()
+            write_pgm(path, board)
+            t1 = time.monotonic()
+            if numpy_codec:
+                back = read_pgm(path)
+            else:
+                w, h, _, offset = native.read_header(path)
+                back = native.read_rows(path, offset, w, 0, h)
+            t2 = time.monotonic()
+        finally:
+            pgm_mod._NATIVE_THRESHOLD_BYTES = saved
+        check(back is not None and np.array_equal(back, board),
+              f"{path.name}: the board read back differs")
+        check(native.used - used == (0 if numpy_codec else 2),
+              f"{path.name}: the native codec served {native.used - used} calls")
+        return t1 - t0, t2 - t1, path.read_bytes() if board.nbytes <= 1 << 24 else None
+
+    print("timing PGM codecs, write_pgm and a whole read (s, best of 3; write includes "
+          "fsync):")
+    for side in (1024, 4096, 16384):
+        board = np.where(rng.random((side, side)) < 0.35, 255, 0).astype(np.uint8)
+        best = {"native": [1e9, 1e9], "numpy": [1e9, 1e9]}
+        files = {}
+        for _ in range(3):
+            for codec in ("native", "numpy"):
+                path = out_dir / f"codec_{codec}_{side}.pgm"
+                w_s, r_s, data = codec_times(board, path, codec == "numpy")
+                best[codec] = [min(best[codec][0], w_s), min(best[codec][1], r_s)]
+                files[codec] = data
+                path.unlink()
+        check(files["native"] == files["numpy"], f"{side}^2: the codecs' bytes differ")
+        (nw, nr), (pw, pr) = best["native"], best["numpy"]
+        print(f"  {side}^2 ({board.nbytes} B): native write {nw:.4f} read {nr:.4f}, numpy "
+              f"write {pw:.4f} read {pr:.4f}; numpy/native {pw / nw:.3g}x write, "
+              f"{pr / nr:.3g}x read (the host of {card_tag})")
+        del board
 
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
@@ -1385,6 +1771,149 @@ def main() -> int:
           f"({t65_by}), {t65_dev / t65_bound:.3g}x the bound; {launches65} launches for 1000 "
           f"turns, {launches65 * t65_dev / 1e3:.4f} s of device time {card_tag}")
     del state65
+
+    # the activity-sparse kernel: one 8-turn block (a list pass at the
+    # dispatch's start, then a step, a scatter and a dilate launch a block)
+    # on the R-pentomino after 1000 turns at 16384^2 and 65536^2, events per
+    # block over a dispatch of 64 (the board's copy included) and the
+    # profiler's device time of the four kernels; the bound counts the
+    # active tiles' words at ops_per_word x 8 against the windows read, the
+    # tiles written and the grid read and written
+    sparse_kernels = "sparse_(?:list|step|scatter|dilate)_kernel"
+
+    def sparse_bound(tile, h_turns, tiles_per_block, grid_tiles):
+        tr, tc = tile
+        t_ops = tiles_per_block * tr * tc * opw * h_turns / int32_rate
+        t_bytes = (tiles_per_block * ((tr + 2) * (tc + 2 * h_turns) + tr * tc) * 4
+                   + 2 * grid_tiles) / HBM_BYTES_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+    def sparse_block_times(st, blocks=64):
+        tile = sparse.sparse_tile_shape(tuple(st.packed.shape))
+        total = (st.packed.shape[0] // tile[0]) * (st.packed.shape[1] // tile[1])
+        cap = min(sparse._pow2_ceil(max(st.count, 8) * 4), sparse._pow2_ceil(total))
+
+        def call():
+            return sparse_tiles.dispatch(st.packed, st.grid, blocks, tile, 8, cap, 8, 12)
+
+        run_ = call()
+        check(run_.blocks_done == blocks, f"the timed dispatch stopped at {run_.blocks_done}")
+        events_ms = cuda_ms(call, reps=5, warmup=1) / blocks
+        per_launch, traced = device_ms(call, sparse_kernels, reps=3, per_call=1 + 3 * blocks)
+        device = per_launch * (1 + 3 * blocks) / blocks
+        b_ms, b_by = sparse_bound(tile, 8, run_.active_sum / blocks, total)
+        return events_ms, device, b_ms, b_by, run_.active_sum / blocks, traced, tile, cap
+
+    sparse_times = {}
+    for label, st in (("16384^2", sparse16), ("65536^2", sparse65)):
+        ev, dv, b_ms, b_by, per_block, traced, tile, cap = sparse_block_times(st)
+        sparse_times[label] = (ev, dv, b_ms, b_by, tile, cap)
+        print(f"timing sparse {label} R-pentomino after 1000 turns: {dv:.4f} ms of device time "
+              f"per 8-turn block ({traced} launches traced; events {ev:.4f} ms per block over a "
+              f"dispatch of 64, the board's copy included), {per_block:.1f} active tiles of "
+              f"{tile[0]} x {tile[1]} words a block, bound {b_ms:.6f} ms ({b_by}), "
+              f"{dv / b_ms:.3g}x the bound {card_tag}")
+    ev16, dv16, b16, by16, tile16, cap16 = sparse_times["16384^2"]
+    sparse_plain_ms = cuda_ms(lambda: sparse_tiles.dispatch_plain(
+        sparse16.packed, sparse16.grid, 8, tile16, 8, cap16, 8, 12), reps=1, warmup=1) / 8
+    print(f"timing sparse plain program on the card at 16384^2 (torch ops, a measurement: "
+          f"it is not on the path): {sparse_plain_ms:.3f} ms per 8-turn block {card_tag}")
+
+    def device_total_ms(fn) -> float:
+        """All kernels' device time in a trace of one ``fn()``, the fullest
+        of three traces (a trace may lose records, see ``trace``)."""
+        fn()
+        return max(sum(us for _, us in window_kernels(trace(fn), r".")) for _ in range(3)) / 1e3
+
+    def timed_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, out
+
+    # what a dispatch pays beside its blocks at 65536^2: the copy of the
+    # board it writes into (its input is never written), and the period-2
+    # probe's two one-turn dispatches and two whole-board comparisons, over
+    # the wall of the 65536^2 R-pentomino x 1000 on the sparse plane
+    real_dispatch, dispatched = sparse_tiles.dispatch, []
+
+    def counting_dispatch(*args):
+        dispatched.append(args[4])  # h: the probe's dispatches are h = 1
+        return real_dispatch(*args)
+
+    seed65 = bigboard.seed_packed(size65, bigboard.r_pentomino(size65))
+    sparse_tiles.dispatch = counting_dispatch
+    try:
+        wall65, _ = timed_wall(lambda: plane65.step_n(plane65.from_packed(seed65), 1000))
+    finally:
+        sparse_tiles.dispatch = real_dispatch
+    copy65 = cuda_ms(lambda: sparse65.packed.clone(), reps=10)
+    twin65 = sparse65.packed.clone()
+    equal65 = cuda_ms(lambda: torch.equal(sparse65.packed, twin65), reps=10)
+    # a probe is two one-turn dispatches and at most two comparisons
+    one_turn65 = dispatched.count(1)
+    overhead65 = len(dispatched) * copy65 + one_turn65 * equal65
+    print(f"timing sparse 65536^2 R-pentomino x 1000 on the plane: wall {wall65 * 1e3:.3f} ms, "
+          f"{len(dispatched)} dispatches ({one_turn65} of one turn: the period-2 probe's and "
+          f"any tail); a dispatch's board copy {copy65:.4f} ms, a whole-board comparison "
+          f"{equal65:.4f} ms: copies {len(dispatched) * copy65:.3f} ms and at most "
+          f"{one_turn65 * equal65:.3f} ms of the probe's comparisons, "
+          f"{100 * overhead65 / (wall65 * 1e3):.1f}% of the wall {card_tag}")
+    del seed65, twin65
+
+    # sparse against dense: the R-pentomino x 1000 through each plane (wall
+    # with a synchronise, and device time) from 1024^2 to 65536^2, which is
+    # where SPARSE_MIN_CELLS stands; then one 8-turn block of the sparse
+    # kernel against one 8-turn launch of the tiled kernel on soups with 5%,
+    # 25%, 50% and 100% of the tiles active (capacity for every tile, so no
+    # overflow), which is where the density crossover stands, and the two
+    # planes' walls for 64 turns of the 5% and 25% soups
+    print("sparse against dense, the R-pentomino x 1000 (wall s / device ms; sparse "
+          "from_packed included):")
+    for side in (1024, 2048, 4096, 8192, 16384, 65536):
+        seed_words = bigboard.seed_packed(side, bigboard.r_pentomino(side))
+        sp, bp = SparseBitPlane(CONWAY, device=dev), BitPlane(CONWAY, 0, dev)
+        s_wall, s_out = timed_wall(lambda: sp.step_n(sp.from_packed(seed_words), 1000))
+        d_wall, d_out = timed_wall(lambda: bp.step_n(seed_words, 1000))
+        check(torch.equal(s_out.packed, d_out), f"{side}^2 sparse and dense boards differ")
+        s_dev = device_total_ms(lambda: sp.step_n(sp.from_packed(seed_words), 1000))
+        d_dev = device_total_ms(lambda: bp.step_n(seed_words, 1000))
+        print(f"  {side}^2: sparse {s_wall:.4f} s / {s_dev:.3f} ms, dense {d_wall:.4f} s / "
+              f"{d_dev:.3f} ms ({d_wall / s_wall:.3g}x by wall) {card_tag}")
+        del seed_words, s_out, d_out
+    print("sparse against dense, one 8-turn block of the sparse kernel against one 8-turn "
+          "tiled launch (device ms / events ms), and 64 turns through each plane (wall s):")
+    for side in (4096, 16384, 65536):
+        shape = bitpack.packed_shape(side, side)
+        tile = sparse.sparse_tile_shape(shape)
+        total = (shape[0] // tile[0]) * (shape[1] // tile[1])
+        for frac in (0.05, 0.25, 0.5, 1.0):
+            packed = tile_soup(shape, tile, frac, seed=side + int(frac * 1000))
+            grid = sparse.occupancy_grid(packed, *tile)
+            count = int(grid.sum())
+            cap = sparse._pow2_ceil(total)
+
+            def one_block():
+                return sparse_tiles.dispatch(packed, grid, 1, tile, 8, cap, 8, 12)
+
+            s_dev = device_ms(one_block, sparse_kernels, reps=5, per_call=4)[0] * 4
+            s_ev = cuda_ms(one_block, reps=5)
+            d_dev = device_ms(lambda: tiled.step_n(packed, 8), "tiled_kernel", reps=5)[0]
+            d_ev = cuda_ms(lambda: tiled.step_n(packed, 8), reps=5)
+            row = (f"  {side}^2, {count}/{total} tiles active ({count / total:.3f}): sparse "
+                   f"{s_dev:.4f} / {s_ev:.4f} ms, dense {d_dev:.4f} / {d_ev:.4f} ms, "
+                   f"sparse/dense {s_dev / d_dev:.3g} (device)")
+            if frac in (0.05, 0.25):
+                sp, bp = SparseBitPlane(CONWAY, device=dev), BitPlane(CONWAY, 0, dev)
+                s_wall, s_out = timed_wall(lambda: sp.step_n(sp.from_packed(packed), 64))
+                d_wall, d_out = timed_wall(lambda: bp.step_n(packed, 64))
+                check(torch.equal(s_out.packed, d_out), f"{side}^2 soup: planes differ")
+                row += (f"; 64 turns: sparse plane {s_wall:.4f} s (ends with {s_out.count} "
+                        f"active), dense {d_wall:.4f} s")
+                del s_out, d_out
+            print(row + f" {card_tag}")
+            del packed, grid
 
     k2_out = []
     k2_ms = cuda_ms(lambda: k2_out.append(batch_board.step_n(p8, turns8)), reps=20)
@@ -1579,6 +2108,19 @@ def main() -> int:
             "bound_by": k6_times[(512, 512), 8][3],
             "library_ms": None,
         },
+        {
+            "name": "sparse_tiles",
+            "route": "cuda",
+            "source": "gol_distributed_final_tpu_torch/csrc/sparse_tiles.cu",
+            "replaces": "gol_distributed_final_tpu/ops/sparse.py:189",
+            "launches": launches["sparse_tiles"],
+            "max_abs_err": sp_err,
+            "ms": dv16,
+            "plain_ms": sparse_plain_ms,
+            "bound_ms": b16,
+            "bound_by": by16,
+            "library_ms": None,
+        },
     ]
     print("kernels: " + "; ".join(
         f"{k['name']} (replaces {k['replaces']}) launches={k['launches']} "
@@ -1588,7 +2130,10 @@ def main() -> int:
     print("units: whole_board ms = one counted launch of 100 turns at 512^2; "
           "tiled ms = one 8-turn launch at 16384^2; batch_board ms = one counted "
           "launch of 100 turns over 1000 x 128^2 (CUDA events); byte_board ms = one "
-          "launch of 100 turns at 64^2; byte_tiled ms = one 8-turn launch at 512^2 "
+          "launch of 100 turns at 64^2; byte_tiled ms = one 8-turn launch at 512^2; "
+          "sparse_tiles ms = one 8-turn block (step, scatter, dilate, and a 64th of the "
+          "dispatch's list pass) on the 16384^2 R-pentomino after 1000 turns, its plain_ms "
+          "the plain program's block on the card "
           "(the profiler's device time); library_ms "
           "null: no single PyTorch call computes a life-like turn")
     print(json.dumps({"kernels": kernels}))

@@ -8,11 +8,15 @@ session computes: default cuda; ``-device cpu`` runs on the CPU; with
 -server the broker's own -device decides). ``-h`` is board height as in
 the reference, so argparse's auto-help is disabled; use --help.
 
-The visualiser is not ported yet, so -noVis is required. The run drains
-the event stream and prints every event with a non-empty string as
-``Completed Turns <n> <event>`` (sdl/loop.go:44-47; main.go:59-67). With
-a TTY, keypresses s/q/k/p are read raw from stdin and forwarded like the
-SDL keymap (sdl/loop.go:16-28).
+Without -noVis the visualiser loop consumes the event stream (main.go:57,
+viz/loop.py): an in-process engine feeds it per-cell flips, which it draws
+into the SDL window where the host has libSDL2 and a display, else into
+the headless window, and the window's keys p/s/q/k drive the session.
+With -noVis the run drains the event stream, and with a TTY keypresses
+s/q/k/p are read raw from stdin and forwarded like the SDL keymap
+(sdl/loop.go:16-28). Either way every event with a non-empty string is
+printed as ``Completed Turns <n> <event>`` (sdl/loop.go:44-47;
+main.go:59-67).
 """
 
 from __future__ import annotations
@@ -99,10 +103,6 @@ def main(argv=None) -> int:
              "fails without a card) or cpu; not with -server",
     )
     args = parser.parse_args(argv)
-    if not args.noVis:
-        parser.error(
-            "the visualiser is not ported yet: pass -noVis for a headless run"
-        )
     if args.rule and args.resume:
         parser.error("-rule conflicts with -resume (the checkpoint's rule wins)")
     rule = None
@@ -148,12 +148,23 @@ def main(argv=None) -> int:
         broker = RemoteBroker(args.server)
     events: "queue.Queue" = queue.Queue()
     keypresses: "queue.Queue" = queue.Queue()
-    restore_tty = start_tty_keys(keypresses)
-    consumer = threading.Thread(target=drain_events, args=(events,))
+    if args.noVis:
+        # headless drain (main.go:59-67)
+        restore_tty = start_tty_keys(keypresses)
+        consumer = threading.Thread(target=drain_events, args=(events,))
+    else:
+        # the visualiser loop (main.go:57, sdl.Run), whose window's keys
+        # are the keypresses
+        from .viz import run as viz_run
+
+        restore_tty = lambda: None  # noqa: E731
+        consumer = threading.Thread(target=viz_run, args=(params, events, keypresses))
     consumer.start()
     try:
+        # the in-process engine can feed the visualiser per-cell flips; the
+        # remote path (like the reference's distributed mode) cannot
         run(params, events, keypresses, broker=broker, rule=rule, device=device,
-            resume_from=resume)
+            resume_from=resume, emit_flips=not args.noVis and broker is None)
     finally:
         consumer.join()
         restore_tty()

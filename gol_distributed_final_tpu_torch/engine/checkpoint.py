@@ -217,15 +217,17 @@ def write_checkpoint(
 
 def try_write_checkpoint(path, turn: int, rule: LifeRule, plane, state) -> Optional[Exception]:
     """The engine's periodic checkpoint of a plane's ``state``: packed for
-    a bitboard plane (one with a ``word_axis``) holding int32 words, the
-    byte format of ``plane.decode(state)`` otherwise. Returns the failure,
+    a bitboard plane (one with a ``word_axis``) whose state is a tensor of
+    int32 words, the byte format of ``plane.decode(state)`` otherwise (a
+    ``SparseState`` among them, as the JAX engine writes it). Returns the failure,
     of any type, instead of raising it, the host copy and the decode
     included: a full disk or a host buffer that cannot be had must not end
     the run the checkpoint protects (the engine surfaces it on
     ``RunResult.checkpoint_error``)."""
     word_axis = getattr(plane, "word_axis", None)
     try:
-        if word_axis is not None and state.dtype == torch.int32:
+        if (word_axis is not None and isinstance(state, torch.Tensor)
+                and state.dtype == torch.int32):
             write_checkpoint(path, turn, rule, packed=state, word_axis=word_axis)
         else:
             write_checkpoint(path, turn, rule, board=plane.decode(state))

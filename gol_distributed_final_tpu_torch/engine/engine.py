@@ -335,14 +335,17 @@ class Engine:
                     new_state, chunk_counts = active_plane.step_n_counted(state, n)
                 else:
                     new_state = active_plane.step_n(state, n)
-                if new_state.is_cuda:
+                # a plane's state is a tensor or holds its board in
+                # ``packed`` (ops/sparse.py::SparseState)
+                board = getattr(new_state, "packed", new_state)
+                if board.is_cuda:
                     if growing:
                         # the wall below drives the doubling: it must
                         # cover the card's work, not the launch
-                        torch.cuda.synchronize(new_state.device)
+                        torch.cuda.synchronize(board.device)
                     else:
                         fence = torch.cuda.Event()
-                        fence.record(torch.cuda.current_stream(new_state.device))
+                        fence.record(torch.cuda.current_stream(board.device))
                         inflight.append(fence)
                         if len(inflight) > _PIPELINE_DEPTH:
                             inflight.popleft().synchronize()

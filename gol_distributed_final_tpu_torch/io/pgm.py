@@ -1,8 +1,13 @@
 """PGM (P5) board IO: ``images/<W>x<H>.pgm`` in, ``out/<W>x<H>x<Turns>.pgm``
 out, P5 with maxval 255, strict validation (reference: gol/io.go:12-149).
 
-The numpy codec only: every board is read and written through plain file
-IO, whatever its size.
+Boards of at least ``_NATIVE_THRESHOLD_BYTES`` are written through the
+native C++ codec (io/native.py, built at first use) when it can be had,
+smaller ones and every board where it cannot through the numpy codec: the
+two write the same bytes and both fsync. Every read is numpy's. On the
+host of an H100 machine, over two runs at 1024^2 to 16384^2, the native
+write took 0.69-0.97x the numpy write's time, while the native read went
+from 1.19x slower to 1.27x faster (chip_smoke.py's "timing PGM codecs").
 
 Validation mirrors gol/io.go:103-120, including the messages:
 "Not a pgm file", "Incorrect width", "Incorrect height",
@@ -19,6 +24,11 @@ import numpy as np
 
 class PgmError(Exception):
     """Raised on malformed or mismatching PGM input (gol/io.go panics)."""
+
+
+# boards at least this large are written through the native C++ codec when
+# it is available (io/native.py builds it; small boards are not worth the hop)
+_NATIVE_THRESHOLD_BYTES = 1 << 20
 
 
 _WHITESPACE = b" \t\n\r\x0b\x0c"
@@ -162,6 +172,12 @@ def write_pgm(path, board: np.ndarray) -> None:
     board = np.asarray(board, np.uint8)
     if board.ndim != 2:
         raise PgmError(f"board must be 2-D, got shape {board.shape}")
+    if board.nbytes >= _NATIVE_THRESHOLD_BYTES:
+        from . import native
+
+        pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+        if native.write_board(path, board):
+            return
     with PgmWriter(path, board.shape[1], board.shape[0]) as w:
         w.write_rows(board)
 

@@ -1,5 +1,8 @@
 """Automatic data-plane selection for the engine.
 
+* rows divisible by 32 and ``sparse_capable`` (a rule without birth on 0,
+  a board of at least ``SPARSE_MIN_CELLS``, the ``GOL_SPARSE`` knob) ->
+  the activity-sparse plane (ops/sparse.py), as the JAX package routes;
 * a 32-divisible axis, packed board under the whole-board gate -> the
   fused bitboard plane (one launch per chunk, counts included), unless
   ``GOL_FUSED=off`` (ops/fused.py::fused_enabled);
@@ -13,10 +16,6 @@ that packs and unpacks on every call.
 
 ``auto_batch_plane`` picks the batched plane of a session table the same
 way: the bitboard batch when an axis divides by 32, else the byte batch.
-
-The JAX package sends packable boards of 4096^2 cells or more to its
-activity-sparse plane; the port has no sparse plane yet, so they go to
-the dense bitboard plane, with identical results.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from ..device import resolve_device
 from .bitpack import packed_shape
 from .fused import FusedBitPlane, fused_enabled
 from .plane import BitPlane
+from .sparse import SparseBitPlane, sparse_capable
 from .whole_board import fits
 
 
@@ -47,6 +47,8 @@ def auto_plane(rule, shape: tuple[int, int], device):
     word_axis = choose_word_axis(shape)
     if word_axis is None:
         return None
+    if word_axis == 0 and sparse_capable(rule, shape):
+        return SparseBitPlane(rule, device=device)
     if fused_enabled() and fits(packed_shape(*shape, word_axis), device):
         return FusedBitPlane(rule, word_axis, device)
     return BitPlane(rule, word_axis, device)

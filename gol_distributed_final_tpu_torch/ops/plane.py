@@ -4,7 +4,8 @@ The engine holds an opaque device-resident *state* and talks to it
 through a small interface, so the packed bitboard stays packed across
 chunks: encode once at Run start, decode only for Retrieve/final.
 
-Interface (duck-typed):
+Interface (duck-typed; a state is a tensor, or for the activity-sparse
+plane a ``SparseState`` whose ``packed`` tensor holds the board):
     encode(board_uint8) -> state      host uint8 [H, W] -> device state
     step_n(state, n) -> state         n turns; never writes ``state``
     decode(state) -> np.uint8 [H, W]  full host board (Retrieve/final only)
@@ -40,7 +41,7 @@ from .reduce import alive_cells, alive_count
 
 def plane_steady_kind(plane, state):
     """``None`` unless the plane implements ``steady_kind`` and has marked
-    this state steady (no plane of the port does yet)."""
+    this state steady (the activity-sparse plane, ops/sparse.py, does)."""
     probe = getattr(plane, "steady_kind", None)
     if probe is None or state is None:
         return None

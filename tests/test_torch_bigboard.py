@@ -279,14 +279,28 @@ def test_big_session_full_event_surface(tmp_path):
         StateChange,
     )
 
+    import time
+
     size = 1024
     events, keys = queue.Queue(), queue.Queue()
     for k in ("s", "p", "p"):
         keys.put(k)
+
+    def hold(engine, state, turn):
+        # the ticker handles the keys while the run goes on; on a loaded
+        # host the 100 turns could end before it reaches the first 'p', and
+        # a stopped ticker handles no more keys. So the run waits at its
+        # first chunk until a pause is asked for (it then parks) or every
+        # key is taken.
+        deadline = time.monotonic() + 120
+        while not (engine._paused or keys.empty()) and time.monotonic() < deadline:
+            time.sleep(0.005)
+
     res = pbig.big_session(size, TURNS, cells=pbig.r_pentomino(size), row_block=256,
                            events=events, keypresses=keys, tick_seconds=0.05,
                            out_dir=tmp_path, engine=Engine(EngineConfig(
-                               final_world=False, max_chunk=2, device="cpu")))
+                               final_world=False, max_chunk=2, chunk_hook=hold,
+                               device="cpu")))
     seq = _drain(events)
     final = [e for e in seq if isinstance(e, FinalTurnComplete)]
     assert len(final) == 1 and res.turns_completed == TURNS and res.world is None

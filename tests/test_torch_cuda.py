@@ -704,3 +704,62 @@ def test_big_board_on_the_card_equals_the_plain_version(cuda_device, size, tmp_p
     assert out.read_bytes() == plain.read_bytes()
     state = bigboard.load_packed_from_pgm(out, row_block=512)
     assert state.is_cuda and bitpack.alive_count_packed(state) == alive
+
+
+# -- the activity-sparse kernel (csrc/sparse_tiles.cu) -------------------------
+
+
+def _sparse_soup(h, w, p, seed, window):
+    rng = np.random.default_rng(seed)
+    board = np.zeros((h, w), np.uint8)
+    y0, y1, x0, x1 = window
+    board[y0:y1, x0:x1] = np.where(rng.random((y1 - y0, x1 - x0)) < p, 255, 0)
+    return board
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,shape", [((1, 2), (64, 64)), ((1, 8), (64, 128)),
+                                        ((1, 16), (256, 256)), ((3, 12), (96, 96)),
+                                        ((8, 128), (1024, 2048)), ((2, 16), (128, 128))])
+@pytest.mark.parametrize("rule", RULES + (life.LifeRule.from_rulestring("B36/S125"),),
+                         ids=lambda r: r.name)
+def test_sparse_kernel_matches_plain(cuda_device, tile, shape, rule):
+    """Every block depth the tile allows, a capacity that holds the frontier
+    and one that overflows: the same board, grid, blocks, overflow, sum
+    and count as the plain program."""
+    from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+
+    h, w = shape
+    board = _sparse_soup(h, w, 0.35, 3, (h // 3, 2 * h // 3, w // 4, w // 2))
+    plane = sparse.SparseBitPlane(rule, tile=tile, device=cuda_device)
+    st = plane.encode(board)
+    masks = (rule.birth_mask, rule.survive_mask)
+    for h_turns in range(1, sparse.sparse_block_turns(*tile) + 1):
+        for capacity in (sparse._pow2_ceil(max(st.count, 8) * 2), max(1, st.count // 2)):
+            got = sparse_tiles.dispatch(st.packed, st.grid, 6, tile, h_turns, capacity, *masks)
+            want = sparse_tiles.dispatch_plain(st.packed.cpu(), st.grid.cpu(), 6, tile,
+                                               h_turns, capacity, *masks)
+            torch.cuda.synchronize()
+            assert (got.blocks_done, got.overflow, got.active_sum, got.count) == (
+                want.blocks_done, want.overflow, want.active_sum, want.count)
+            assert torch.equal(got.packed.cpu(), want.packed)
+            assert torch.equal(got.grid.cpu(), want.grid)
+
+
+@pytest.mark.cuda
+def test_sparse_plane_on_the_card_equals_the_cpu(cuda_device):
+    """A 512^2 R-pentomino across tile edges, in calls that overflow, drain
+    and take the h = 1 tail: board, count and steady after each call."""
+    from gol_distributed_final_tpu_torch.models import CONWAY
+    from gol_distributed_final_tpu_torch.ops import sparse
+
+    board = np.zeros((512, 512), np.uint8)
+    for dx, dy in ((1, 0), (2, 0), (0, 1), (1, 1), (1, 2)):
+        board[256 + dy, 256 + dx] = 255
+    card = sparse.SparseBitPlane(CONWAY, device=cuda_device)
+    cpu = sparse.SparseBitPlane(CONWAY, device="cpu")
+    a, b = card.encode(board), cpu.encode(board)
+    for n in (1, 300, 7, 700, 5):
+        a, b = card.step_n(a, n), cpu.step_n(b, n)
+        assert np.array_equal(card.decode(a), cpu.decode(b)), n
+        assert (a.count, a.steady) == (b.count, b.steady), n

@@ -92,6 +92,40 @@ def test_cli_session_imports_no_jax(tmp_path):
     assert np.count_nonzero(read_pgm(tmp_path / "big.pgm")) == 9
 
 
+_SPARSE_PROBE = """
+import json, os, sys
+os.environ["GOL_SPARSE"] = "on"
+from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+from gol_distributed_final_tpu_torch.io import native
+from gol_distributed_final_tpu_torch import viz
+from gol_distributed_final_tpu_torch.__main__ import main
+assert main(["-w", "256", "-h", "256", "-turns", "20", "-noVis", "-device", "cpu"]) == 0
+assert sparse_tiles.plain_calls > 0, "the session missed the sparse plane"
+print("MODULES " + json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_sparse_session_and_visualiser_import_no_jax(tmp_path):
+    """The sparse plane, its kernel's wrapper, the visualiser and the
+    native codec, imported in a process of its own that runs a 256^2
+    session on the sparse plane (GOL_SPARSE=on): no jax, no JAX package."""
+    (tmp_path / "images").symlink_to(REPO_ROOT / "images")
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT))
+    proc = subprocess.run([sys.executable, "-c", _SPARSE_PROBE], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    modules = json.loads(proc.stdout.split("MODULES ", 1)[1])
+    assert [m for m in modules if _forbidden(m)] == []
+    for name in ("ops.sparse", "ops.sparse_tiles", "io.native", "viz", "viz.window"):
+        assert f"gol_distributed_final_tpu_torch.{name}" in modules
+    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+
+    want = read_pgm(REPO_ROOT / "images" / "256x256.pgm")
+    for _ in range(20):
+        want = vector_step(want)
+    np.testing.assert_array_equal(read_pgm(tmp_path / "out" / "256x256x20.pgm"), want)
+
+
 _BROKER_PROBE = """
 import json, runpy, sys
 sys.argv = ["gol_distributed_final_tpu_torch.rpc.broker"] + sys.argv[1:]
@@ -145,7 +179,31 @@ def test_broker_reading_reference_frames_imports_no_jax():
 def _port_sources():
     files = sorted(PORT.rglob("*.py"))
     assert PORT / "rpc" / "broker.py" in files and PORT / "rpc" / "protocol.py" in files
+    for new in ("ops/sparse.py", "ops/sparse_tiles.py", "io/native.py", "viz/window.py",
+                "viz/loop.py", "viz/bigview.py", "utils/visualise.py"):
+        assert PORT / new in files
     return files + [REPO_ROOT / "chip_smoke.py"]
+
+
+def test_native_sources_name_no_jax_or_the_jax_package():
+    """The port's C++ (native/, csrc/) includes nothing of the JAX
+    package's tree or of jax, and its one build recipe (io/native.py,
+    which viz/window.py calls) compiles sources from the port's own
+    native/: the include directives are scanned (the sources' comments
+    name the JAX functions they replace)."""
+    import re
+
+    from gol_distributed_final_tpu_torch.io import native
+
+    files = [f for f in sorted((PORT / "native").rglob("*")) + sorted(
+        (PORT / "csrc").rglob("*")) if f.is_file() and f.suffix != ".so"]
+    assert PORT / "native" / "pgm_codec.cc" in files
+    assert native.NATIVE_DIR == PORT / "native"
+    pattern = re.compile(r"\bjax|gol_distributed_final_tpu(?!_torch)|\.\./\.\.")
+    found = [f"{f.name}:{i}" for f in files
+             for i, line in enumerate(f.read_text().splitlines(), 1)
+             if line.lstrip().startswith("#include") and pattern.search(line)]
+    assert found == []
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -199,17 +257,27 @@ def test_run_defaults_to_the_card_and_raises_without_one(monkeypatch, tmp_path):
             make()
 
 
-def test_cli_refuses_the_visualiser_and_a_missing_card(monkeypatch, capsys):
+def test_cli_refuses_the_visualiser_and_a_missing_card(monkeypatch, capsys, tmp_path):
+    """The visualiser is no longer refused: without -noVis a CPU session
+    runs through it and quits. A missing card is refused, with the
+    visualiser or without it, before any thread starts."""
     import torch
 
     from gol_distributed_final_tpu_torch.__main__ import main
 
-    with pytest.raises(SystemExit) as exc:
-        main(["-w", "16", "-h", "16", "-turns", "1", "-device", "cpu"])
-    assert exc.value.code == 2
-    assert "-noVis" in capsys.readouterr().err
+    (tmp_path / "images").symlink_to(REPO_ROOT / "images")
+    monkeypatch.chdir(tmp_path)
+    assert main(["-w", "16", "-h", "16", "-turns", "1", "-device", "cpu"]) == 0
+    out = capsys.readouterr()
+    assert "-noVis" not in out.err and "Completed Turns 1 Quitting" in out.out
+    assert (tmp_path / "out" / "16x16x1.pgm").read_bytes() == (
+        REPO_ROOT / "check" / "images" / "16x16x1.pgm").read_bytes()
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        main(["-w", "16", "-h", "16", "-turns", "1"])  # -device cuda, the visualiser
+    assert exc.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(SystemExit) as exc:
         main(["-w", "16", "-h", "16", "-turns", "1", "-noVis"])  # -device cuda
     assert exc.value.code == 2

@@ -247,13 +247,32 @@ def test_concurrent_session_runs_equal_the_oracle(port_broker):
         assert len(results[i].alive) == int(np.count_nonzero(results[i].world))
 
 
-def test_tagged_retrieve_mid_flight_and_after_completion(inproc_broker):
+def test_tagged_retrieve_mid_flight_and_after_completion(inproc_broker, monkeypatch):
+    from gol_distributed_final_tpu_torch.engine import sessions as sessions_mod
+
     addr, service = inproc_broker
     with service._sessions_lock:
         # one turn per boundary: a wide window for the mid-flight retrieve
         service._sessions = port_broker_mod.SessionScheduler(4, max_chunk=1, device="cpu")
     board = _mixed_batch(b=3, seed=13)[2]
     turns, done, result = 200, threading.Event(), {}
+    snaps, advances = [], []
+
+    class HeldTable(sessions_mod.SessionTable):
+        """Holds the batch after its first turn until the watcher has read
+        three snapshots: on a loaded host the 200 one-turn boundaries can
+        all pass between two of the watcher's polls, and no read would
+        land mid-flight."""
+
+        def advance(self):
+            if len(advances) == 1:
+                deadline = time.monotonic() + TIMEOUT
+                while len(snaps) < 3 and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            advances.append(None)
+            return super().advance()
+
+    monkeypatch.setattr(sessions_mod, "SessionTable", HeldTable)
 
     def session():
         rb = RemoteBroker(addr)
@@ -268,7 +287,6 @@ def test_tagged_retrieve_mid_flight_and_after_completion(inproc_broker):
     watcher = RemoteBroker(addr)
     t = threading.Thread(target=session)
     t.start()
-    snaps = []
     try:
         deadline = time.monotonic() + TIMEOUT
         while time.monotonic() < deadline and not done.is_set() and len(snaps) < 3:
