@@ -27,9 +27,15 @@ back), drives the activity-sparse plane (the 16384^2 R-pentomino on the
 auto route, the 65536^2 one adopted with ``SparseBitPlane.from_packed``,
 and a 512^2 sparse session with periodic checkpoints resumed to its
 golden), runs a controller session without ``-noVis`` through the
-visualiser and holds the native PGM codec against the Python one, and
+visualiser and holds the native PGM codec against the Python one, drives
+the workers backend (four worker processes on the card and workers
+brokers started through their CLIs serving ``-server`` sessions on the
+resident, haloed and 2-D tile wires; a 4096^2 soup x 1000 turns through
+``WorkersBackend`` over four in-process workers, every strip batch on the
+strip kernel, held against ``DeviceBackend``), and
 times the kernels with CUDA events and the profiler's device time,
-sparse against dense included. The kernels compile the
+sparse against dense included, and the workers' fused strip batch against
+their numpy loop (the table that sets ``FUSED_STRIP_MIN_CELLS``). The kernels compile the
 four named rules in; the parity phases also run a rule outside them
 (B36/S125) and check, by the kernels' names in the profiler's trace, that
 it ran the run-time-rule instantiation. Any failed check
@@ -40,7 +46,7 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --kernel-times [TREE]
 
 times only the kernels (K1, K2, the tiled kernel, K5, K6 and, where the
-tree has it, the sparse kernel) of the port in
+tree has it, the sparse kernel and the strip kernel) of the port in
 the checkout TREE (default: this one) and prints one JSON line, so that two
 trees can be compared in turns within one call on one card.
 
@@ -198,12 +204,50 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+class Proc:
+    """A subprocess of this checkout's Python whose output lines a reader
+    thread queues, so that waiting for a line has a timeout."""
+
+    def __init__(self, args, env=None):
+        self.proc = subprocess.Popen(
+            [sys.executable, *args], cwd=REPO, text=True,
+            env=dict(os.environ, PYTHONPATH=str(REPO), **(env or {})),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        self.lines: queue.Queue = queue.Queue()
+        self.seen: list = []
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def wait_for(self, text: str, timeout: float = 120) -> str:
+        deadline = time.monotonic() + timeout
+        while True:
+            line = self.lines.get(timeout=max(0.01, deadline - time.monotonic()))
+            if line is None:
+                raise RuntimeError(f"check failed: process exited: {''.join(self.seen)}")
+            self.seen.append(line)
+            if text in line:
+                return line
+
+    def port(self, text: str) -> int:
+        return int(self.wait_for(text).rsplit(":", 1)[1].split()[0])
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel instantiation's short name from its mangled one, e.g.
     ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
     kernel = re.search(
         r"(whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
-        r"sparse_step|sparse_scatter|sparse_dilate|sparse_list)_kernel",
+        r"sparse_step|sparse_scatter|sparse_dilate|sparse_list|strip_steps)_kernel",
         mangled)
     name = kernel.group(1) if kernel else mangled[:40]
     args = re.findall(r"Li(\d+)E", mangled)
@@ -387,6 +431,18 @@ def kernel_times(tree: str) -> int:
         device["sparse_16384_5pct_block"] = device_ms(
             block, "sparse_(?:list|step|scatter|dilate)_kernel", reps=20, per_call=4)[0] * 4
         times["sparse_16384_5pct_block"] = cuda_ms(block, reps=20)
+    if (pathlib.Path(tree) / "gol_distributed_final_tpu_torch" / "ops" / "strip_steps.py").exists():
+        # the strip kernel, in the trees that have it: one 8-turn batch of a
+        # 1024-row, 4096-wide strip with its bands
+        from gol_distributed_final_tpu_torch.ops import strip_steps
+
+        block = cells((1024 + 16, 4096))
+
+        def batch():
+            return strip_steps.strip_steps(block, 8, 1024, attest=True)
+
+        device["strip_1040x4096_k8"] = device_ms(batch, "strip_steps_kernel", reps=20)[0]
+        times["strip_1040x4096_k8"] = cuda_ms(batch, reps=20)
     print(json.dumps({"tree": tree, "card": nvidia_smi("name,power.limit"), "ms": times,
                       "device_ms": device}))
     return 0
@@ -418,8 +474,8 @@ def main() -> int:
     from gol_distributed_final_tpu_torch.__main__ import main as controller_main
     from gol_distributed_final_tpu_torch.engine.sessions import SessionTable
     from gol_distributed_final_tpu_torch.ops import (
-        _build, batch_board, bitpack, byte_board, byte_tiled, sparse, sparse_tiles, tiled,
-        whole_board,
+        _build, batch_board, bitpack, byte_board, byte_tiled, sparse, sparse_tiles,
+        strip_steps, tiled, whole_board,
     )
     from gol_distributed_final_tpu_torch.ops.auto import auto_batch_plane, auto_plane
     from gol_distributed_final_tpu_torch.ops.batched import BatchBitPlane
@@ -427,8 +483,10 @@ def main() -> int:
     from gol_distributed_final_tpu_torch.ops.pallas_stencil import pallas_step_n_fn
     from gol_distributed_final_tpu_torch.ops.plane import BitPlane
     from gol_distributed_final_tpu_torch.ops.sparse import SparseBitPlane
-    from gol_distributed_final_tpu_torch.rpc import broker
+    from gol_distributed_final_tpu_torch.rpc import broker, integrity
+    from gol_distributed_final_tpu_torch.rpc import worker as rpc_worker
     from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker, RpcError
+    from gol_distributed_final_tpu_torch.rpc.protocol import Methods, Request
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -460,7 +518,8 @@ def main() -> int:
     for name, want in (("whole_board", ("whole_board_kernelILi0E", conway)),
                        ("tiled", ("tiled_kernelILi0ELi8E", conway)),
                        ("byte_board", ("byte_board_bits_kernelILi8E", conway)),
-                       ("byte_tiled", ("byte_tiled_kernel", wide_tile, conway))):
+                       ("byte_tiled", ("byte_tiled_kernel", wide_tile, conway)),
+                       ("strip_steps", ("strip_steps_kernel", wide_tile))):
         print(f"  SASS, the Conway turn loop of {kernel_label(''.join(want))}: "
               f"{sass_loop(_build.library_path(name), want)}")
 
@@ -868,6 +927,32 @@ def main() -> int:
           f"plane on the card against the plane on the CPU after every step_n; "
           f"{sp_overflows} dispatches overflowed)")
 
+    # the resident worker's strip kernel (W) against its plain version:
+    # batches of K = 1, 8 and 32 turns (one launch) and 33 and 64 (chained
+    # launches), widths from a ragged 100 to 16384, strips of 1, 16 and 1024
+    # rows, with and without the attestation bands; strips, per-turn counts
+    # and every band byte
+    w_err = w_cases = 0
+    for k in (1, 8, 32, 33, 64):
+        for width in (100, 512, 4096, 16384):
+            for h in (1, 16, 1024):
+                block = random_bytes((h + 2 * k, width))
+                for attest in (False, True):
+                    got = strip_steps.strip_steps(block, k, h, attest=attest)
+                    want = strip_steps.strip_steps_plain(block, k, h, attest)
+                    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+                    if attest and want[2].numel():
+                        err = max(err, max_abs_err(got[2], want[2]))
+                    check(err == 0 and got[0].shape == want[0].shape
+                          and (got[2] is None) == (not attest)
+                          and (not attest or got[2].shape == want[2].shape),
+                          f"strip kernel k={k} {h}x{width} attest={attest}: max abs err {err}")
+                    w_err, w_cases = max(w_err, err), w_cases + 1
+                del block, got, want
+    print(f"phase 3 parity: strip kernel equals its plain version in {w_cases} cases "
+          "(k 1/8/32/33/64, widths 100/512/4096/16384, strips of 1/16/1024 rows, bands on "
+          "and off: strips, per-turn counts, band bytes)")
+
     out_dir = REPO / "out" / "chip_smoke"
 
     # 5. per-turn alive counts of 512^2 for turns 1..10000, one turn per
@@ -934,7 +1019,7 @@ def main() -> int:
     # after; launches made to compare a kernel with a reference stay out
     counted = {"whole_board": whole_board, "tiled": tiled, "batch_board": batch_board,
                "byte_board": byte_board, "byte_tiled": byte_tiled,
-               "sparse_tiles": sparse_tiles}
+               "sparse_tiles": sparse_tiles, "strip_steps": strip_steps}
     launches = dict.fromkeys(counted, 0)
     plain = dict.fromkeys(counted, 0)
 
@@ -1719,6 +1804,232 @@ def main() -> int:
               f"{pr / nr:.3g}x read (the host of {card_tag})")
         del board
 
+    # 20. a workers cluster through the CLIs on the card: four worker
+    # processes (-device cuda; GOL_WORKER_FUSED=on sends every strip batch
+    # to the strip kernel) and a workers broker on the resident wire at
+    # K = 8 serve the controller's -server sessions {64,512}^2 x {0,1,100}
+    # and a 512^2 x 100 session whose 2-second ticks come every 0.02 s;
+    # then brokers over the same workers on -wire haloed and on -grid 2x2
+    # serve a 512^2 x 100 session each, and SuperQuit takes the cluster
+    # down. The workers' launches are their own processes' (20b counts W).
+    from gol_distributed_final_tpu_torch.events import AliveCellsCount
+
+    with open(REPO / "check" / "alive" / "64x64.csv") as f:
+        golden64 = {int(r["completed_turns"]): int(r["alive_cells"])
+                    for r in csv.DictReader(f)}
+    golden_alive = {64: golden64, 512: golden_counts}
+    first_ticks = {64: 2819, 512: int(np.count_nonzero(board512))}
+    procs = []
+    t0 = time.monotonic()
+    try:
+        wprocs = [Proc(["-m", "gol_distributed_final_tpu_torch.rpc.worker", "-port", "0",
+                        "-device", "cuda"], env={"GOL_WORKER_FUSED": "on"})
+                  for _ in range(4)]
+        procs += wprocs
+        roster = ",".join(f"127.0.0.1:{w.port('worker listening on :')}" for w in wprocs)
+        worker_start = time.monotonic() - t0
+
+        def cli_broker(*flags):
+            proc = Proc(["-m", "gol_distributed_final_tpu_torch.rpc.broker", "-port", "0",
+                         "-backend", "workers", "-workers", roster, *flags])
+            procs.append(proc)
+            return proc, f"127.0.0.1:{proc.port('broker listening on :')}"
+
+        def cli_session(addr, size, turns):
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                code = controller_main(["-server", addr, "-w", str(size), "-h", str(size),
+                                        "-turns", str(turns), "-noVis"])
+            name = f"{size}x{size}x{turns}.pgm"
+            check(code == 0, f"workers -server session {name} exit {code}")
+            check((REPO / "out" / name).read_bytes()
+                  == (REPO / "check" / "images" / name).read_bytes(),
+                  f"workers -server session {name}: PGM bytes differ")
+            ticks = re.findall(r"Completed Turns (\d+) Alive Cells (\d+)", printed.getvalue())
+            for turn, count in ticks:
+                turn, count = int(turn), int(count)
+                want = first_ticks[size] if turn == 0 else golden_alive[size][turn]
+                check(count == want, f"{name}: tick at turn {turn} says {count}, not {want}")
+            return len(ticks)
+
+        os.chdir(REPO)
+        resident, addr = cli_broker("-wire", "resident", "-halo-depth", "8")
+        t1 = time.monotonic()
+        for size in (64, 512):
+            for turns in (0, 1, 100):
+                cli_session(addr, size, turns)
+        sessions_wall = time.monotonic() - t1
+        events20 = queue.Queue()
+        remote = RemoteBroker(addr)
+        try:
+            res20t = run(Params(turns=100, image_width=512, image_height=512), events20,
+                         broker=remote, images_dir=REPO / "images", out_dir=out_dir,
+                         tick_seconds=0.02)
+        finally:
+            remote.close()
+        ticks20 = []
+        while not events20.empty():
+            ev = events20.get_nowait()
+            if isinstance(ev, AliveCellsCount):
+                ticks20.append(ev)
+        for ev in ticks20:
+            want = first_ticks[512] if ev.completed_turns == 0 else \
+                golden_counts[ev.completed_turns]
+            check(ev.cells_count == want, f"512^2 tick at turn {ev.completed_turns}: "
+                                          f"{ev.cells_count}, not {want}")
+        check(res20t.turns_completed == 100, "the ticked 512^2 session")
+        resident.stop()
+        other_walls = {}
+        for wire, flags in (("haloed", ("-wire", "haloed")),
+                            ("grid 2x2", ("-wire", "resident", "-halo-depth", "8",
+                                          "-grid", "2x2"))):
+            proc, addr = cli_broker(*flags)
+            t1 = time.monotonic()
+            cli_session(addr, 512, 100)
+            other_walls[wire] = time.monotonic() - t1
+            if wire == "haloed":
+                proc.stop()
+        remote = RemoteBroker(addr)
+        try:
+            remote.super_quit()
+        finally:
+            remote.close()
+        for proc in [*wprocs, procs[-1]]:
+            check(proc.proc.wait(timeout=60) == 0, "a process SuperQuit should end failed")
+    finally:
+        for proc in procs:
+            proc.stop()
+    print(f"phase 20 workers CLI: four worker processes on the card (started in "
+          f"{worker_start:.1f} s) and a workers broker (-wire resident -halo-depth 8, "
+          f"GOL_WORKER_FUSED=on) serve -server sessions {{64,512}}^2 x {{0,1,100}} equal to "
+          f"check/images byte for byte in {sessions_wall:.2f} s, a 512^2 x 100 session's "
+          f"{len(ticks20)} ticks equal check/alive; 512^2 x 100 on -wire haloed "
+          f"({other_walls['haloed']:.2f} s) and on -grid 2x2 ({other_walls['grid 2x2']:.2f} "
+          f"s) golden; SuperQuit ended all five processes")
+
+    # 20b. full size: a seeded 30%-alive 4096^2 soup x 1000 turns through
+    # WorkersBackend over four in-process workers on the card (resident
+    # wire, K = 8, GOL_WORKER_FUSED unset: auto routing), against the
+    # port's DeviceBackend run (its final board) and its engine one turn a
+    # chunk (every per-turn count, kept out of the main path's counts).
+    # Every batch must reach W: 125 a worker.
+    side20, turns20, k20 = 4096, 1000, 8
+    soup20 = np.where(rng.random((side20, side20)) < 0.3, 255, 0).astype(np.uint8)
+    ref20 = {}
+
+    def record20(engine, state, turn):
+        ref20[turn] = engine.retrieve(include_world=False).alive_count
+
+    Engine(EngineConfig(max_chunk=1, chunk_hook=record20, device=dev)).run(
+        Params(turns=turns20, image_width=side20, image_height=side20), soup20)
+    req20 = Request(world=soup20, turns=turns20, threads=4, image_width=side20,
+                    image_height=side20)
+    dev_final = broker.DeviceBackend(dev).run(req20).world
+    os.environ.pop("GOL_WORKER_FUSED", None)
+    wservers = [rpc_worker.serve(0, device=dev) for _ in range(4)]
+    batches20, service20 = {}, []
+    for wserver, wservice in wservers:
+        def stepped(req, _step=wservice.strip_step):
+            res = _step(req)
+            batches20[(req.worker, req.initial_turn)] = list(res.counts)
+            service20.append(res.service_seconds)
+            return res
+
+        wserver.register(Methods.STRIP_STEP, stepped)
+    backend20 = broker.WorkersBackend([f"127.0.0.1:{s.port}" for s, _ in wservers],
+                                      wire="resident", halo_depth=k20)
+    try:
+        gc.collect()
+        open_window()
+        t0 = time.monotonic()
+        res20 = backend20.run(req20)
+        wall20 = time.monotonic() - t0
+        got = close_window("4096^2 through the workers backend", ("strip_steps",))
+    finally:
+        backend20.close()
+        for wserver, _ in wservers:
+            wserver.stop()
+    n_batches = turns20 // k20
+    check(got["strip_steps"] == 4 * n_batches and len(service20) == 4 * n_batches,
+          f"{got['strip_steps']} strip kernel launches and {len(service20)} batches, not "
+          f"{n_batches} a worker")
+    check(res20.turns_completed == turns20 and np.array_equal(res20.world, dev_final),
+          "4096^2 x 1000: the workers backend's board differs from DeviceBackend's")
+    bad = [t0 + i + 1 for t0 in range(0, turns20, k20) for i in range(k20)
+           if sum(batches20[(w, t0)][i] for w in range(4)) != ref20[t0 + i + 1]]
+    check(not bad, f"4096^2 x 1000: per-turn counts differ from the engine's at {bad[:5]}")
+
+    # a batch of 20b's shape taken apart: W's device time beside its bound,
+    # the block's copy to the card, the strip, counts and bands back, and
+    # the host's digests (pre, post, edges and the band folds)
+    rows20 = side20 // 4
+    block_np = soup20[:rows20 + 2 * k20]
+    block_dev = torch.from_numpy(block_np.copy()).to(dev)
+    w_dev_ms, _ = device_ms(lambda: strip_steps.strip_steps(block_dev, k20, rows20, attest=True),
+                            "strip_steps_kernel", reps=20)
+    w_bytes = block_np.size + rows20 * side20 + 2 * side20 * k20 * (k20 - 1) + 4 * k20
+    w_ops = block_np.size * bitpack.byte_ops_per_cell(CONWAY.birth_mask,
+                                                      CONWAY.survive_mask, k20)
+
+    def host_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    strip_out, counts_out, bands_out = strip_steps.strip_steps(block_dev, k20, rows20,
+                                                               attest=True)
+    h2d_ms = host_ms(lambda: torch.from_numpy(block_np).to(dev))
+    d2h_ms = host_ms(lambda: (strip_out.cpu(), counts_out.cpu(), bands_out.cpu()))
+    strip_np, bands_np = strip_out.cpu().numpy(), bands_out.cpu().numpy()
+
+    def digests():
+        integrity.state_digest(block_np[k20:-k20])
+        integrity.state_digest(strip_np)
+        integrity.state_digest(np.concatenate([strip_np[:k20], strip_np[-k20:]]))
+        at = ab = integrity.state_new()
+        for top, bottom in strip_steps.split_bands(bands_np, k20, side20):
+            at, ab = integrity.state_add(at, top), integrity.state_add(ab, bottom)
+
+    digest_ms = host_ms(digests, reps=5)
+    from gol_distributed_final_tpu_torch.ops.sparse import dirty_tile_grid
+
+    dirty_ms = host_ms(lambda: dirty_tile_grid(block_np[k20:-k20], strip_np), reps=5)
+    # the same batch through one worker alone (no other worker's handler
+    # or the broker's threads in this process): the handler's own cost
+    solo_server, solo = rpc_worker.serve(0, device=dev)
+    try:
+        solo.strip_start(Request(world=block_np[k20:-k20].copy(), worker=0))
+        halos = np.concatenate([block_np[:k20], block_np[-k20:]])
+        solo_ms = []
+        for i in range(6):
+            t = time.perf_counter()
+            solo.strip_step(Request(world=halos, worker=0, turns=k20, initial_turn=k20 * i))
+            solo_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        solo_server.stop()
+    solo_ms = min(solo_ms[1:])
+    svc_ms = 1e3 * sum(service20) / len(service20)
+    print(f"phase 20b workers at full size: 4096^2 30% soup x 1000 turns through "
+          f"WorkersBackend over 4 in-process workers on the card (resident wire, K = 8, "
+          f"auto routing): board equals DeviceBackend's, every per-turn count equals the "
+          f"engine's, {got['strip_steps']} strip kernel launches = {n_batches} batches a "
+          f"worker; wall {wall20:.3f} s ({turns20 / wall20:.1f} turns/s); a worker's "
+          f"StripStep handler {svc_ms:.3f} ms a batch on average, of which, timed apart: W "
+          f"{w_dev_ms:.4f} ms of device time (bound "
+          f"{max(w_bytes / HBM_BYTES_PER_S, w_ops / int32_rate) * 1e3:.5f} ms), the block's "
+          f"copy to the card {h2d_ms:.3f} ms ({h2d_ms / svc_ms:.1%}), strip, counts and "
+          f"bands back {d2h_ms:.3f} ms ({d2h_ms / svc_ms:.1%}), digests {digest_ms:.3f} ms "
+          f"({digest_ms / svc_ms:.1%}), the dirty-tile grid {dirty_ms:.3f} ms "
+          f"({dirty_ms / svc_ms:.1%}); one worker alone takes {solo_ms:.3f} ms a batch "
+          f"({4 * solo_ms / svc_ms:.2f} of the four handlers' mean if they ran one after "
+          f"another) {card_tag}")
+    del block_dev, strip_out, bands_out
+
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -2040,6 +2351,68 @@ def main() -> int:
             gate = "under" if byte_board.fits(shape, dev) else "past"
             print(f"  {size}^2 ({gate} the gate) n={n}: " + "; ".join(cells))
 
+
+    # the strip kernel at 20b's batch: one 8-turn launch on a 4096-wide
+    # strip of 1024 rows with its bands, device time; its plain version
+    # (torch ops on the card, not on the path) by events
+    strip_block = random_bytes((1024 + 16, 4096))
+    w_ms, _ = device_ms(lambda: strip_steps.strip_steps(strip_block, 8, 1024, attest=True),
+                        "strip_steps_kernel", reps=20)
+    w_plain_ms = cuda_ms(lambda: strip_steps.strip_steps_plain(strip_block, 8, 1024, True),
+                         reps=3, warmup=1)
+    w_bytes = strip_block.numel() + 1024 * 4096 + 2 * 4096 * 8 * 7 + 4 * 8
+    w_t_bytes = w_bytes / HBM_BYTES_PER_S
+    w_t_ops = strip_block.numel() * bitpack.byte_ops_per_cell(
+        CONWAY.birth_mask, CONWAY.survive_mask, 8) / int32_rate
+    w_bound_ms = max(w_t_bytes, w_t_ops) * 1e3
+    w_by = "bytes" if w_t_bytes > w_t_ops else "operations"
+    print(f"timing strip kernel 1040x4096, 8 turns with bands: {w_ms:.4f} ms of device "
+          f"time per launch, bound {w_bound_ms:.5f} ms ({w_by}: {w_bytes} bytes), "
+          f"{w_ms / w_bound_ms:.3g}x the bound; plain {w_plain_ms:.3f} ms {card_tag}")
+    del strip_block
+
+    # the workers' fused gate: the whole strip batch as a worker runs it
+    # (bands and their digests on), through W with its copies against the
+    # numpy dense loop, host wall in ms (best of 3, of 1 past 2^20 cells),
+    # for strips of 2^10 to 2^24 cells of 20b's soup at K = 1 and 8.
+    # FUSED_STRIP_MIN_CELLS follows the rule PERF.md fixed beforehand: the
+    # smallest size from which W wins at K = 8 at it and every larger size
+    print(f"fused gate: a strip batch through W (copies included) / the numpy dense "
+          f"loop, ms {card_tag}:")
+    wins = {}
+    for exp in range(10, 25, 2):
+        cells = 1 << exp
+        width = min(4096, cells // 8)
+        h = cells // width
+        row = []
+        for k in (1, 8):
+            strip = soup20[:h, :width].copy()
+            top = soup20[-k:, :width].copy()
+            bottom = soup20[np.arange(h, h + k) % side20, :width]
+            reps = 3 if cells <= 1 << 20 else 1
+            walls = {}
+            for mode, device in (("fused", dev), ("dense", None)):
+                best = 1e9
+                for _ in range(reps + 1):  # the first call warms up
+                    t = time.perf_counter()
+                    out = rpc_worker.strip_step_batch(strip, top, bottom, k, True, mode=mode,
+                                                      device=device)
+                    best = min(best, time.perf_counter() - t)
+                walls[mode] = (best * 1e3, out)
+            check(np.array_equal(walls["fused"][1][0], walls["dense"][1][0])
+                  and walls["fused"][1][1:] == walls["dense"][1][1:],
+                  f"fused and dense strip batches differ at {h}x{width}, k={k}")
+            wins[exp, k] = walls["fused"][0] <= walls["dense"][0]
+            row.append(f"k={k}: {walls['fused'][0]:.3f} / {walls['dense'][0]:.3f} "
+                       f"({walls['dense'][0] / walls['fused'][0]:.3g}x)")
+        print(f"  2^{exp} cells ({h}x{width}): " + "; ".join(row))
+    exps = sorted({e for e, _ in wins})
+    rule_exp = next((e for e in exps if all(wins[x, 8] for x in exps if x >= e)), None)
+    print(f"fused gate by the rule: "
+          f"{'none measured' if rule_exp is None else f'2^{rule_exp} cells'} "
+          f"(rpc/worker.py::FUSED_STRIP_MIN_CELLS = {rpc_worker.FUSED_STRIP_MIN_CELLS}); K = 1 "
+          f"wins from 2^{next((e for e in exps if all(wins[x, 1] for x in exps if x >= e)), 'none')}")
+
     # -- 7. the kernels line ----------------------------------------------
     big_shape = (512, 16384)
     kernels = [
@@ -2121,6 +2494,19 @@ def main() -> int:
             "bound_by": by16,
             "library_ms": None,
         },
+        {
+            "name": "strip_steps",
+            "route": "cuda",
+            "source": "gol_distributed_final_tpu_torch/csrc/strip_steps.cu",
+            "replaces": "gol_distributed_final_tpu/ops/fused.py:673",
+            "launches": launches["strip_steps"],
+            "max_abs_err": w_err,
+            "ms": w_ms,
+            "plain_ms": w_plain_ms,
+            "bound_ms": w_bound_ms,
+            "bound_by": w_by,
+            "library_ms": None,
+        },
     ]
     print("kernels: " + "; ".join(
         f"{k['name']} (replaces {k['replaces']}) launches={k['launches']} "
@@ -2134,7 +2520,8 @@ def main() -> int:
           "sparse_tiles ms = one 8-turn block (step, scatter, dilate, and a 64th of the "
           "dispatch's list pass) on the 16384^2 R-pentomino after 1000 turns, its plain_ms "
           "the plain program's block on the card "
-          "(the profiler's device time); library_ms "
+          "(the profiler's device time); strip_steps ms = one 8-turn launch on a 1040x4096 "
+          "block with its bands (20b's batch, device time); library_ms "
           "null: no single PyTorch call computes a life-like turn")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

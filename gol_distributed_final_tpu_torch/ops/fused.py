@@ -31,6 +31,12 @@ packages. Routing is by shape; nothing catches a failed launch:
 * ``fused_bit_step_n_batch``: the batched kernel under its per-universe
   gate (K2), else the tiled kernel universe by universe.
 
+**The resident worker's strip batch.** ``fused_strip_steps`` runs a
+worker's K-turn StripStep batch (rpc/worker.py) as launches of the strip
+kernel (ops/strip_steps.py, csrc/strip_steps.cu): one RPC, one copy of the
+padded block to the device, K turns, the strip, its per-turn counts and
+the attestation bands back.
+
 **The fused step+count plane.** Under the whole-board gate a chunk's turns
 and its alive counts come from ONE launch of the whole-board kernel (its
 ``counted`` form, the counterpart of the JAX package's
@@ -44,9 +50,11 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
-from . import batch_board, byte_board, byte_tiled, tiled, whole_board
+from ..device import resolve_device
+from . import batch_board, byte_board, byte_tiled, strip_steps, tiled, whole_board
 from .bitpack import row_popcounts
 from .byte_tiled import can_tile as can_tile_byte
 from .plane import BitPlane
@@ -229,3 +237,23 @@ class FusedBitPlane(BitPlane):
             )
         out = self.step_n(state, n)
         return out, row_popcounts(out)
+
+
+def fused_strip_steps(padded, k: int, strip_rows: int, *, attest: bool = False, device=None):
+    """K turns of a resident strip from its depth-K halo block, the JAX
+    package's ``fused_strip_steps``: ``padded`` is the (strip_rows + 2K,
+    w) uint8 numpy block ([top K; strip; bottom K]); returns ``(strip,
+    counts, bands)``, the K-turns-later strip, ``counts[i]`` the strip's
+    alive count after step i+1 as ints, and, with ``attest``, each step's
+    (top, bottom) attestation bands (an empty list without), all numpy, so
+    the caller's digest fold is byte-identical to the numpy path's. The
+    block goes to ``device``, the card unless the caller names another; on
+    the card the strip kernel runs (ops/strip_steps.py), on the CPU its
+    plain version."""
+    k, h = int(k), int(strip_rows)
+    block = torch.from_numpy(np.ascontiguousarray(padded, np.uint8)).to(resolve_device(device))
+    strip, counts, flat = strip_steps.strip_steps(block, k, h, attest=attest)
+    bands = []
+    if attest:
+        bands = strip_steps.split_bands(flat.cpu().numpy(), k, block.shape[1])
+    return strip.cpu().numpy(), [int(c) for c in counts.cpu().tolist()], bands

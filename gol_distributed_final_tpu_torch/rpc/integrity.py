@@ -1,22 +1,41 @@
-"""Frame checksums: the checked-frame contract of the wire, and its knob.
+"""End-to-end data integrity: digests, the checked-frame contract, the knob.
 
-A copy of the framing part of the JAX package's ``rpc/integrity.py``
-(the port imports nothing of that package). Negotiated connections carry
-an in-header crc32 word covering the whole frame body — pickle bytes AND
-every out-of-band sidecar (rpc/protocol.py). A mismatch raises
-:class:`IntegrityError` before anything is parsed, and the connection is
-dropped like any malformed frame. Reference peers negotiate checksums by
-default, so the port speaks them to talk to one.
+A copy of the JAX package's ``rpc/integrity.py`` (the port imports
+nothing of that package), the shared vocabulary of three integrity planes:
+
+* **Checked frames** (rpc/protocol.py): negotiated connections carry an
+  in-header crc32 word covering the whole frame body — pickle bytes AND
+  every out-of-band sidecar. A mismatch raises :class:`IntegrityError`
+  before anything is parsed, and the connection is dropped like any
+  malformed frame. Reference peers negotiate checksums by default, so the
+  port speaks them to talk to one.
+* **Halo cross-attestation** (rpc/worker.py + rpc/broker.py): resident
+  strips carry state digests — a pre/post digest chain per strip per
+  batch (an in-place corruption is caught on the very next ``StripStep``)
+  and a rolling digest per side of the overlap band neighbouring workers
+  compute redundantly in the shrinking batch form (a worker computing
+  wrong rows near a boundary is caught in the same batch).
+* **Verified checkpoints** (engine/checkpoint.py): blake2b-128 over
+  geometry, turn, rule and board bytes.
+
+crc32 guards the wire, adler32 (the ``state_*`` chain) the resident-strip
+plane, which hashes every strip byte twice a batch, and blake2b-128
+(``array_digest``) the tier that wants collision resistance. The hex of
+every digest is the JAX package's, so a port worker attests to a
+reference broker and the other way round.
 
 ``enabled()`` is the ``-integrity on|off`` knob (default ON): an off
-process neither advertises nor checks checked frames. Checks only ever
-apply between peers that both advertised them.
+process neither advertises checked frames nor computes attestations.
+Checks only ever apply between peers that both advertised them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import struct
 import zlib
+
+import numpy as np
 
 _CK = struct.Struct(">I")  # the in-header crc32 frame word
 CK_WORD_SIZE = _CK.size
@@ -42,10 +61,11 @@ class IntegrityError(ConnectionError):
     ConnectionError as fatal for the peer."""
 
 
-# zlib's crc32 releases the GIL for buffers above ~5 KiB, and reacquiring
-# it under thread contention can cost a scheduler quantum against the
-# hash's microseconds. So every fold feeds the checksum in chunks below
-# that threshold: exact, since crc32 is streaming.
+# zlib's crc32 and adler32 release the GIL for buffers above ~5 KiB, and
+# reacquiring it under thread contention (an in-process worker cluster)
+# can cost a scheduler quantum against the hash's microseconds. So every
+# fold feeds the checksum in chunks below that threshold: exact, since
+# both checksums are streaming.
 _GIL_CHUNK = 4096
 
 
@@ -84,3 +104,44 @@ def crc_check(crc: int, word: bytes, what: str) -> None:
             f"{crc & 0xFFFFFFFF:#010x}, frame claims {want:#010x} — "
             "refusing to parse a corrupted frame"
         )
+
+
+# -- state digests (the resident-strip attestation plane) --------------------
+#
+# adler32, rolled: each fold binds shape and dtype before the bytes so a
+# reshaped or recast buffer with the same bytes cannot impersonate the
+# original, and a zero-row band (the final shrinking step) still folds its
+# header — defined and comparable.
+
+
+def state_new() -> int:
+    return zlib.adler32(b"")
+
+
+def state_add(val: int, arr) -> int:
+    """Fold one ndarray — shape, dtype, bytes — into a rolling state
+    digest."""
+    arr = np.ascontiguousarray(arr)
+    val = zlib.adler32(f"{arr.shape}:{arr.dtype.str}:".encode(), val)
+    return _fold_chunked(zlib.adler32, val, arr.data)
+
+
+def state_hex(val: int) -> str:
+    return f"{val & 0xFFFFFFFF:08x}"
+
+
+def state_digest(arr) -> str:
+    """One-shot state digest of a single ndarray — the pre/post strip
+    chain links, the reply-edge digest, and the broker-side anchors the
+    chain is seeded from and fetches are verified against."""
+    return state_hex(state_add(state_new(), arr))
+
+
+def array_digest(arr) -> str:
+    """blake2b-128 hex digest of an ndarray's shape, dtype and bytes; the
+    empty array digests to a well-defined constant."""
+    arr = np.ascontiguousarray(arr)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{arr.shape}:{arr.dtype.str}:".encode())
+    h.update(arr.data)
+    return h.hexdigest()

@@ -37,9 +37,9 @@ from .integrity import CK_WORD_SIZE
 
 
 class Methods:
-    """Method-name constants of the broker's verbs (stubs/stubs.go:5-11,
-    plus the SessionRun extension). The worker verbs and Status belong to
-    slices of the port that are not here yet."""
+    """Method-name constants of the broker's and the worker's verbs
+    (stubs/stubs.go:5-11, plus the extensions). Status is not served by
+    the port yet."""
 
     BROKER_RUN = "Operations.Run"
     RETRIEVE = "Operations.RetrieveCurrentData"
@@ -52,6 +52,19 @@ class Methods:
     # batch. A nonzero req.session_id tags the session so
     # RetrieveCurrentData with the same tag serves that universe.
     SESSION_RUN = "Operations.SessionRun"
+    WORKER_UPDATE = "GameOfLifeOperations.Update"
+    WORKER_QUIT = "GameOfLifeOperations.WorkerQuit"
+    # the broker's readmission probe asks a worker's Status; a worker that
+    # does not serve it answers "unknown method", which proves it alive
+    WORKER_STATUS = "GameOfLifeOperations.Status"
+    # the resident-strip data plane (-wire resident): the strip STAYS on
+    # the worker across turns. StripStart seeds a strip at a turn,
+    # StripStep advances K turns given depth-K halo rows (per-step alive
+    # counts and fresh edge rows ride the reply), StripFetch reads the
+    # strip and its turn back out (re-syncs, snapshots, loss recovery)
+    STRIP_START = "GameOfLifeOperations.StripStart"
+    STRIP_STEP = "GameOfLifeOperations.StripStep"
+    STRIP_FETCH = "GameOfLifeOperations.StripFetch"
 
 
 #: verbs whose handler blocks for the whole game by contract

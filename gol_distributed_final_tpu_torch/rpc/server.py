@@ -1,7 +1,7 @@
 """Minimal concurrent RPC server (the net/rpc role, broker/broker.go:284-285).
 
 A copy of the JAX package's ``rpc/server.py`` without its metrics,
-tracing, journal and fault hooks (the port has none of those yet). One
+tracing and journal (the port has none of those yet). One
 thread per connection and one per in-flight request, so a blocking
 ``Operations.Run`` never blocks ``Pause``/``Retrieve`` arriving on the
 same or other connections, as Go net/rpc's goroutine-per-call model.
@@ -13,6 +13,7 @@ import socket
 import threading
 import traceback
 
+from . import faults as _faults
 from . import integrity as _integrity
 from .protocol import recv_frame_sized, send_frame
 
@@ -101,6 +102,10 @@ class RpcServer:
                 reply = {"id": call_id, "error": f"unknown method: {method!r}"}
             else:
                 try:
+                    # chaos hook (rpc/faults.py): GOL_FAULT_POINTS can turn
+                    # any dispatch into a deterministic failure or wedge; a
+                    # raise lands as an error reply like any handler's
+                    _faults.fault_point("rpc.dispatch")
                     reply = {"id": call_id, "result": fn(envelope.get("request"))}
                 except Exception as e:  # noqa: BLE001 — errors cross the wire, like net/rpc
                     reply = {

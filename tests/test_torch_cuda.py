@@ -763,3 +763,46 @@ def test_sparse_plane_on_the_card_equals_the_cpu(cuda_device):
         a, b = card.step_n(a, n), cpu.step_n(b, n)
         assert np.array_equal(card.decode(a), cpu.decode(b)), n
         assert (a.count, a.steady) == (b.count, b.steady), n
+
+
+# -- the resident worker's strip kernel (W) ----------------------------------
+
+
+def _strip_block(h, w, k, seed, p=0.35):
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random((h + 2 * k, w)) < p, 255, 0).astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 64])
+@pytest.mark.parametrize("h,w", [(1, 100), (16, 512), (7, 33), (1024, 4096)])
+@pytest.mark.parametrize("attest", [False, True])
+def test_strip_kernel_matches_plain(cuda_device, k, h, w, attest):
+    """W against its plain version on the card: strip, per-turn counts and
+    every band byte, over one launch (k <= 32) and chained launches."""
+    from gol_distributed_final_tpu_torch.ops import strip_steps
+
+    block = torch.from_numpy(_strip_block(h, w, k, seed=k * 1000 + h + w)).to(cuda_device)
+    before = strip_steps.launches
+    strip, counts, bands = strip_steps.strip_steps(block, k, h, attest=attest)
+    assert strip_steps.launches - before == -(-k // strip_steps.MAX_TURNS)
+    want_strip, want_counts, want_bands = strip_steps.strip_steps_plain(block, k, h, attest)
+    assert torch.equal(strip, want_strip)
+    assert counts.cpu().tolist() == want_counts.cpu().tolist()
+    if attest:
+        assert torch.equal(bands, want_bands)
+    else:
+        assert bands is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", ["wide", "small"])
+def test_strip_kernel_on_both_tiles(cuda_device, tile):
+    from gol_distributed_final_tpu_torch.ops import strip_steps
+
+    block = torch.from_numpy(_strip_block(130, 300, 8, seed=5)).to(cuda_device)
+    forced = strip_steps.TILE if tile == "wide" else strip_steps.SMALL_TILE
+    got = strip_steps.strip_steps(block, 8, 130, attest=True, tile=forced)
+    want = strip_steps.strip_steps_plain(block, 8, 130, attest=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert got[1].cpu().tolist() == want[1].cpu().tolist()

@@ -176,11 +176,49 @@ def test_broker_reading_reference_frames_imports_no_jax():
     assert [m for m in modules if _forbidden(m)] == []
 
 
+_WORKERS_PROBE = """
+import json, sys
+from gol_distributed_final_tpu_torch.rpc import broker, worker
+from gol_distributed_final_tpu_torch.ops import strip_steps
+from gol_distributed_final_tpu_torch.__main__ import main
+workers = [worker.serve(0, device="cpu") for _ in range(2)]
+server, service = broker.serve(
+    port=0, backend="workers", wire="resident", halo_depth=8, device="cpu",
+    worker_addresses=[f"127.0.0.1:{w.port}" for w, _ in workers])
+assert main(["-w", "64", "-h", "64", "-turns", "100", "-noVis",
+             "-server", f"127.0.0.1:{server.port}"]) == 0
+assert strip_steps.plain_calls > 0, "no batch took the fused path"
+service.shutdown()
+for w, _ in workers:
+    w.stop()
+print("MODULES " + json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_workers_broker_and_workers_import_no_jax(tmp_path):
+    """A 64^2 session through a port workers broker over two port workers
+    on the resident wire, every batch fused (GOL_WORKER_FUSED=on: the
+    strip kernel's plain version on the CPU), in a process of its own: the
+    golden PGM, and no jax or JAX package in sys.modules."""
+    (tmp_path / "images").symlink_to(REPO_ROOT / "images")
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), GOL_WORKER_FUSED="on")
+    proc = subprocess.run([sys.executable, "-c", _WORKERS_PROBE], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    modules = json.loads(proc.stdout.split("MODULES ", 1)[1])
+    assert [m for m in modules if _forbidden(m)] == []
+    for name in ("rpc.broker", "rpc.worker", "rpc.faults", "ops.strip_steps"):
+        assert f"gol_distributed_final_tpu_torch.{name}" in modules
+    assert (tmp_path / "out" / "64x64x100.pgm").read_bytes() == (
+        REPO_ROOT / "check" / "images" / "64x64x100.pgm").read_bytes()
+
+
 def _port_sources():
     files = sorted(PORT.rglob("*.py"))
     assert PORT / "rpc" / "broker.py" in files and PORT / "rpc" / "protocol.py" in files
     for new in ("ops/sparse.py", "ops/sparse_tiles.py", "io/native.py", "viz/window.py",
-                "viz/loop.py", "viz/bigview.py", "utils/visualise.py"):
+                "viz/loop.py", "viz/bigview.py", "utils/visualise.py", "rpc/worker.py",
+                "rpc/faults.py", "ops/strip_steps.py"):
         assert PORT / new in files
     return files + [REPO_ROOT / "chip_smoke.py"]
 
