@@ -31,8 +31,9 @@ visualiser and holds the native PGM codec against the Python one, drives
 the workers backend (four worker processes on the card and workers
 brokers started through their CLIs serving ``-server`` sessions on the
 resident, haloed and 2-D tile wires; a 4096^2 soup x 1000 turns through
-``WorkersBackend`` over four in-process workers, every strip batch on the
-strip kernel, held against ``DeviceBackend``), and
+``WorkersBackend`` over four in-process workers whose strips stay on the
+card, every strip batch on the strip kernel, held against
+``DeviceBackend``), and
 times the kernels with CUDA events and the profiler's device time,
 sparse against dense included, and the workers' fused strip batch against
 their numpy loop (the table that sets ``FUSED_STRIP_MIN_CELLS``). The kernels compile the
@@ -49,6 +50,12 @@ times only the kernels (K1, K2, the tiled kernel, K5, K6 and, where the
 tree has it, the sparse kernel and the strip kernel) of the port in
 the checkout TREE (default: this one) and prints one JSON line, so that two
 trees can be compared in turns within one call on one card.
+
+    python3 chip_smoke.py --workers-times [TREE]
+
+runs phase 20b's workers run alone (a seeded 4096^2 soup x 1000 turns
+over four in-process workers) on the port in TREE and prints its wall and
+mean StripStep handler time as one JSON line, for the same comparison.
 
 Game of Life is integer-exact: every comparison is equality (tolerance 0).
 """
@@ -345,6 +352,81 @@ def sass_loop(library, want: tuple[str, ...]) -> str:
             + ", ".join(f"{k} {v}" for k, v in count.items()) + ")")
 
 
+def workers_run(rpc_worker, broker, dev, soup, turns: int, k: int, around=None, flag=None):
+    """``soup`` x ``turns`` through a WorkersBackend over four in-process
+    workers of the imported port on ``dev`` (resident wire, depth k,
+    GOL_WORKER_FUSED unset), its run inside ``around()`` where given:
+    ``(result, wall s, {(worker, turn): counts}, [handler seconds],
+    services)``. ``flag.on`` is True inside each StripStep handler."""
+    from gol_distributed_final_tpu_torch.rpc.protocol import Methods, Request
+
+    os.environ.pop("GOL_WORKER_FUSED", None)
+    wservers = [rpc_worker.serve(0, device=dev) for _ in range(4)]
+    batches, service = {}, []
+    for wserver, wservice in wservers:
+        def stepped(req, _step=wservice.strip_step):
+            if flag is not None:
+                flag.on = True
+            try:
+                res = _step(req)
+            finally:
+                if flag is not None:
+                    flag.on = False
+            batches[(req.worker, req.initial_turn)] = list(res.counts)
+            service.append(res.service_seconds)
+            return res
+
+        wserver.register(Methods.STRIP_STEP, stepped)
+    backend = broker.WorkersBackend([f"127.0.0.1:{s.port}" for s, _ in wservers],
+                                    wire="resident", halo_depth=k)
+    req = Request(world=soup, turns=turns, threads=4, image_width=soup.shape[1],
+                  image_height=soup.shape[0])
+    try:
+        gc.collect()
+        with around() if around is not None else contextlib.nullcontext():
+            t0 = time.monotonic()
+            res = backend.run(req)
+            wall = time.monotonic() - t0
+    finally:
+        backend.close()
+        for wserver, _ in wservers:
+            wserver.stop()
+    return res, wall, batches, service, [svc for _, svc in wservers]
+
+
+def workers_times(tree: str) -> int:
+    """Phase 20b's run alone on the port in ``tree`` (a checkout's root),
+    after a 512^2 warm-up: a seeded 4096^2 soup x 1000 turns over four
+    in-process workers, its wall and mean StripStep handler time as one
+    JSON line with a digest of the final board, so that two trees can be
+    compared in turns within one call on one card."""
+    sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from gol_distributed_final_tpu_torch.rpc import broker, integrity
+    from gol_distributed_final_tpu_torch.rpc import worker as rpc_worker
+
+    check(pathlib.Path(rpc_worker.__file__).is_relative_to(pathlib.Path(tree).resolve()),
+          f"the port imported from {tree}")
+    rng = np.random.default_rng(SEED)
+    soup = np.where(rng.random((4096, 4096)) < 0.3, 255, 0).astype(np.uint8)
+    # a warm-up run first: the kernel's build, the CUDA context and the
+    # workers' first buffers stay out of the timed run
+    workers_run(rpc_worker, broker, torch.device("cuda"), soup[:512, :512], 16, 8)
+    res, wall, _, service, _ = workers_run(rpc_worker, broker, torch.device("cuda"), soup,
+                                           1000, 8)
+    check(res.turns_completed == 1000 and len(service) == 500, "the workers run")
+    print(json.dumps({"tree": tree, "card": nvidia_smi("name,power.limit"), "wall_s": wall,
+                      "turns_per_s": 1000 / wall,
+                      "handler_ms": 1e3 * sum(service) / len(service),
+                      "board": integrity.array_digest(res.world)}))
+    return 0
+
+
 def kernel_times(tree: str) -> int:
     """Time the kernels of the port in ``tree`` (a checkout's root) at the
     smoke's shapes, and print them as one JSON line: the parent-and-change
@@ -443,6 +525,30 @@ def kernel_times(tree: str) -> int:
 
         device["strip_1040x4096_k8"] = device_ms(batch, "strip_steps_kernel", reps=20)[0]
         times["strip_1040x4096_k8"] = cuda_ms(batch, reps=20)
+        if hasattr(strip_steps, "strip_batch"):
+            # the persistent grid's size and the tile at the same batch: one
+            # CTA an SM walking two tiles, one a tile (256), a cap of 66,
+            # and the small tile; and the batch without bands and sums
+            top, strip, bottom = block[:8], block[8:1032], block[1032:]
+            for label, attest, kw in (("ctas132", True, {"ctas": 132}),
+                                      ("ctas256", True, {"ctas": 256}),
+                                      ("ctas66", True, {"ctas": 66}),
+                                      ("small", True, {"tile": strip_steps.SMALL_TILE}),
+                                      ("no_attest", False, {})):
+                into = strip_steps.batch_outputs(1024, 4096, 8, attest, dev)
+                device[f"strip_1040x4096_k8_{label}"] = device_ms(
+                    lambda: strip_steps.strip_batch(top, strip, bottom, 8, attest, into=into,
+                                                    **kw),
+                    "strip_steps_kernel", reps=20)[0]
+            # one launch of k = 1..32 turns on a 1024-row strip: the launch's
+            # fixed cost (gather, epilogue) against its cost a turn
+            for k in (1, 2, 4, 8, 16, 32):
+                kblock = cells((1024 + 2 * k, 4096))
+                into = strip_steps.batch_outputs(1024, 4096, k, True, dev)
+                device[f"strip_1024x4096_k{k}_launch"] = device_ms(
+                    lambda: strip_steps.strip_batch(kblock[:k], kblock[k:k + 1024],
+                                                    kblock[k + 1024:], k, True, into=into),
+                    "strip_steps_kernel", reps=20)[0]
     print(json.dumps({"tree": tree, "card": nvidia_smi("name,power.limit"), "ms": times,
                       "device_ms": device}))
     return 0
@@ -486,7 +592,7 @@ def main() -> int:
     from gol_distributed_final_tpu_torch.rpc import broker, integrity
     from gol_distributed_final_tpu_torch.rpc import worker as rpc_worker
     from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker, RpcError
-    from gol_distributed_final_tpu_torch.rpc.protocol import Methods, Request
+    from gol_distributed_final_tpu_torch.rpc.protocol import Request
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -519,7 +625,7 @@ def main() -> int:
                        ("tiled", ("tiled_kernelILi0ELi8E", conway)),
                        ("byte_board", ("byte_board_bits_kernelILi8E", conway)),
                        ("byte_tiled", ("byte_tiled_kernel", wide_tile, conway)),
-                       ("strip_steps", ("strip_steps_kernel", wide_tile))):
+                       ("strip_steps", ("strip_steps_kernel", wide_tile, "Lb1E"))):
         print(f"  SASS, the Conway turn loop of {kernel_label(''.join(want))}: "
               f"{sass_loop(_build.library_path(name), want)}")
 
@@ -930,8 +1036,24 @@ def main() -> int:
     # the resident worker's strip kernel (W) against its plain version:
     # batches of K = 1, 8 and 32 turns (one launch) and 33 and 64 (chained
     # launches), widths from a ragged 100 to 16384, strips of 1, 16 and 1024
-    # rows, with and without the attestation bands; strips, per-turn counts
-    # and every band byte
+    # rows, with and without the attestation bands; strips, per-turn counts,
+    # every band byte, the dirty grid, the reply's edges and, with the
+    # bands, the four digest sums (modulo 65521, as they fold)
+    def w_err_of(got, want, attest):
+        err = max(max_abs_err(got.strip, want.strip), max_abs_err(got.counts, want.counts),
+                  max_abs_err(got.dirty, want.dirty))
+        if want.edges is not None:
+            err = max(err, max_abs_err(got.edges, want.edges))
+        if attest:
+            err = max(err, max_abs_err(got.sums % strip_steps.MOD, want.sums))
+            if want.bands.numel():
+                err = max(err, max_abs_err(got.bands, want.bands))
+        ok = (got.strip.shape == want.strip.shape and got.dirty.shape == want.dirty.shape
+              and (got.edges is None) == (want.edges is None)
+              and (got.bands is None) == (not attest) and (got.sums is None) == (not attest)
+              and (not attest or got.bands.shape == want.bands.shape))
+        return err if ok else -1
+
     w_err = w_cases = 0
     for k in (1, 8, 32, 33, 64):
         for width in (100, 512, 4096, 16384):
@@ -940,18 +1062,40 @@ def main() -> int:
                 for attest in (False, True):
                     got = strip_steps.strip_steps(block, k, h, attest=attest)
                     want = strip_steps.strip_steps_plain(block, k, h, attest)
-                    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-                    if attest and want[2].numel():
-                        err = max(err, max_abs_err(got[2], want[2]))
-                    check(err == 0 and got[0].shape == want[0].shape
-                          and (got[2] is None) == (not attest)
-                          and (not attest or got[2].shape == want[2].shape),
-                          f"strip kernel k={k} {h}x{width} attest={attest}: max abs err {err}")
+                    err = w_err_of(got, want, attest)
+                    check(err == 0, f"strip kernel k={k} {h}x{width} attest={attest}: "
+                                    f"max abs err {err}")
                     w_err, w_cases = max(w_err, err), w_cases + 1
                 del block, got, want
+    # the persistent grid's edge cases and the resident form (halos and
+    # strip in separate buffers, the new strip into a second one): 20b's
+    # 1024 x 4096 strip (256 wide tiles) on grids capped at 1, 7, 100 and
+    # 132 CTAs (each walks several tiles, 256 no multiple of their count)
+    # and on the default grid; a strip of 4 wide tiles' output (fewer than
+    # the SMs) on the wide tile forced; any byte values, where the grid and
+    # the sums see bytes the cells' states do not
+    w_edge = 0
+    for k, h, width, tile, values in ((8, 1024, 4096, None, random_bytes),
+                                      (33, 1024, 4096, None, random_bytes),
+                                      (8, 128, 512, strip_steps.TILE, random_bytes),
+                                      (8, 1024, 4096, None, random_values),
+                                      (40, 200, 1000, None, random_values)):
+        block = values((h + 2 * k, width))
+        want = strip_steps.strip_steps_plain(block, k, h, True)
+        parts = [block[:k].clone(), block[k:k + h].clone(), block[k + h:].clone()]
+        for ctas in (1, 7, 100, 132, None):
+            into = strip_steps.batch_outputs(h, width, k, True, dev)
+            got = strip_steps.strip_batch(*parts, k, True, into=into, tile=tile, ctas=ctas)
+            err = w_err_of(got, want, True)
+            check(err == 0 and got is into,
+                  f"strip kernel k={k} {h}x{width} ctas={ctas}: max abs err {err}")
+            w_err, w_edge = max(w_err, err), w_edge + 1
+        del block, want, parts, into, got
     print(f"phase 3 parity: strip kernel equals its plain version in {w_cases} cases "
           "(k 1/8/32/33/64, widths 100/512/4096/16384, strips of 1/16/1024 rows, bands on "
-          "and off: strips, per-turn counts, band bytes)")
+          "and off: strips, per-turn counts, band bytes, dirty grids, edges, digest sums) and "
+          f"{w_edge} resident-form cases (20b's strip on persistent grids of 1/7/100/132 "
+          "CTAs and the default, 4 wide tiles, any byte values, k 8/33/40)")
 
     out_dir = REPO / "out" / "chip_smoke"
 
@@ -1909,11 +2053,15 @@ def main() -> int:
 
     # 20b. full size: a seeded 30%-alive 4096^2 soup x 1000 turns through
     # WorkersBackend over four in-process workers on the card (resident
-    # wire, K = 8, GOL_WORKER_FUSED unset: auto routing), against the
-    # port's DeviceBackend run (its final board) and its engine one turn a
-    # chunk (every per-turn count, kept out of the main path's counts).
-    # Every batch must reach W: 125 a worker.
+    # wire, K = 8, GOL_WORKER_FUSED unset: auto routing, so each 1024 x 4096
+    # strip is seeded on the card), against the port's DeviceBackend run
+    # (its final board) and its engine one turn a chunk (every per-turn
+    # count, kept out of the main path's counts). Every batch must reach W
+    # (125 a worker), every strip must end on the card, and no StripStep
+    # handler may pass over a strip-sized array on the host: the digests
+    # and the dirty-tile grid come from W.
     side20, turns20, k20 = 4096, 1000, 8
+    rows20 = side20 // 4
     soup20 = np.where(rng.random((side20, side20)) < 0.3, 255, 0).astype(np.uint8)
     ref20 = {}
 
@@ -1922,33 +2070,34 @@ def main() -> int:
 
     Engine(EngineConfig(max_chunk=1, chunk_hook=record20, device=dev)).run(
         Params(turns=turns20, image_width=side20, image_height=side20), soup20)
-    req20 = Request(world=soup20, turns=turns20, threads=4, image_width=side20,
-                    image_height=side20)
-    dev_final = broker.DeviceBackend(dev).run(req20).world
-    os.environ.pop("GOL_WORKER_FUSED", None)
-    wservers = [rpc_worker.serve(0, device=dev) for _ in range(4)]
-    batches20, service20 = {}, []
-    for wserver, wservice in wservers:
-        def stepped(req, _step=wservice.strip_step):
-            res = _step(req)
-            batches20[(req.worker, req.initial_turn)] = list(res.counts)
-            service20.append(res.service_seconds)
-            return res
+    dev_final = broker.DeviceBackend(dev).run(
+        Request(world=soup20, turns=turns20, threads=4, image_width=side20,
+                image_height=side20)).world
+    in_handler = threading.local()
+    host_passes = {"state_digest": 0, "dirty_tile_grid": 0}
+    real = {"state_digest": integrity.state_digest, "dirty_tile_grid": sparse.dirty_tile_grid}
 
-        wserver.register(Methods.STRIP_STEP, stepped)
-    backend20 = broker.WorkersBackend([f"127.0.0.1:{s.port}" for s, _ in wservers],
-                                      wire="resident", halo_depth=k20)
-    try:
-        gc.collect()
+    def spy(name):
+        def call(arr, *args, **kw):
+            if getattr(in_handler, "on", False) and getattr(arr, "size", 0) >= rows20 * side20:
+                host_passes[name] += 1
+            return real[name](arr, *args, **kw)
+        return call
+
+    @contextlib.contextmanager
+    def counted_run():
+        integrity.state_digest = spy("state_digest")
+        sparse.dirty_tile_grid = spy("dirty_tile_grid")
         open_window()
-        t0 = time.monotonic()
-        res20 = backend20.run(req20)
-        wall20 = time.monotonic() - t0
-        got = close_window("4096^2 through the workers backend", ("strip_steps",))
-    finally:
-        backend20.close()
-        for wserver, _ in wservers:
-            wserver.stop()
+        try:
+            yield
+        finally:
+            integrity.state_digest = real["state_digest"]
+            sparse.dirty_tile_grid = real["dirty_tile_grid"]
+
+    res20, wall20, batches20, service20, services20 = workers_run(
+        rpc_worker, broker, dev, soup20, turns20, k20, around=counted_run, flag=in_handler)
+    got = close_window("4096^2 through the workers backend", ("strip_steps",))
     n_batches = turns20 // k20
     check(got["strip_steps"] == 4 * n_batches and len(service20) == 4 * n_batches,
           f"{got['strip_steps']} strip kernel launches and {len(service20)} batches, not "
@@ -1958,18 +2107,32 @@ def main() -> int:
     bad = [t0 + i + 1 for t0 in range(0, turns20, k20) for i in range(k20)
            if sum(batches20[(w, t0)][i] for w in range(4)) != ref20[t0 + i + 1]]
     check(not bad, f"4096^2 x 1000: per-turn counts differ from the engine's at {bad[:5]}")
+    check(all(isinstance(svc._strip, torch.Tensor) and svc._strip.is_cuda
+              for svc in services20), "4096^2 x 1000: a worker's strip is not on the card")
+    check(host_passes == {"state_digest": 0, "dirty_tile_grid": 0},
+          f"4096^2 x 1000: strip-sized host passes inside the handlers: {host_passes}")
+    sessions20 = [svc._resident for svc in services20]
+    up_b = sum(x.bytes_up for x in sessions20) / (4 * n_batches)
+    down_b = sum(x.bytes_down for x in sessions20) / (4 * n_batches)
+    fetched_b = sum(x.bytes_fetched for x in sessions20)
 
-    # a batch of 20b's shape taken apart: W's device time beside its bound,
-    # the block's copy to the card, the strip, counts and bands back, and
-    # the host's digests (pre, post, edges and the band folds)
-    rows20 = side20 // 4
-    block_np = soup20[:rows20 + 2 * k20]
-    block_dev = torch.from_numpy(block_np.copy()).to(dev)
-    w_dev_ms, _ = device_ms(lambda: strip_steps.strip_steps(block_dev, k20, rows20, attest=True),
-                            "strip_steps_kernel", reps=20)
-    w_bytes = block_np.size + rows20 * side20 + 2 * side20 * k20 * (k20 - 1) + 4 * k20
-    w_ops = block_np.size * bitpack.byte_ops_per_cell(CONWAY.birth_mask,
-                                                      CONWAY.survive_mask, k20)
+    # a batch of 20b's shape taken apart (worker 0's strip and halos): W's
+    # device time beside its bound, the one copy up (halos and the zeroes
+    # W's sums, counts and grid start from), the one copy down (edges,
+    # counts, grid, sums, bands) with the batch's one synchronisation, the
+    # host's digest folds (edges, bands, and the two strip digests from
+    # W's sums), the session's whole batch, and the handler of one worker
+    # alone
+    strip_np = soup20[:rows20].copy()
+    halos = np.concatenate([soup20[-k20:], soup20[rows20:rows20 + k20]])
+    strip_dev = torch.from_numpy(strip_np).to(dev)
+    batch_io = rpc_worker._BatchIO(rows20, side20, k20, True, dev)
+    np.copyto(batch_io.up[:batch_io.halo_bytes].numpy().reshape(2 * k20, side20), halos)
+    into = batch_io.into._replace(strip=torch.empty_like(strip_dev))
+
+    def batch20():
+        return strip_steps.strip_batch(batch_io.halos[:k20], strip_dev, batch_io.halos[k20:],
+                                       k20, True, into=into)
 
     def host_ms(fn, reps=10):
         fn()
@@ -1980,32 +2143,42 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / reps * 1e3
 
-    strip_out, counts_out, bands_out = strip_steps.strip_steps(block_dev, k20, rows20,
-                                                               attest=True)
-    h2d_ms = host_ms(lambda: torch.from_numpy(block_np).to(dev))
-    d2h_ms = host_ms(lambda: (strip_out.cpu(), counts_out.cpu(), bands_out.cpu()))
-    strip_np, bands_np = strip_out.cpu().numpy(), bands_out.cpu().numpy()
+    up_ms = host_ms(lambda: batch_io.dev[:batch_io.zero_end].copy_(batch_io.up,
+                                                                   non_blocking=True))
+    w_dev_ms, _ = device_ms(batch20, "strip_steps_kernel", reps=20)
+    w_bytes = (rows20 + 2 * k20) * side20 + rows20 * side20 + 2 * side20 * k20 * (k20 - 1) \
+        + 4 * k20 + 16 * 16 + 32 + 2 * k20 * side20
+    w_ops = (rows20 + 2 * k20) * side20 * bitpack.byte_ops_per_cell(
+        CONWAY.birth_mask, CONWAY.survive_mask, k20)
 
-    def digests():
-        integrity.state_digest(block_np[k20:-k20])
-        integrity.state_digest(strip_np)
-        integrity.state_digest(np.concatenate([strip_np[:k20], strip_np[-k20:]]))
+    def down():
+        batch_io.down.copy_(batch_io.dev[batch_io.down_from:], non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+
+    down_ms = host_ms(down)
+    out = batch_io.host
+    edges_np, sums_np, bands_np = out.edges.numpy(), out.sums.tolist(), out.bands.numpy()
+
+    def folds():
+        integrity.state_add_sums(integrity.state_new(), (rows20, side20), np.uint8, *sums_np[:2])
+        integrity.state_add_sums(integrity.state_new(), (rows20, side20), np.uint8, *sums_np[2:])
+        integrity.state_digest(edges_np)
         at = ab = integrity.state_new()
         for top, bottom in strip_steps.split_bands(bands_np, k20, side20):
             at, ab = integrity.state_add(at, top), integrity.state_add(ab, bottom)
 
-    digest_ms = host_ms(digests, reps=5)
-    from gol_distributed_final_tpu_torch.ops.sparse import dirty_tile_grid
-
-    dirty_ms = host_ms(lambda: dirty_tile_grid(block_np[k20:-k20], strip_np), reps=5)
+    fold_ms = host_ms(folds, reps=20)
+    session = rpc_worker._ResidentStrip(strip_np, dev)
+    with session.on_stream():
+        step_ms = host_ms(lambda: session.step(halos, k20, True), reps=20)
     # the same batch through one worker alone (no other worker's handler
     # or the broker's threads in this process): the handler's own cost
     solo_server, solo = rpc_worker.serve(0, device=dev)
     try:
-        solo.strip_start(Request(world=block_np[k20:-k20].copy(), worker=0))
-        halos = np.concatenate([block_np[:k20], block_np[-k20:]])
+        solo.strip_start(Request(world=strip_np, worker=0))
+        check(solo._resident is not None, "the solo worker's strip is on the card")
         solo_ms = []
-        for i in range(6):
+        for i in range(12):
             t = time.perf_counter()
             solo.strip_step(Request(world=halos, worker=0, turns=k20, initial_turn=k20 * i))
             solo_ms.append((time.perf_counter() - t) * 1e3)
@@ -2017,17 +2190,17 @@ def main() -> int:
           f"WorkersBackend over 4 in-process workers on the card (resident wire, K = 8, "
           f"auto routing): board equals DeviceBackend's, every per-turn count equals the "
           f"engine's, {got['strip_steps']} strip kernel launches = {n_batches} batches a "
-          f"worker; wall {wall20:.3f} s ({turns20 / wall20:.1f} turns/s); a worker's "
-          f"StripStep handler {svc_ms:.3f} ms a batch on average, of which, timed apart: W "
-          f"{w_dev_ms:.4f} ms of device time (bound "
-          f"{max(w_bytes / HBM_BYTES_PER_S, w_ops / int32_rate) * 1e3:.5f} ms), the block's "
-          f"copy to the card {h2d_ms:.3f} ms ({h2d_ms / svc_ms:.1%}), strip, counts and "
-          f"bands back {d2h_ms:.3f} ms ({d2h_ms / svc_ms:.1%}), digests {digest_ms:.3f} ms "
-          f"({digest_ms / svc_ms:.1%}), the dirty-tile grid {dirty_ms:.3f} ms "
-          f"({dirty_ms / svc_ms:.1%}); one worker alone takes {solo_ms:.3f} ms a batch "
-          f"({4 * solo_ms / svc_ms:.2f} of the four handlers' mean if they ran one after "
-          f"another) {card_tag}")
-    del block_dev, strip_out, bands_out
+          f"worker, the four strips on the card at the end, strip-sized host passes in the "
+          f"handlers {sum(host_passes.values())}; wall {wall20:.3f} s "
+          f"({turns20 / wall20:.1f} turns/s); a worker's StripStep handler {svc_ms:.3f} ms a "
+          f"batch on average; bytes across PCIe a batch: {up_b:.0f} up, {down_b:.0f} down "
+          f"(and {fetched_b} fetched at syncs in all); timed apart: W {w_dev_ms:.4f} ms of "
+          f"device time (bound {max(w_bytes / HBM_BYTES_PER_S, w_ops / int32_rate) * 1e3:.5f} "
+          f"ms), the copy up {up_ms:.3f} ms, the copy down with the batch's "
+          f"synchronisation {down_ms:.3f} ms, the host's digest folds {fold_ms:.3f} ms, the "
+          f"session's whole batch {step_ms:.3f} ms; one worker alone takes {solo_ms:.3f} ms "
+          f"a batch {card_tag}")
+    del strip_dev, batch_io, into, out, session
 
 
     for name in counted:
@@ -2353,14 +2526,17 @@ def main() -> int:
 
 
     # the strip kernel at 20b's batch: one 8-turn launch on a 4096-wide
-    # strip of 1024 rows with its bands, device time; its plain version
-    # (torch ops on the card, not on the path) by events
+    # strip of 1024 rows with its bands, dirty grid and digest sums, device
+    # time; its plain version (torch ops on the card, not on the path) by
+    # events. The bound's bytes: the block read once; the strip, bands,
+    # counts, the 16 x 16 grid, four sums and the 2K edge rows written once
     strip_block = random_bytes((1024 + 16, 4096))
     w_ms, _ = device_ms(lambda: strip_steps.strip_steps(strip_block, 8, 1024, attest=True),
                         "strip_steps_kernel", reps=20)
     w_plain_ms = cuda_ms(lambda: strip_steps.strip_steps_plain(strip_block, 8, 1024, True),
                          reps=3, warmup=1)
-    w_bytes = strip_block.numel() + 1024 * 4096 + 2 * 4096 * 8 * 7 + 4 * 8
+    w_bytes = (strip_block.numel() + 1024 * 4096 + 2 * 4096 * 8 * 7 + 4 * 8 + 16 * 16 + 32
+               + 2 * 8 * 4096)
     w_t_bytes = w_bytes / HBM_BYTES_PER_S
     w_t_ops = strip_block.numel() * bitpack.byte_ops_per_cell(
         CONWAY.birth_mask, CONWAY.survive_mask, 8) / int32_rate
@@ -2373,13 +2549,19 @@ def main() -> int:
 
     # the workers' fused gate: the whole strip batch as a worker runs it
     # (bands and their digests on), through W with its copies against the
-    # numpy dense loop, host wall in ms (best of 3, of 1 past 2^20 cells),
-    # for strips of 2^10 to 2^24 cells of 20b's soup at K = 1 and 8.
-    # FUSED_STRIP_MIN_CELLS follows the rule PERF.md fixed beforehand: the
-    # smallest size from which W wins at K = 8 at it and every larger size
+    # numpy dense loop (the numpy function's two modes), and the whole
+    # StripStep handler on a worker whose strip is resident on the card
+    # against one that keeps a numpy strip (GOL_WORKER_FUSED=off: dense,
+    # its digests and its dirty-tile grid on the host), host wall in ms
+    # (best of 3, of 1 past 2^20 cells), for strips of 2^10 to 2^24 cells
+    # of 20b's soup at K = 1 and 8. FUSED_STRIP_MIN_CELLS follows the rule
+    # PERF.md fixed beforehand, the smallest size from which W wins at K = 8
+    # at it and every larger size, read on the handlers' pair: the gate
+    # decides where a session's strip lives
     print(f"fused gate: a strip batch through W (copies included) / the numpy dense "
-          f"loop, ms {card_tag}:")
-    wins = {}
+          f"loop, then a StripStep on a resident session / on a numpy session, ms "
+          f"{card_tag}:")
+    wins, wins_res = {}, {}
     for exp in range(10, 25, 2):
         cells = 1 << exp
         width = min(4096, cells // 8)
@@ -2402,16 +2584,45 @@ def main() -> int:
             check(np.array_equal(walls["fused"][1][0], walls["dense"][1][0])
                   and walls["fused"][1][1:] == walls["dense"][1][1:],
                   f"fused and dense strip batches differ at {h}x{width}, k={k}")
+            halos = np.concatenate([top, bottom])
+            replies = {}
+            for name, env in (("resident", "auto"), ("numpy", "off")):
+                os.environ["GOL_WORKER_FUSED"] = env
+                svc = rpc_worker.WorkerService(None, dev)
+                svc.strip_start(Request(world=strip, worker=0))
+                check((svc._resident is not None) == (name == "resident"),
+                      f"a {h}x{width} {name} session")
+                best = 1e9
+                for i in range(reps + 1):  # the first call warms up
+                    t = time.perf_counter()
+                    reply = svc.strip_step(Request(world=halos, worker=0, turns=k,
+                                                   initial_turn=k * i))
+                    best = min(best, time.perf_counter() - t)
+                    replies.setdefault(name, reply)
+                walls[name] = (best * 1e3, None)
+                del svc
+            os.environ.pop("GOL_WORKER_FUSED")
+            a, b = replies["resident"], replies["numpy"]
+            check(a.counts == b.counts == walls["dense"][1][1] and a.digests == b.digests
+                  and np.array_equal(a.edges, b.edges) and np.array_equal(a.dirty, b.dirty),
+                  f"resident and numpy sessions' replies differ at {h}x{width}, k={k}")
             wins[exp, k] = walls["fused"][0] <= walls["dense"][0]
-            row.append(f"k={k}: {walls['fused'][0]:.3f} / {walls['dense'][0]:.3f} "
-                       f"({walls['dense'][0] / walls['fused'][0]:.3g}x)")
+            wins_res[exp, k] = walls["resident"][0] <= walls["numpy"][0]
+            ms = {name: wall for name, (wall, _) in walls.items()}
+            row.append(f"k={k}: {ms['fused']:.3f} / {ms['dense']:.3f} "
+                       f"({ms['dense'] / ms['fused']:.3g}x), {ms['resident']:.3f} / "
+                       f"{ms['numpy']:.3f} ({ms['numpy'] / ms['resident']:.3g}x)")
         print(f"  2^{exp} cells ({h}x{width}): " + "; ".join(row))
     exps = sorted({e for e, _ in wins})
-    rule_exp = next((e for e in exps if all(wins[x, 8] for x in exps if x >= e)), None)
-    print(f"fused gate by the rule: "
-          f"{'none measured' if rule_exp is None else f'2^{rule_exp} cells'} "
-          f"(rpc/worker.py::FUSED_STRIP_MIN_CELLS = {rpc_worker.FUSED_STRIP_MIN_CELLS}); K = 1 "
-          f"wins from 2^{next((e for e in exps if all(wins[x, 1] for x in exps if x >= e)), 'none')}")
+
+    def rule(won, k):
+        e = next((e for e in exps if all(won[x, k] for x in exps if x >= e)), None)
+        return "none measured" if e is None else f"2^{e} cells"
+
+    print(f"fused gate by the rule on the sessions' handlers: {rule(wins_res, 8)}, on the "
+          f"numpy function's modes {rule(wins, 8)} (rpc/worker.py::FUSED_STRIP_MIN_CELLS = "
+          f"{rpc_worker.FUSED_STRIP_MIN_CELLS}); K = 1 wins from {rule(wins_res, 1)} on the "
+          f"handlers, {rule(wins, 1)} on the modes")
 
     # -- 7. the kernels line ----------------------------------------------
     big_shape = (512, 16384)
@@ -2521,7 +2732,8 @@ def main() -> int:
           "dispatch's list pass) on the 16384^2 R-pentomino after 1000 turns, its plain_ms "
           "the plain program's block on the card "
           "(the profiler's device time); strip_steps ms = one 8-turn launch on a 1040x4096 "
-          "block with its bands (20b's batch, device time); library_ms "
+          "block with its bands, dirty grid and digest sums (20b's batch, device time); "
+          "library_ms "
           "null: no single PyTorch call computes a life-like turn")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2535,4 +2747,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
+    if sys.argv[1:2] == ["--workers-times"]:
+        sys.exit(workers_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
     sys.exit(main())

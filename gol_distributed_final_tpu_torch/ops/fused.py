@@ -252,8 +252,8 @@ def fused_strip_steps(padded, k: int, strip_rows: int, *, attest: bool = False, 
     plain version."""
     k, h = int(k), int(strip_rows)
     block = torch.from_numpy(np.ascontiguousarray(padded, np.uint8)).to(resolve_device(device))
-    strip, counts, flat = strip_steps.strip_steps(block, k, h, attest=attest)
+    res = strip_steps.strip_steps(block, k, h, attest=attest)
     bands = []
     if attest:
-        bands = strip_steps.split_bands(flat.cpu().numpy(), k, block.shape[1])
-    return strip.cpu().numpy(), [int(c) for c in counts.cpu().tolist()], bands
+        bands = strip_steps.split_bands(res.bands.cpu().numpy(), k, block.shape[1])
+    return res.strip.cpu().numpy(), [int(c) for c in res.counts.cpu().tolist()], bands

@@ -139,13 +139,17 @@ def fault_point(name: str, target=None) -> None:
         if action == "exit":
             # no finallys, no flushes — the deterministic kill -9
             os._exit(70)
-        if action == "corrupt" and target is not None and target.size:
+        if action == "corrupt" and target is not None:
             # deterministic single-byte flip at flat index ``arg`` (mod
             # size). XOR 0xFF maps a 0/255 cell to its VALID opposite —
             # exactly the plausible-looking wrong bit nothing downstream
-            # would notice without a digest
-            flat = target.reshape(-1)
-            flat[int(arg) % flat.size] ^= 0xFF
+            # would notice without a digest. The target is an ndarray or
+            # a contiguous tensor (a worker's strip resident on its
+            # device), whose element count is numel(), not size
+            size = target.numel() if callable(getattr(target, "numel", None)) else target.size
+            if size:
+                flat = target.reshape(-1)
+                flat[int(arg) % size] ^= 0xFF
 
 
 # -- TCP chaos proxy ---------------------------------------------------------

@@ -126,6 +126,28 @@ def state_add(val: int, arr) -> int:
     return _fold_chunked(zlib.adler32, val, arr.data)
 
 
+#: adler32's modulus
+ADLER_MOD = 65521
+
+
+def state_add_sums(val: int, shape, dtype, s1: int, s2: int) -> int:
+    """``state_add`` of an array known only by its shape, dtype and byte
+    sums: ``s1 = sum d_p`` and ``s2 = sum (n - p) d_p`` over its n bytes
+    d_p in row-major order, each as is or reduced modulo 65521 (the strip
+    kernel computes them on the card, ops/strip_steps.py). The header
+    folds as ``state_add`` folds it; the bytes by zlib's combine
+    arithmetic, a = a0 + s1 and b = b0 + n a0 + s2 modulo 65521, which
+    is adler32 of the bytes bit for bit."""
+    dtype = np.dtype(dtype)
+    shape = tuple(int(d) for d in shape)
+    val = zlib.adler32(f"{shape}:{dtype.str}:".encode(), val)
+    n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    a0, b0 = val & 0xFFFF, (val >> 16) & 0xFFFF
+    a = (a0 + int(s1)) % ADLER_MOD
+    b = (b0 + n * a0 + int(s2)) % ADLER_MOD
+    return (b << 16) | a
+
+
 def state_hex(val: int) -> str:
     return f"{val & 0xFFFFFFFF:08x}"
 

@@ -11,14 +11,22 @@ per-turn alive counts, its dirty-tile bitmap and, with integrity on, the
 attestation digests, and ``StripFetch`` reads it back (whole, or the
 tiles that changed since the broker's last copy).
 
-The numpy paths are the reference-shaped CPU worker, copied: the per-turn
-strip stencil (``_strip_step``), the dense and dead-band-skip strip
-batches and the tile batches. A strip batch may instead run fused: K turns
-in one call of ``ops/fused.fused_strip_steps`` on the worker's own device,
-the strip kernel (csrc/strip_steps.cu) on the card and its plain torch
-version on the CPU. Nothing catches a kernel failure to step the strip
-with numpy instead. ``GOL_WORKER_FUSED=auto|on|off`` routes as in the
-reference.
+Where a 1-D strip session lives. ``StripStart`` seeds the strip on the
+worker's own device (the card, or the CPU with ``-device cpu``) when
+``GOL_WORKER_FUSED`` is ``on``, or ``auto`` (the default) and the strip
+has at least ``FUSED_STRIP_MIN_CELLS`` cells: a ``_ResidentStrip``, whose
+every batch is one call of the strip kernel W (ops/strip_steps.py,
+csrc/strip_steps.cu; its plain torch version on the CPU). The strip never
+crosses PCIe on a step: the halos go up, and the edges, counts, dirty grid,
+digest sums and bands come down, with one synchronisation a batch. There
+is no live-window scan and no dead-band skip on it, a routing difference
+with equal results (ROADMAP F8). Otherwise, and for every ``-grid`` tile,
+the strip stays a numpy array on the reference-shaped CPU paths, copied:
+the per-turn strip stencil (``_strip_step``), the dense, dead-band-skip
+and fused strip batches (``strip_step_batch``, routed by
+``GOL_WORKER_FUSED=auto|on|off`` as in the reference; fused is one call
+of ``ops/fused.fused_strip_steps``) and the tile batches. Nothing catches
+a kernel failure to step the strip with numpy instead.
 
 Run it with ``python -m gol_distributed_final_tpu_torch.rpc.worker -port
 P [-device cuda|cpu] [-integrity on|off]``. The observability flags and
@@ -30,11 +38,13 @@ proof of life.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import threading
 import time
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from . import faults as _faults
@@ -47,21 +57,21 @@ from .server import RpcServer
 #: rows — below it the saved rows dominate the extent scan's cost
 _SKIP_MAX_WINDOW_FRAC = 0.75
 
-#: the fused strip path (ops/fused.fused_strip_steps — one call for the
-#: whole K-turn batch) engages for strips at least this many cells under
-#: GOL_WORKER_FUSED=auto. Measured on an H100 (chip_smoke.py's "fused
-#: gate" table, PERF.md): at K = 8 the batch through the strip kernel,
-#: copies and digests included, beats the numpy loop from the smallest
-#: strip timed, 2^10 cells (1.5x there, 270x at 2^22); the reference's
-#: 2^20 was a TPU figure
+#: under GOL_WORKER_FUSED=auto, a strip of at least this many cells is
+#: seeded on the worker's device (``_ResidentStrip``), and a numpy strip
+#: batch this large takes the fused path (ops/fused.fused_strip_steps).
+#: Measured on an H100 (chip_smoke.py's "fused gate" table, PERF.md): at
+#: K = 8 a batch through the strip kernel, copies and digests included,
+#: beats the numpy loop from the smallest strip timed, 2^10 cells; the
+#: reference's 2^20 was a TPU figure
 FUSED_STRIP_MIN_CELLS = 1 << 10
 
 
 def _worker_fused_mode() -> str:
     """``GOL_WORKER_FUSED``: ``auto`` (default — fused for strips past
-    FUSED_STRIP_MIN_CELLS, dead-band skip preferred when it applies),
-    ``on`` (EVERY batch through the fused path — overrides the skip),
-    ``off`` (never the fused path)."""
+    FUSED_STRIP_MIN_CELLS, dead-band skip preferred when it applies to a
+    numpy strip), ``on`` (EVERY batch through the fused path — overrides
+    the skip), ``off`` (never the fused path: numpy strips only)."""
     return os.environ.get("GOL_WORKER_FUSED", "auto").lower()
 
 
@@ -586,10 +596,148 @@ def _tile_batch_skip(block, k, th, tw, window, attest, birth, survive):
     return final, counts
 
 
+def _device_session(strip: np.ndarray, is_tile: bool) -> bool:
+    """Whether StripStart seeds this strip on the worker's device: a 1-D
+    strip, not a tile, under GOL_WORKER_FUSED ``on``, or ``auto`` past
+    FUSED_STRIP_MIN_CELLS; the fused batch's routing minus the skip."""
+    mode = _worker_fused_mode()
+    return not is_tile and (
+        mode == "on" or (mode == "auto" and strip.size >= FUSED_STRIP_MIN_CELLS)
+    )
+
+
+class _BatchIO:
+    """One device buffer for a batch's halos and W's outputs, laid out
+    ``[halos | sums, counts, grid][edges | bands]`` with each part
+    16-byte aligned, and on the card its two pinned host mirrors: the
+    first part goes up each batch (its zero tail resets the sums, counts
+    and grid W adds into) and everything after the halos comes down, so
+    a batch crosses PCIe in one copy each way."""
+
+    def __init__(self, h: int, w: int, k: int, attest: bool, device):
+        from ..ops.strip_steps import StripBatch, output_specs
+
+        def r16(n):
+            return -(-n // 16) * 16
+
+        specs = output_specs(h, w, k, attest)
+        grid = specs["dirty"][0]
+        self.halo_bytes = 2 * k * w
+        o_sums = r16(self.halo_bytes)
+        o_counts = o_sums + 32
+        o_dirty = o_counts + 4 * k
+        o_edges = r16(o_dirty + grid[0] * grid[1])
+        o_bands = r16(o_edges + 2 * k * w)
+        end = o_bands + (specs["bands"][0][0] if attest else 0)
+        self.zero_end, self.down_from = o_edges, o_sums
+        self.dev = torch.empty(end, dtype=torch.uint8, device=device)
+
+        def views(buf, base):
+            def at(a, b):
+                return buf[a - base:b - base]
+
+            return StripBatch(
+                None,
+                at(o_counts, o_dirty).view(torch.int32),
+                at(o_bands, end) if attest else None,
+                at(o_dirty, o_dirty + grid[0] * grid[1]).view(torch.bool).view(grid),
+                at(o_sums, o_counts).view(torch.int64) if attest else None,
+                at(o_edges, o_edges + 2 * k * w).view(2 * k, w),
+            )
+
+        self.halos = self.dev[:self.halo_bytes].view(2 * k, w)
+        self.into = views(self.dev, 0)
+        self.up = self.down = None
+        self.host = self.into
+        if self.dev.is_cuda:
+            self.up = torch.zeros(o_edges, dtype=torch.uint8, pin_memory=True)
+            self.down = torch.empty(end - o_sums, dtype=torch.uint8, pin_memory=True)
+            self.host = views(self.down, o_sums)
+
+
+class _ResidentStrip:
+    """A 1-D strip session's strip on the worker's device, stepped by the
+    strip kernel W (ops/strip_steps.py) batch after batch.
+
+    Two buffers ping-pong: a batch reads the current one and W writes the
+    new strip into the other. On the card every copy and launch of the
+    session runs on its own stream: the request's halos go up with the
+    zeroes W's sums, counts and grid start from, W reads halos and strip
+    through separate pointers, and its edges, counts, grid, sums and (with
+    attestation) bands come down, one copy each way and one
+    synchronisation a batch (``_BatchIO``). ``bytes_up``, ``bytes_down``
+    and ``bytes_fetched`` count what crossed PCIe."""
+
+    def __init__(self, strip: np.ndarray, device):
+        self.device = resolve_device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        with self.on_stream():
+            first = torch.from_numpy(strip).to(self.device)
+            self._buffers = [first, torch.empty_like(first)]
+        self._current = 0
+        self._io: dict = {}
+        self.bytes_up = self.bytes_down = self.bytes_fetched = 0
+
+    @property
+    def strip(self) -> torch.Tensor:
+        return self._buffers[self._current]
+
+    def on_stream(self):
+        """The session's stream as the current one (nothing on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def step(self, halos: np.ndarray, k: int, attest: bool):
+        """K turns from the (2K, w) halos ``[top K; bottom K]``:
+        ``(edges, counts, dirty, sums, bands)`` on the host, ``sums`` the
+        four adler32 sums (``StripBatch.sums``) and ``bands`` the flat band
+        output (valid until the next step), both None without ``attest``.
+        Call it inside ``on_stream``."""
+        from ..ops import strip_steps
+
+        h, w = self.strip.shape
+        io = self._io.get((k, attest))
+        if io is None:
+            io = self._io[(k, attest)] = _BatchIO(h, w, k, attest, self.device)
+        if io.up is None:
+            np.copyto(io.halos.numpy(), halos)
+            io.dev[io.down_from:io.zero_end].zero_()
+        else:
+            np.copyto(io.up[:io.halo_bytes].numpy().reshape(2 * k, w), halos)
+            io.dev[:io.zero_end].copy_(io.up, non_blocking=True)
+            self.bytes_up += io.zero_end
+        strip_steps.strip_batch(io.halos[:k], self.strip, io.halos[k:], k, attest,
+                                into=io.into._replace(strip=self._buffers[1 - self._current]))
+        self._current = 1 - self._current
+        if io.down is not None:
+            io.down.copy_(io.dev[io.down_from:], non_blocking=True)
+            self.stream.synchronize()
+            self.bytes_down += io.down.numel()
+        out = io.host
+        return (
+            out.edges.numpy().copy(),
+            out.counts.tolist(),
+            out.dirty.numpy().copy(),
+            None if out.sums is None else out.sums.tolist(),
+            None if out.bands is None else out.bands.numpy(),
+        )
+
+    def fetch(self) -> np.ndarray:
+        """A host copy of the strip."""
+        with self.on_stream():
+            out = self.strip.cpu() if self.stream is not None else self.strip.clone()
+        if self.stream is not None:
+            self.bytes_fetched += out.numel()
+        return out.numpy()
+
+
 class WorkerService:
-    """The worker's verbs. ``device`` is where a fused strip batch runs
-    (the card, or the CPU for ``-device cpu``); the numpy paths and the
-    resident strip itself stay in host memory, as in the reference."""
+    """The worker's verbs. ``device`` is where a 1-D strip session at
+    least FUSED_STRIP_MIN_CELLS large lives and steps (the card, or the CPU
+    for ``-device cpu``), and where a fused numpy batch runs; smaller
+    strips, ``GOL_WORKER_FUSED=off`` and tiles stay in host memory, as in
+    the reference."""
 
     def __init__(self, server: RpcServer, device=None):
         self._server = server
@@ -600,7 +748,10 @@ class WorkerService:
         # StripStart replaces it wholesale, so a reseed after loss recovery
         # can never leave a stale session behind.
         self._strip_lock = threading.Lock()
-        self._strip: np.ndarray | None = None
+        # the strip: a numpy array, or the current buffer of _resident, a
+        # session on the device
+        self._strip = None
+        self._resident: _ResidentStrip | None = None
         self._strip_turn = 0
         self._strip_index = 0
         # dirty-tile accumulator (ops/sparse.py wire tiles): which tiles
@@ -645,14 +796,17 @@ class WorkerService:
         from ..ops.sparse import wire_tile_grid
 
         grid_cols = getattr(req, "grid_cols", 0)
+        # a nonzero column-band count marks a 2-D tile session (read with
+        # getattr: an older broker's pickle lacks the field, and this
+        # worker keeps serving plain 1-D strips)
+        is_tile = isinstance(grid_cols, int) and grid_cols >= 1
+        resident = _ResidentStrip(strip, self.device) if _device_session(strip, is_tile) else None
         with self._strip_lock:
-            self._strip = strip
+            self._resident = resident
+            self._strip = strip if resident is None else resident.strip
             turn = self._strip_turn = getattr(req, "initial_turn", 0)
             self._strip_index = req.worker
-            # a nonzero column-band count marks a 2-D tile session (read
-            # with getattr: an older broker's pickle lacks the field, and
-            # this worker keeps serving plain 1-D strips)
-            self._strip_is_tile = isinstance(grid_cols, int) and grid_cols >= 1
+            self._strip_is_tile = is_tile
             # the broker just sent this full strip, so its copy IS
             # current: a clean dirty accumulator anchored at the seed turn
             self._strip_dirty = np.zeros(wire_tile_grid(strip.shape), bool)
@@ -683,7 +837,7 @@ class WorkerService:
                     f"strip index mismatch: seeded as {self._strip_index}, "
                     f"stepped as {req.worker}"
                 )
-            halo_blocks = None
+            halo_blocks = halos = None
             if self._strip_is_tile:
                 if k < 1:
                     raise ValueError(f"tile batch needs k >= 1, got {k}")
@@ -708,36 +862,11 @@ class WorkerService:
                     raise ValueError(
                         f"batch depth {k} exceeds strip height {self._strip.shape[0]}"
                     )
-            # chaos site (rpc/faults.py "corrupt" action): flips a byte of
-            # the RESIDENT strip in place, before the pre-digest, so the
-            # broker's chain comparison refuses this reply
-            _faults.fault_point("worker.strip_corrupt", target=self._strip)
             check = _integrity.enabled()
-            pre = _integrity.state_digest(self._strip) if check else None
-            pre_strip = self._strip
-            att = None
-            if self._strip_is_tile:
-                if check:
-                    strip, counts, att = tile_step_batch(
-                        self._strip, halo_blocks, k, attest=True
-                    )
-                else:
-                    strip, counts = tile_step_batch(self._strip, halo_blocks, k)
-            elif check:
-                strip, counts, att_top, att_bottom = strip_step_batch(
-                    self._strip, halos[:k], halos[k:], k, attest=True,
-                    device=self.device,
-                )
+            if self._resident is not None:
+                edges, counts, dirty, digests = self._step_resident(halos, k, check)
             else:
-                strip, counts = strip_step_batch(
-                    self._strip, halos[:k], halos[k:], k, device=self.device
-                )
-            # per-tile dirty bitmap over the batch (ops/sparse.py wire
-            # tiles): rides the reply and accumulates locally so a later
-            # StripFetch can ship only the tiles that changed
-            from ..ops.sparse import dirty_tile_grid
-
-            dirty = dirty_tile_grid(pre_strip, strip)
+                edges, counts, dirty, digests = self._step_numpy(halo_blocks, halos, k, check)
             if (
                 self._strip_dirty is not None
                 and self._strip_dirty.shape == dirty.shape
@@ -745,33 +874,7 @@ class WorkerService:
                 self._strip_dirty |= dirty
             else:
                 self._strip_dirty = dirty.copy()
-            self._strip = strip
             self._strip_turn += k
-            # the fresh boundary bands: the broker relays them to this
-            # block's neighbours as their next batch's halos. A tile ships
-            # all four edges bit-packed (corners never ride the uplink).
-            if self._strip_is_tile:
-                edges = pack_tile_blocks(
-                    (strip[:k], strip[-k:], strip[:, :k], strip[:, -k:])
-                )
-            else:
-                edges = np.concatenate([strip[:k], strip[-k:]], axis=0)
-            digests = None
-            if check:
-                # "pre"/"strip" anchor the broker's per-strip digest chain,
-                # "edges" covers the reply bands as they cross (for a tile,
-                # the packed buffer), the attest digests feed the
-                # neighbour cross-check (two for a strip, eight for a tile)
-                digests = {
-                    "pre": pre,
-                    "strip": _integrity.state_digest(strip),
-                    "edges": _integrity.state_digest(edges),
-                }
-                if self._strip_is_tile:
-                    digests.update(att)
-                else:
-                    digests["attest_top"] = att_top
-                    digests["attest_bottom"] = att_bottom
             turn_done = self._strip_turn
         return Response(
             worker=req.worker,
@@ -782,6 +885,99 @@ class WorkerService:
             dirty=dirty,
             service_seconds=time.monotonic() - t0,
         )
+
+    def _step_resident(self, halos: np.ndarray, k: int, check: bool):
+        """A batch of a device session (strip lock held): W steps the
+        strip and yields the dirty grid and the strip digests' sums; the
+        host folds the edges' and bands' digests."""
+        from ..ops.strip_steps import split_bands
+
+        session = self._resident
+        with session.on_stream():
+            # chaos site (rpc/faults.py "corrupt" action): flips a byte of
+            # the RESIDENT strip in place, on the session's stream, before
+            # W sums it, so the broker's chain comparison refuses this reply
+            _faults.fault_point("worker.strip_corrupt", target=session.strip)
+            edges, counts, dirty, sums, bands = session.step(halos, k, check)
+        self._strip = session.strip
+        digests = None
+        if check:
+            shape, w = tuple(session.strip.shape), session.strip.shape[1]
+            at = ab = _integrity.state_new()
+            for top, bottom in split_bands(bands, k, w):
+                at = _integrity.state_add(at, top)
+                ab = _integrity.state_add(ab, bottom)
+            new = _integrity.state_new()
+            digests = {
+                "pre": _integrity.state_hex(
+                    _integrity.state_add_sums(new, shape, np.uint8, *sums[:2])),
+                "strip": _integrity.state_hex(
+                    _integrity.state_add_sums(new, shape, np.uint8, *sums[2:])),
+                "edges": _integrity.state_digest(edges),
+                "attest_top": _integrity.state_hex(at),
+                "attest_bottom": _integrity.state_hex(ab),
+            }
+        return edges, counts, dirty, digests
+
+    def _step_numpy(self, halo_blocks, halos, k: int, check: bool):
+        """A batch of a numpy session (strip lock held), as the
+        reference's StripStep runs it."""
+        # chaos site (rpc/faults.py "corrupt" action): flips a byte of
+        # the RESIDENT strip in place, before the pre-digest, so the
+        # broker's chain comparison refuses this reply
+        _faults.fault_point("worker.strip_corrupt", target=self._strip)
+        pre = _integrity.state_digest(self._strip) if check else None
+        pre_strip = self._strip
+        att = None
+        if self._strip_is_tile:
+            if check:
+                strip, counts, att = tile_step_batch(
+                    self._strip, halo_blocks, k, attest=True
+                )
+            else:
+                strip, counts = tile_step_batch(self._strip, halo_blocks, k)
+        elif check:
+            strip, counts, att_top, att_bottom = strip_step_batch(
+                self._strip, halos[:k], halos[k:], k, attest=True,
+                device=self.device,
+            )
+        else:
+            strip, counts = strip_step_batch(
+                self._strip, halos[:k], halos[k:], k, device=self.device
+            )
+        # per-tile dirty bitmap over the batch (ops/sparse.py wire
+        # tiles): rides the reply and accumulates locally so a later
+        # StripFetch can ship only the tiles that changed
+        from ..ops.sparse import dirty_tile_grid
+
+        dirty = dirty_tile_grid(pre_strip, strip)
+        self._strip = strip
+        # the fresh boundary bands: the broker relays them to this
+        # block's neighbours as their next batch's halos. A tile ships
+        # all four edges bit-packed (corners never ride the uplink).
+        if self._strip_is_tile:
+            edges = pack_tile_blocks(
+                (strip[:k], strip[-k:], strip[:, :k], strip[:, -k:])
+            )
+        else:
+            edges = np.concatenate([strip[:k], strip[-k:]], axis=0)
+        digests = None
+        if check:
+            # "pre"/"strip" anchor the broker's per-strip digest chain,
+            # "edges" covers the reply bands as they cross (for a tile,
+            # the packed buffer), the attest digests feed the
+            # neighbour cross-check (two for a strip, eight for a tile)
+            digests = {
+                "pre": pre,
+                "strip": _integrity.state_digest(strip),
+                "edges": _integrity.state_digest(edges),
+            }
+            if self._strip_is_tile:
+                digests.update(att)
+            else:
+                digests["attest_top"] = att_top
+                digests["attest_bottom"] = att_bottom
+        return edges, counts, dirty, digests
 
     def strip_fetch(self, req: Request) -> Response:
         """Read the resident strip + its turn back out (full re-syncs,
@@ -803,11 +999,14 @@ class WorkerService:
                 and self._strip_dirty is not None
                 and base_turn == self._strip_clean_turn
             )
+            # a device session's strip comes down to the host here: syncs
+            # are every -sync-interval turns, not every batch
+            strip = self._strip if self._resident is None else self._resident.fetch()
             if delta_ok:
                 from ..ops.sparse import extract_dirty_tiles
 
                 dirty = self._strip_dirty
-                flat = extract_dirty_tiles(self._strip, dirty)
+                flat = extract_dirty_tiles(strip, dirty)
                 self._strip_dirty = np.zeros_like(dirty)
                 self._strip_clean_turn = self._strip_turn
                 return Response(
@@ -816,7 +1015,7 @@ class WorkerService:
                     work_slice=flat,
                     dirty=dirty,
                 )
-            # the reference itself is safe to ship: StripStep REPLACES the
+            # a numpy strip itself is safe to ship: StripStep REPLACES the
             # array (never mutates in place)
             if self._strip_dirty is not None:
                 self._strip_dirty = np.zeros_like(self._strip_dirty)
@@ -824,7 +1023,7 @@ class WorkerService:
             return Response(
                 worker=self._strip_index,
                 turns_completed=self._strip_turn,
-                work_slice=self._strip,
+                work_slice=strip,
             )
 
     def worker_quit(self, req: Request) -> Response:

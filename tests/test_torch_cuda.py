@@ -773,26 +773,38 @@ def _strip_block(h, w, k, seed, p=0.35):
     return np.where(rng.random((h + 2 * k, w)) < p, 255, 0).astype(np.uint8)
 
 
+def _assert_batch_equal(got, want, attest):
+    """A StripBatch of the kernel against the plain version's: strip,
+    edges, per-turn counts, every band byte, the dirty grid and, with
+    attest, the four adler32 sums modulo 65521."""
+    from gol_distributed_final_tpu_torch.ops import strip_steps
+
+    assert torch.equal(got.strip, want.strip)
+    assert (got.edges is None and want.edges is None) or torch.equal(got.edges, want.edges)
+    assert got.counts.cpu().tolist() == want.counts.cpu().tolist()
+    assert torch.equal(got.dirty.cpu(), want.dirty.cpu())
+    if attest:
+        assert torch.equal(got.bands, want.bands)
+        assert (got.sums % strip_steps.MOD).cpu().tolist() == want.sums.cpu().tolist()
+    else:
+        assert got.bands is None and got.sums is None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 64])
 @pytest.mark.parametrize("h,w", [(1, 100), (16, 512), (7, 33), (1024, 4096)])
 @pytest.mark.parametrize("attest", [False, True])
 def test_strip_kernel_matches_plain(cuda_device, k, h, w, attest):
-    """W against its plain version on the card: strip, per-turn counts and
-    every band byte, over one launch (k <= 32) and chained launches."""
+    """W against its plain version on the card: strip, per-turn counts,
+    every band byte, the dirty grid and the digest sums, over one launch
+    (k <= 32) and chained launches."""
     from gol_distributed_final_tpu_torch.ops import strip_steps
 
     block = torch.from_numpy(_strip_block(h, w, k, seed=k * 1000 + h + w)).to(cuda_device)
     before = strip_steps.launches
-    strip, counts, bands = strip_steps.strip_steps(block, k, h, attest=attest)
+    got = strip_steps.strip_steps(block, k, h, attest=attest)
     assert strip_steps.launches - before == -(-k // strip_steps.MAX_TURNS)
-    want_strip, want_counts, want_bands = strip_steps.strip_steps_plain(block, k, h, attest)
-    assert torch.equal(strip, want_strip)
-    assert counts.cpu().tolist() == want_counts.cpu().tolist()
-    if attest:
-        assert torch.equal(bands, want_bands)
-    else:
-        assert bands is None
+    _assert_batch_equal(got, strip_steps.strip_steps_plain(block, k, h, attest), attest)
 
 
 @pytest.mark.cuda
@@ -803,6 +815,91 @@ def test_strip_kernel_on_both_tiles(cuda_device, tile):
     block = torch.from_numpy(_strip_block(130, 300, 8, seed=5)).to(cuda_device)
     forced = strip_steps.TILE if tile == "wide" else strip_steps.SMALL_TILE
     got = strip_steps.strip_steps(block, 8, 130, attest=True, tile=forced)
-    want = strip_steps.strip_steps_plain(block, 8, 130, attest=True)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
-    assert got[1].cpu().tolist() == want[1].cpu().tolist()
+    _assert_batch_equal(got, strip_steps.strip_steps_plain(block, 8, 130, attest=True), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("ctas", [1, 3, 7, None])
+@pytest.mark.parametrize("h,w", [(200, 1024), (64, 256), (130, 300)])
+def test_strip_batch_on_three_parts_into_a_second_buffer(cuda_device, k, ctas, h, w):
+    """The resident form: halos and strip in separate allocations, the new
+    strip written into a given buffer, on a persistent grid capped at a
+    few CTAs (each walks several tiles, their count no multiple of the
+    CTAs') and uncapped."""
+    from gol_distributed_final_tpu_torch.ops import strip_steps
+
+    block = _strip_block(h, w, k, seed=h + w + k)
+    top, strip, bottom = (torch.from_numpy(part.copy()).to(cuda_device)
+                          for part in (block[:k], block[k:k + h], block[k + h:]))
+    into = strip_steps.batch_outputs(h, w, k, True, cuda_device)
+    assert strip_steps.strip_batch(top, strip, bottom, k, True, into=into, ctas=ctas) is into
+    want = strip_steps.strip_steps_plain(torch.from_numpy(block).to(cuda_device), k, h, True)
+    _assert_batch_equal(into, want, True)
+    with pytest.raises(ValueError):
+        strip_steps.strip_batch(top, strip, bottom, k, True, into=into._replace(strip=strip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [256, 300])
+def test_strip_kernel_dirty_grid_and_sums_read_every_byte(cuda_device, w):
+    """A strip of arbitrary bytes (alive is nonzero): the grid marks a
+    tile whose bytes change even where its cells stay alive, and the sums
+    are those of the bytes; an all-dead strip stays clean."""
+    from gol_distributed_final_tpu_torch.ops import strip_steps
+
+    rng = np.random.default_rng(w)
+    block = torch.from_numpy(rng.integers(0, 256, (140, w), dtype=np.uint8)).to(cuda_device)
+    dead = torch.zeros_like(block)
+    for k, data in ((4, block), (40, block), (4, dead), (40, dead)):
+        h = data.shape[0] - 2 * k
+        got = strip_steps.strip_steps(data, k, h, attest=True)
+        _assert_batch_equal(got, strip_steps.strip_steps_plain(data, k, h, attest=True), True)
+        assert bool(got.dirty.any()) == (data is block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrity", [True, False])
+def test_device_session_replies_equal_a_numpy_session(cuda_device, monkeypatch, integrity):
+    """A worker whose strip is resident on the card (GOL_WORKER_FUSED=auto,
+    a strip past the gate) against one that keeps a numpy strip
+    (GOL_WORKER_FUSED=off): every StripStep reply field, the full and
+    delta fetches, with integrity on and off."""
+    from gol_distributed_final_tpu_torch.rpc import integrity as port_integrity
+    from gol_distributed_final_tpu_torch.rpc import worker as port_worker
+    from gol_distributed_final_tpu_torch.rpc.protocol import Request
+
+    class _NoServer:
+        def stop(self):
+            pass
+
+    rng = np.random.default_rng(11)
+    board = np.where(rng.random((512, 1000)) < 0.35, 255, 0).astype(np.uint8)
+    s, e = 128, 384
+    services = []
+    for mode in ("auto", "off"):
+        monkeypatch.setenv("GOL_WORKER_FUSED", mode)
+        svc = port_worker.WorkerService(_NoServer(), cuda_device)
+        svc.strip_start(Request(world=board[s:e], worker=2, initial_turn=16))
+        services.append(svc)
+    card, host = services
+    assert isinstance(card._strip, torch.Tensor) and card._strip.is_cuda
+    assert isinstance(host._strip, np.ndarray)
+    monkeypatch.setattr(port_integrity, "_enabled", integrity)
+    turn = 16
+    for k in (8, 1, 8, 40):
+        halos = np.concatenate([board[s - k:s], board[e:e + k]])
+        replies = [svc.strip_step(Request(world=halos, worker=2, turns=k, initial_turn=turn))
+                   for svc in services]
+        a, b = replies
+        assert a.turns_completed == b.turns_completed == turn + k
+        assert np.array_equal(a.edges, b.edges) and a.counts == b.counts
+        assert np.array_equal(a.dirty, b.dirty) and a.digests == b.digests
+        if turn == 16:
+            delta = [svc.strip_fetch(Request(worker=2, delta_base_turn=16)) for svc in services]
+            assert np.array_equal(delta[0].dirty, delta[1].dirty)
+            assert np.array_equal(delta[0].work_slice, delta[1].work_slice)
+        turn += k
+    full = [svc.strip_fetch(Request(worker=2)) for svc in services]
+    assert np.array_equal(full[0].work_slice, full[1].work_slice)
+    assert card._strip.is_cuda
