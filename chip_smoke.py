@@ -49,7 +49,17 @@ exits non-zero before printing any result.
 times only the kernels (K1, K2, the tiled kernel, K5, K6 and, where the
 tree has it, the sparse kernel and the strip kernel) of the port in
 the checkout TREE (default: this one) and prints one JSON line, so that two
-trees can be compared in turns within one call on one card.
+trees can be compared in turns within one call on one card. The sparse
+kernel is timed by its device span a block (the first sparse kernel's
+start to the last one's end in a 64-block dispatch), whatever launches
+the tree's design makes.
+
+    python3 chip_smoke.py --sparse-sweep [DIR]
+
+builds edited copies of this checkout's sparse kernel under DIR (default
+build/sweep), the tile whole or in parts, 224 or 480 threads, grids of
+48 to 264 CTAs, an OR barrier every turn, and prints for each one JSON
+line of its time a block by CUDA events around its launch.
 
     python3 chip_smoke.py --workers-times [TREE]
 
@@ -135,22 +145,54 @@ def trace(fn):
     return prof
 
 
-def window_kernels(prof, pattern: str) -> list[tuple[str, float]]:
-    """``(name, device time in us)`` of every kernel whose name matches
+def window_records(prof, pattern: str) -> list[tuple[str, float, float]]:
+    """``(name, start, end)`` in us of every kernel whose name matches
     ``pattern`` in a trace, leaving out any that started before the window's
-    first launch call: a record that arrives late from an earlier window
-    carries that window's time."""
+    first launch call (an ordinary or a cooperative launch): a record that
+    arrives late from an earlier window carries that window's time."""
     from torch.autograd import DeviceType
 
     events = prof.events()
     calls = [ev.time_range.start for ev in events
-             if ev.device_type == DeviceType.CPU and ev.name.startswith("cudaLaunchKernel")]
+             if ev.device_type == DeviceType.CPU
+             and ev.name.startswith(("cudaLaunchKernel", "cudaLaunchCooperativeKernel"))]
     if not calls:
         return []
     first = min(calls)
-    return [(ev.name, ev.time_range.end - ev.time_range.start) for ev in events
+    return [(ev.name, ev.time_range.start, ev.time_range.end) for ev in events
             if ev.device_type == DeviceType.CUDA and ev.time_range.start >= first
             and re.search(pattern, ev.name)]
+
+
+def window_kernels(prof, pattern: str) -> list[tuple[str, float]]:
+    """``(name, device time in us)`` of ``window_records``."""
+    return [(name, end - start) for name, start, end in window_records(prof, pattern)]
+
+
+def device_span_ms(fn, kernel: str, launches: int, traces: int = 3,
+                   fallback=None) -> tuple[float, int]:
+    """``(ms, traces)``: the device span of one ``fn()`` that makes
+    ``launches`` launches of the kernels named ``kernel`` (a regular
+    expression), from the first one's start to the last one's end in the
+    profiler's trace, so that the gaps between launches count. Only traces
+    that hold all ``launches`` stand (see ``trace``); the least span of up
+    to ``traces`` of them, out of up to twelve taken, and how many stood.
+    If none stands, ``fallback()`` stands in with 0 traces, and a line says
+    so."""
+    fn()
+    spans = []
+    for _ in range(12):
+        records = window_records(trace(fn), rf"::(?:{kernel})[<(]")
+        if len(records) == launches:
+            spans.append(max(end for _, _, end in records) - min(s for _, s, _ in records))
+            if len(spans) == traces:
+                break
+    if spans:
+        return min(spans) / 1e3, len(spans)
+    check(fallback is not None, f"no trace of {kernel} held its {launches} launches")
+    print(f"  device_span_ms: no trace of {kernel} held its {launches} launches; the "
+          "fallback stands in")
+    return fallback(), 0
 
 
 def traced_kernels(fn, pattern: str, complete) -> list[str]:
@@ -254,7 +296,7 @@ def kernel_label(mangled: str) -> str:
     ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
     kernel = re.search(
         r"(whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
-        r"sparse_step|sparse_scatter|sparse_dilate|sparse_list|strip_steps)_kernel",
+        r"sparse_blocks|sparse_step|sparse_scatter|sparse_dilate|sparse_list|strip_steps)_kernel",
         mangled)
     name = kernel.group(1) if kernel else mangled[:40]
     args = re.findall(r"Li(\d+)E", mangled)
@@ -427,6 +469,147 @@ def workers_times(tree: str) -> int:
     return 0
 
 
+def sparse_launch_ms(st, tile, h, cap, blocks, reps=5) -> tuple[float, int]:
+    """``(ms, ctas)``: the sparse kernel's own time for one dispatch of
+    ``blocks`` blocks of ``h`` turns from the sparse state ``st``, by CUDA
+    events around its cooperative launch alone, made as
+    ``ops/sparse_tiles.py::dispatch`` makes it, from a copy of the board
+    taken before the start event; the least of ``reps`` after a warm-up.
+    Unlike the profiler's trace, which loses records late in a long run,
+    events always see the launch. Checks the launch's board against the
+    wrapper's dispatch, which must run every block."""
+    import torch
+
+    from gol_distributed_final_tpu_torch.ops import _build, bitpack, sparse_tiles
+
+    lib = _build.load("sparse_tiles", sparse_tiles._SIGNATURES)
+    dev = st.packed.device
+    rows, cols = st.packed.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    workspace = sparse_tiles._workspace(lib, dev, stream, rows, cols, tile, cap)
+    board, out_grid = torch.empty_like(st.packed), torch.empty_like(st.grid)
+    counts = torch.empty(blocks + 1, dtype=torch.int32, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps + 1):
+        board.copy_(st.packed)
+        start.record()
+        err = lib.gol_sparse_dispatch(
+            board.data_ptr(), st.grid.data_ptr(), out_grid.data_ptr(), counts.data_ptr(),
+            workspace.data_ptr(), rows, cols, *tile, h, cap, blocks,
+            *bitpack.rule_masks(8, 12), stream)
+        end.record()
+        check(err == 0, f"sparse launch failed with CUDA error {err}")
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    want = sparse_tiles.dispatch(st.packed, st.grid, blocks, tile, h, cap, 8, 12)
+    check(torch.equal(board, want.packed) and torch.equal(out_grid, want.grid),
+          "the timed launch differs from the wrapper's dispatch")
+    check(want.blocks_done == blocks, f"the timed dispatch stopped at {want.blocks_done}")
+    return min(times[1:]), sparse_tiles.ctas(tile, h, cap, 8, 12)
+
+
+#: variants of the sparse kernel for ``--sparse-sweep``: (name, [(text in
+#: csrc/sparse_tiles.cu, its replacement)]), each a copy of this checkout's
+#: port with the source edited so; every edit must apply
+SPLIT_LINE = "        int split = kSplits - 1;\n"
+GRID_LINE = ("    *ctas = static_cast<int>(std::min(want, static_cast<long long>(per_sm) * sms));"
+             "\n")
+SPARSE_VARIANTS = [
+    ("as committed", []),
+    ("tiles whole", [(SPLIT_LINE, "        int split = 0;\n")]),
+    ("tiles whole, 224 threads", [(SPLIT_LINE, "        int split = 0;\n"),
+                                  ("constexpr int kThreadAim = 512;",
+                                   "constexpr int kThreadAim = 256;")]),
+] + [(f"tiles whole on {n} CTAs", [
+    (SPLIT_LINE, "        int split = 0;\n"),
+    (GRID_LINE, f"    *ctas = std::min({n}, per_sm * sms);\n")]) for n in (48, 132, 160, 264)
+] + [(f"as committed on {n} CTAs", [(GRID_LINE, f"    *ctas = std::min({n}, per_sm * sms);\n")])
+     for n in (160, 264)] + [
+    ("an OR barrier every turn", [("        __syncthreads();\n        uint32_t* tmp = cur;",
+                                   "        mine = __syncthreads_or(mine);\n"
+                                   "        uint32_t* tmp = cur;")]),
+]
+
+
+def sparse_sweep(out_dir: str) -> int:
+    """Time each of ``SPARSE_VARIANTS``, one process a variant, each built
+    from its own edited copy of the port under ``out_dir``; prints one
+    JSON line a variant (``--sparse-times``)."""
+    import shutil
+
+    for name, edits in SPARSE_VARIANTS:
+        tree = pathlib.Path(out_dir) / re.sub(r"\W+", "_", name)
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(REPO / "gol_distributed_final_tpu_torch",
+                        tree / "gol_distributed_final_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        source = tree / "gol_distributed_final_tpu_torch" / "csrc" / "sparse_tiles.cu"
+        text = source.read_text()
+        for old, new in edits:
+            check(text.count(old) == 1, f"variant {name!r}: {old!r} is not in the source once")
+            text = text.replace(old, new)
+        source.write_text(text)
+        out = subprocess.run([sys.executable, __file__, "--sparse-times", str(tree), name],
+                             capture_output=True, text=True)
+        lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+        check(out.returncode == 0 and lines, f"variant {name!r}: {out.stdout[-2000:]}"
+                                             f"{out.stderr[-2000:]}")
+        print(lines[-1], flush=True)
+    return 0
+
+
+def sparse_times(tree: str, name: str) -> int:
+    """The sparse kernel of the port in ``tree``, by ``sparse_launch_ms``:
+    64-block dispatches of h = 8 and h = 1 from the 16384^2 R-pentomino
+    after 1000 turns at the capacities its plane takes (64) and the timing
+    phase's (128), one of 1024 blocks, and 4 blocks of a 16384^2 soup with
+    5% of the tiles active at a capacity of every tile; one JSON line, ms
+    per block."""
+    sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+    import numpy as np
+    import torch
+
+    from gol_distributed_final_tpu_torch import bigboard
+    from gol_distributed_final_tpu_torch.models import CONWAY
+    from gol_distributed_final_tpu_torch.ops import bitpack, sparse
+
+    check(pathlib.Path(sparse.__file__).is_relative_to(pathlib.Path(tree).resolve()),
+          f"the port imported from {tree}")
+    dev = torch.device("cuda")
+    plane = sparse.SparseBitPlane(CONWAY, device=dev)
+    st = plane.step_n(plane.from_packed(bigboard.seed_packed(16384, bigboard.r_pentomino(16384))),
+                      1000)
+    tile = sparse.sparse_tile_shape(tuple(st.packed.shape))
+    ms = {"count": st.count}
+    for cap in (64, 128):
+        for h in (8, 1):
+            t, ctas = sparse_launch_ms(st, tile, h, cap, 64)
+            ms[f"rpent_cap{cap}_h{h}"] = t / 64
+            ms[f"rpent_cap{cap}_ctas"] = ctas
+    # a long launch (1024 blocks, 8192 turns): whether a block costs the
+    # same when the card has been busy for milliseconds
+    t, _ = sparse_launch_ms(st, tile, 8, 128, 1024, reps=2)
+    ms["rpent_cap128_h8_1024blocks"] = t / 1024
+    shape = bitpack.packed_shape(16384, 16384)
+    rng = np.random.default_rng(SEED)
+    chosen = rng.random((shape[0] // tile[0], shape[1] // tile[1])) < 1 - 0.95 ** (1 / 9)
+    mask = np.repeat(np.repeat(chosen, tile[0], 0), tile[1], 1)
+    words = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    soup = plane.from_packed(torch.from_numpy(np.where(mask, words, 0).astype(np.int32)))
+    t, ctas = sparse_launch_ms(soup, tile, 8, chosen.size, 4)
+    ms.update(soup_count=soup.count, soup_ctas=ctas, soup_5pct_n4=t / 4)
+    print(json.dumps({"variant": name, "card": nvidia_smi("name,power.limit"), "ms": ms}))
+    return 0
+
+
+#: the sparse kernel's names in a trace, this design's and the earlier
+#: one's (a list pass, then a step, a scatter and a dilate launch a block),
+#: so that a parent tree is timed by the same yardstick
+SPARSE_KERNELS = "sparse_(?:blocks|list|step|scatter|dilate)_kernel"
+
+
 def kernel_times(tree: str) -> int:
     """Time the kernels of the port in ``tree`` (a checkout's root) at the
     smoke's shapes, and print them as one JSON line: the parent-and-change
@@ -495,10 +678,25 @@ def kernel_times(tree: str) -> int:
         device[name] = device_ms(fn, kernel, reps=reps)[0]
         times[name] = cuda_ms(fn, reps=reps)
     if (pathlib.Path(tree) / "gol_distributed_final_tpu_torch" / "ops" / "sparse_tiles.py").exists():
-        # the sparse kernel, in the trees that have it: one 8-turn block
-        # (with the dispatch's list pass) on 16384^2 with random words in
-        # about 5% of the default tiles
+        # the sparse kernel, in the trees that have it, by one yardstick for
+        # any design: the device span of a dispatch (its first sparse
+        # kernel's start to its last one's end, the gaps between launches
+        # included) over its blocks. One 8-turn block on 16384^2 with random
+        # words in about 5% of the default tiles, and a 64-block dispatch
+        # from the R-pentomino after 1000 turns at 16384^2 and 65536^2; the
+        # launches a dispatch makes come from the tree's own count
+        from gol_distributed_final_tpu_torch import bigboard
+        from gol_distributed_final_tpu_torch.models import CONWAY
         from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+
+        pattern = SPARSE_KERNELS
+
+        def sparse_launches(fn):
+            torch.cuda.synchronize()
+            sparse_tiles.reset_counts()
+            fn()
+            torch.cuda.synchronize()
+            return sparse_tiles.launches
 
         tile = sparse.sparse_tile_shape((512, 16384))
         chosen = torch.from_numpy(rng.random((512 // tile[0], 16384 // tile[1])) < 0.0057)
@@ -510,9 +708,38 @@ def kernel_times(tree: str) -> int:
         def block():
             return sparse_tiles.dispatch(soup, grid, 1, tile, 8, cap, 8, 12)
 
-        device["sparse_16384_5pct_block"] = device_ms(
-            block, "sparse_(?:list|step|scatter|dilate)_kernel", reps=20, per_call=4)[0] * 4
+        n = sparse_launches(block)
+        device["sparse_16384_5pct_block"] = device_ms(block, pattern, reps=20,
+                                                      per_call=n)[0] * n
         times["sparse_16384_5pct_block"] = cuda_ms(block, reps=20)
+        soup_clone = cuda_ms(lambda: soup.clone(), reps=20)
+        device["sparse_16384_5pct_block_span"] = device_span_ms(
+            block, pattern, n,
+            fallback=lambda: times["sparse_16384_5pct_block"] - soup_clone)[0]
+        for side in (16384, 65536):
+            plane = sparse.SparseBitPlane(CONWAY, device=dev)
+            st = plane.step_n(plane.from_packed(
+                bigboard.seed_packed(side, bigboard.r_pentomino(side))), 1000)
+            check(plane.alive_count(st) == 156, f"{side}^2 R-pentomino at turn 1000")
+            tile = sparse.sparse_tile_shape(tuple(st.packed.shape))
+            total = (st.packed.shape[0] // tile[0]) * (st.packed.shape[1] // tile[1])
+            cap = min(sparse._pow2_ceil(max(st.count, 8) * 4), sparse._pow2_ceil(total))
+
+            def dispatch64():
+                return sparse_tiles.dispatch(st.packed, st.grid, 64, tile, 8, cap, 8, 12)
+
+            check(dispatch64().blocks_done == 64, f"{side}^2: the timed dispatch stopped early")
+            n = sparse_launches(dispatch64)
+            key = f"sparse_{side}_rpent_block"
+            wall = cuda_ms(dispatch64, reps=5, warmup=1)
+            clone = cuda_ms(lambda: st.packed.clone(), reps=10)
+            device[f"{key}_span"] = device_span_ms(dispatch64, pattern, n,
+                                                   fallback=lambda: wall - clone)[0] / 64
+            device[key] = device_ms(dispatch64, pattern, reps=3, per_call=n)[0] * n / 64
+            times[f"sparse_{side}_rpent_dispatch64"] = wall
+            times[f"sparse_{side}_rpent_dispatch64_less_clone"] = wall - clone
+            times[f"sparse_{side}_launches_per_dispatch64"] = n
+            del plane, st
     if (pathlib.Path(tree) / "gol_distributed_final_tpu_torch" / "ops" / "strip_steps.py").exists():
         # the strip kernel, in the trees that have it: one 8-turn batch of a
         # 1024-row, 4096-wide strip with its bands
@@ -1023,6 +1250,58 @@ def main() -> int:
                       f"sparse plane {name} {side}^2 tile {tile} after n={n}: card "
                       f"{(a.count, a.steady)} cpu {(b.count, b.steady)}")
             sp_cases += 1
+    # long dispatches, one launch each: 64 blocks of 8 turns and 512 of one
+    # that stop midway, the R-pentomino outgrowing a capacity of 32 tiles
+    # and a soup settling into still lifes alone (seed 53's, at turn 320);
+    # a frontier past the CTAs the card holds at once (a 16384^2 soup with
+    # half the tiles active, capacity every tile), so that each CTA walks
+    # several tiles a block; and that dispatch 20 times, bitwise equal each
+    # time (a race between the kernel's phases would show as a difference)
+    def settling_soup(seed):
+        soup_rng = np.random.default_rng(seed)
+        board = np.zeros((128, 128), np.uint8)
+        board[50:66, 50:66] = np.where(soup_rng.random((16, 16)) < 0.4, 255, 0)
+        return board
+
+    long_runs = []
+    for label, board, tile, capacity, kind in (
+            ("R-pentomino 256^2", rpent(256, 256), (1, 16), 32, "overflow"),
+            ("soup 128^2 settling into still lifes", settling_soup(53), (1, 8), 64, "drain")):
+        packed = bitpack.pack(board, 0, dev)
+        for n_blocks, h_turns in ((64, 8), (512, 1)):
+            sparse_tiles.reset_counts()
+            err, run_ = sparse_case(f"{label}, {n_blocks} blocks of h={h_turns}", packed, tile,
+                                    h_turns, capacity, CONWAY, n_blocks=n_blocks)
+            check(sparse_tiles.launches == 1,
+                  f"a dispatch of {n_blocks} blocks made {sparse_tiles.launches} launches")
+            stopped = run_.overflow if kind == "overflow" else (run_.count == 0
+                                                                and not run_.overflow)
+            check(0 < run_.blocks_done < n_blocks and stopped,
+                  f"sparse {label}, {n_blocks} blocks: {run_[2:]}, want a midway {kind}")
+            long_runs.append(f"{label} {n_blocks} x h={h_turns}: {kind} after "
+                             f"{run_.blocks_done}")
+            sp_err, sp_cases = max(sp_err, err), sp_cases + 1
+            sp_overflows += run_.overflow
+    shape16 = bitpack.packed_shape(16384, 16384)
+    tile16 = sparse.sparse_tile_shape(shape16)
+    total16 = (shape16[0] // tile16[0]) * (shape16[1] // tile16[1])
+    packed = tile_soup(shape16, tile16, 0.5, seed=16385)
+    count = int(sparse.occupancy_grid(packed, *tile16).sum())
+    ctas16 = sparse_tiles.ctas(tile16, 8, total16, 8, 12)
+    check(count > 2 * ctas16, f"16384^2 soup: {count} active tiles on {ctas16} CTAs")
+    err, first = sparse_case(f"16384^2 {count}/{total16} active on {ctas16} CTAs", packed,
+                             tile16, 8, total16, CONWAY)
+    sp_err, sp_cases = max(sp_err, err), sp_cases + 1
+    grid16 = sparse.occupancy_grid(packed, *tile16)
+    for _ in range(19):
+        again = sparse_tiles.dispatch(packed, grid16, 3, tile16, 8, total16, 8, 12)
+        check(torch.equal(again.packed, first.packed) and torch.equal(again.grid, first.grid)
+              and again[2:] == first[2:], "a repeated sparse dispatch differs from the first")
+    print(f"phase 3 parity: sparse long dispatches, one launch each, equal the plain program: "
+          f"{'; '.join(long_runs)}; 16384^2 with {count} of {total16} tiles active on "
+          f"{ctas16} CTAs ({count / ctas16:.1f} tiles a CTA a block) equal, and 20 runs of it "
+          "bitwise equal")
+    del packed, grid16, first, again
     check(sp_overflows >= 3, f"only {sp_overflows} sparse dispatches overflowed")
     print(f"phase 3 parity: sparse kernel equals its plain program in {sp_cases} cases "
           f"(boards, grids, blocks done, overflow, active sums and counts; 4096^2 and 16384^2 "
@@ -2256,20 +2535,21 @@ def main() -> int:
           f"turns, {launches65 * t65_dev / 1e3:.4f} s of device time {card_tag}")
     del state65
 
-    # the activity-sparse kernel: one 8-turn block (a list pass at the
-    # dispatch's start, then a step, a scatter and a dilate launch a block)
-    # on the R-pentomino after 1000 turns at 16384^2 and 65536^2, events per
-    # block over a dispatch of 64 (the board's copy included) and the
-    # profiler's device time of the four kernels; the bound counts the
-    # active tiles' words at ops_per_word x 8 against the windows read, the
-    # tiles written and the grid read and written
-    sparse_kernels = "sparse_(?:list|step|scatter|dilate)_kernel"
+    # the activity-sparse kernel: a dispatch of 64 8-turn blocks, one
+    # cooperative launch, on the R-pentomino after 1000 turns at 16384^2
+    # and 65536^2: the device span per block (the launch's first sparse
+    # kernel's start to its last one's end, over the blocks), the sum of the
+    # traced kernels' durations, and events per block over the dispatch
+    # (the board's copy included); the bound counts the active tiles' words
+    # at ops_per_word x 8 against the windows read and the tiles written a
+    # block, and the grid read and written once a dispatch
+    sparse_kernels = SPARSE_KERNELS
 
-    def sparse_bound(tile, h_turns, tiles_per_block, grid_tiles):
+    def sparse_bound(tile, h_turns, tiles_per_block, grid_tiles, blocks):
         tr, tc = tile
         t_ops = tiles_per_block * tr * tc * opw * h_turns / int32_rate
         t_bytes = (tiles_per_block * ((tr + 2) * (tc + 2 * h_turns) + tr * tc) * 4
-                   + 2 * grid_tiles) / HBM_BYTES_PER_S
+                   + 2 * grid_tiles / blocks) / HBM_BYTES_PER_S
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
     def sparse_block_times(st, blocks=64):
@@ -2282,21 +2562,29 @@ def main() -> int:
 
         run_ = call()
         check(run_.blocks_done == blocks, f"the timed dispatch stopped at {run_.blocks_done}")
+        torch.cuda.synchronize()
+        sparse_tiles.reset_counts()
+        call()
+        check(sparse_tiles.launches == 1, f"a dispatch made {sparse_tiles.launches} launches")
         events_ms = cuda_ms(call, reps=5, warmup=1) / blocks
-        per_launch, traced = device_ms(call, sparse_kernels, reps=3, per_call=1 + 3 * blocks)
-        device = per_launch * (1 + 3 * blocks) / blocks
-        b_ms, b_by = sparse_bound(tile, 8, run_.active_sum / blocks, total)
-        return events_ms, device, b_ms, b_by, run_.active_sum / blocks, traced, tile, cap
+        launch_ms, _ = sparse_launch_ms(st, tile, 8, cap, blocks)
+        span, spans = device_span_ms(call, sparse_kernels, 1, fallback=lambda: float("nan"))
+        b_ms, b_by = sparse_bound(tile, 8, run_.active_sum / blocks, total, blocks)
+        ctas = sparse_tiles.ctas(tile, 8, cap, 8, 12)
+        return (events_ms, launch_ms / blocks, span / blocks, b_ms, b_by,
+                run_.active_sum / blocks, spans, tile, cap, ctas)
 
     sparse_times = {}
     for label, st in (("16384^2", sparse16), ("65536^2", sparse65)):
-        ev, dv, b_ms, b_by, per_block, traced, tile, cap = sparse_block_times(st)
+        ev, dv, traced, b_ms, b_by, per_block, spans, tile, cap, ctas = sparse_block_times(st)
         sparse_times[label] = (ev, dv, b_ms, b_by, tile, cap)
-        print(f"timing sparse {label} R-pentomino after 1000 turns: {dv:.4f} ms of device time "
-              f"per 8-turn block ({traced} launches traced; events {ev:.4f} ms per block over a "
-              f"dispatch of 64, the board's copy included), {per_block:.1f} active tiles of "
-              f"{tile[0]} x {tile[1]} words a block, bound {b_ms:.6f} ms ({b_by}), "
-              f"{dv / b_ms:.3g}x the bound {card_tag}")
+        print(f"timing sparse {label} R-pentomino after 1000 turns: {dv:.5f} ms per 8-turn block "
+              f"by events around the launch alone (one launch of 64 blocks on {ctas} CTAs, "
+              f"capacity {cap}); the profiler's device span {traced:.5f} ms a block (least of "
+              f"{spans} complete traces; nan: none held the launch); events {ev:.5f} ms per "
+              f"block over the wrapper's dispatch, the board's copy and the readback included; "
+              f"{per_block:.1f} active tiles of {tile[0]} x {tile[1]} words a block, bound "
+              f"{b_ms:.6f} ms ({b_by}), {dv / b_ms:.3g}x the bound {card_tag}")
     ev16, dv16, b16, by16, tile16, cap16 = sparse_times["16384^2"]
     sparse_plain_ms = cuda_ms(lambda: sparse_tiles.dispatch_plain(
         sparse16.packed, sparse16.grid, 8, tile16, 8, cap16, 8, 12), reps=1, warmup=1) / 8
@@ -2316,10 +2604,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.monotonic() - t0, out
 
-    # what a dispatch pays beside its blocks at 65536^2: the copy of the
-    # board it writes into (its input is never written), and the period-2
-    # probe's two one-turn dispatches and two whole-board comparisons, over
-    # the wall of the 65536^2 R-pentomino x 1000 on the sparse plane
+    # where the 65536^2 R-pentomino x 1000 on the sparse plane spends its
+    # wall: each dispatch's copy of the board it writes into (its input is
+    # never written), the sparse kernel (the traced launches' durations),
+    # each dispatch's readback of its counts, and the period-2 probe's
+    # whole-board comparisons (its two one-turn dispatches are dispatches
+    # like the others); the rest is host work
     real_dispatch, dispatched = sparse_tiles.dispatch, []
 
     def counting_dispatch(*args):
@@ -2327,23 +2617,48 @@ def main() -> int:
         return real_dispatch(*args)
 
     seed65 = bigboard.seed_packed(size65, bigboard.r_pentomino(size65))
+
+    def run65():
+        return plane65.step_n(plane65.from_packed(seed65), 1000)
+
     sparse_tiles.dispatch = counting_dispatch
     try:
-        wall65, _ = timed_wall(lambda: plane65.step_n(plane65.from_packed(seed65), 1000))
+        wall65, _ = timed_wall(run65)
     finally:
         sparse_tiles.dispatch = real_dispatch
+    run65()
+    # the sparse launches' durations, from a trace that holds all of them
+    kernel65 = None
+    for _ in range(8):
+        records = window_kernels(trace(run65), rf"::(?:{sparse_kernels})[<(]")
+        if len(records) == len(dispatched):
+            kernel65 = sum(us for _, us in records) / 1e3
+            break
     copy65 = cuda_ms(lambda: sparse65.packed.clone(), reps=10)
     twin65 = sparse65.packed.clone()
     equal65 = cuda_ms(lambda: torch.equal(sparse65.packed, twin65), reps=10)
+    counts65 = torch.zeros(65, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        counts65.cpu().tolist()
+    readback65 = (time.perf_counter() - t0) * 10  # ms each
     # a probe is two one-turn dispatches and at most two comparisons
     one_turn65 = dispatched.count(1)
-    overhead65 = len(dispatched) * copy65 + one_turn65 * equal65
+    parts65 = {"board copies": len(dispatched) * copy65, "sparse kernel": kernel65,
+               "readbacks": len(dispatched) * readback65,
+               "probe comparisons (at most)": one_turn65 * equal65}
+    if kernel65 is None:
+        print(f"  no trace of the 65536^2 run held its {len(dispatched)} sparse launches")
+        parts65["sparse kernel"] = 0.0
+    rest65 = wall65 * 1e3 - sum(parts65.values())
     print(f"timing sparse 65536^2 R-pentomino x 1000 on the plane: wall {wall65 * 1e3:.3f} ms, "
           f"{len(dispatched)} dispatches ({one_turn65} of one turn: the period-2 probe's and "
-          f"any tail); a dispatch's board copy {copy65:.4f} ms, a whole-board comparison "
-          f"{equal65:.4f} ms: copies {len(dispatched) * copy65:.3f} ms and at most "
-          f"{one_turn65 * equal65:.3f} ms of the probe's comparisons, "
-          f"{100 * overhead65 / (wall65 * 1e3):.1f}% of the wall {card_tag}")
+          f"any tail); a board copy {copy65:.4f} ms, a readback {readback65:.4f} ms, a "
+          f"whole-board comparison {equal65:.4f} ms: "
+          + ", ".join(f"{name} {ms:.3f} ms ({100 * ms / (wall65 * 1e3):.1f}%)"
+                      for name, ms in parts65.items())
+          + f", the rest (host) {rest65:.3f} ms {card_tag}")
     del seed65, twin65
 
     # sparse against dense: the R-pentomino x 1000 through each plane (wall
@@ -2381,7 +2696,7 @@ def main() -> int:
             def one_block():
                 return sparse_tiles.dispatch(packed, grid, 1, tile, 8, cap, 8, 12)
 
-            s_dev = device_ms(one_block, sparse_kernels, reps=5, per_call=4)[0] * 4
+            s_dev = device_ms(one_block, sparse_kernels, reps=5)[0]
             s_ev = cuda_ms(one_block, reps=5)
             d_dev = device_ms(lambda: tiled.step_n(packed, 8), "tiled_kernel", reps=5)[0]
             d_ev = cuda_ms(lambda: tiled.step_n(packed, 8), reps=5)
@@ -2728,10 +3043,10 @@ def main() -> int:
           "tiled ms = one 8-turn launch at 16384^2; batch_board ms = one counted "
           "launch of 100 turns over 1000 x 128^2 (CUDA events); byte_board ms = one "
           "launch of 100 turns at 64^2; byte_tiled ms = one 8-turn launch at 512^2; "
-          "sparse_tiles ms = one 8-turn block (step, scatter, dilate, and a 64th of the "
-          "dispatch's list pass) on the 16384^2 R-pentomino after 1000 turns, its plain_ms "
-          "the plain program's block on the card "
-          "(the profiler's device time); strip_steps ms = one 8-turn launch on a 1040x4096 "
+          "sparse_tiles ms = one 8-turn block, the time of a 64-block dispatch's one "
+          "cooperative launch by events around it over its blocks, on the 16384^2 "
+          "R-pentomino after 1000 turns, its plain_ms the plain program's block on the card; "
+          "strip_steps ms = one 8-turn launch on a 1040x4096 "
           "block with its bands, dirty grid and digest sums (20b's batch, device time); "
           "library_ms "
           "null: no single PyTorch call computes a life-like turn")
@@ -2749,4 +3064,8 @@ if __name__ == "__main__":
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
     if sys.argv[1:2] == ["--workers-times"]:
         sys.exit(workers_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
+    if sys.argv[1:2] == ["--sparse-sweep"]:
+        sys.exit(sparse_sweep(sys.argv[2] if len(sys.argv) > 2 else str(REPO / "build" / "sweep")))
+    if sys.argv[1:2] == ["--sparse-times"]:
+        sys.exit(sparse_times(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else sys.argv[2]))
     sys.exit(main())

@@ -6,9 +6,11 @@ It replaces the XLA program of the JAX package's activity-sparse plane,
 ``gol_distributed_final_tpu/ops/sparse.py:189`` (``_sparse_program``):
 one call is one dispatch of that program, at most ``n_blocks`` blocks of
 ``h`` turns, stopped early on an overflowing block (more active tiles
-than ``capacity``, which commits nothing) or an empty grid. What bounds
-the kernel on the card and how its design meets that is written at the
-top of the CUDA source.
+than ``capacity``, which commits nothing) or an empty grid. On the card a
+dispatch is one cooperative launch whose persistent CTAs keep the loop,
+its active list and its activity state on the card from the first block
+to the last; what bounds the kernel and how its design meets that is
+written at the top of the CUDA source.
 
 ``dispatch_plain`` is the plain version, a torch mirror of the XLA
 program: it gathers the active tiles' windows with ``torch.nonzero``
@@ -23,6 +25,8 @@ it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -34,9 +38,9 @@ from .bitpack import bit_step, rule_masks
 #: covers fewer than 32, the column halo is h words
 MAX_TURNS = 8
 
-#: kernel launches made by ``dispatch`` (1 + 3 per block of each call);
-#: ``plain_calls`` counts the calls that took the plain version (CPU
-#: tensors) instead
+#: kernel launches made by ``dispatch``: one per dispatch on the card, the
+#: cooperative launch that runs all its blocks; ``plain_calls`` counts the
+#: calls that took the plain version (CPU tensors) instead
 launches = 0
 plain_calls = 0
 
@@ -45,14 +49,31 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
     ],
+    "gol_sparse_ctas": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.POINTER(ctypes.c_int),
+    ],
+    "gol_sparse_workspace_bytes": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong),
+    ],
     "gol_sparse_dispatch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
     ],
 }
+
+#: the kernel's workspaces (scratch, change records, stamps, lists), one per
+#: (device, stream, board shape, tile, capacity), the most recent few kept.
+#: The stream is in the key because a dispatch uses its workspace until its
+#: launch ends: two streams would race on one, while launches on one stream
+#: run in order. Nothing a dispatch returns lives in a workspace.
+_WORKSPACES: OrderedDict = OrderedDict()
+_WORKSPACES_KEPT = 4
+_WORKSPACE_LOCK = threading.Lock()
 
 
 class Dispatch(NamedTuple):
@@ -143,13 +164,24 @@ def dispatch_plain(packed, grid, n_blocks, tile, h, capacity, birth_mask, surviv
 
 
 def plan(tile, h) -> tuple[int, int]:
-    """``(shared memory bytes, threads)`` of the kernel's step CTA for a
-    tile and h (what csrc/sparse_tiles.cu's make_plan gives)."""
+    """``(shared memory bytes, threads)`` of the kernel's CTA for a tile
+    and h (what csrc/sparse_tiles.cu's make_plans gives)."""
     smem, threads = ctypes.c_longlong(), ctypes.c_int()
     lib = _build.load("sparse_tiles", _SIGNATURES)
     _build.check(lib.gol_sparse_plan(tile[0], tile[1], h, ctypes.byref(smem),
                                      ctypes.byref(threads)), "gol_sparse_plan")
     return smem.value, threads.value
+
+
+def ctas(tile, h, capacity, birth_mask, survive_mask) -> int:
+    """The CTAs a dispatch of this tile, h, capacity and rule launches on
+    the current card (csrc/sparse_tiles.cu's resident_ctas)."""
+    out = ctypes.c_int()
+    lib = _build.load("sparse_tiles", _SIGNATURES)
+    _build.check(lib.gol_sparse_ctas(tile[0], tile[1], h, capacity,
+                                     *rule_masks(birth_mask, survive_mask), ctypes.byref(out)),
+                 "gol_sparse_ctas")
+    return out.value
 
 
 def dispatch(
@@ -199,23 +231,46 @@ def dispatch(
         )
     common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
     lib = _build.load("sparse_tiles", _SIGNATURES)
-    board = packed.clone()
-    out_grid = grid.clone().contiguous()
     dev = packed.device
-    counts = torch.zeros(n_blocks + 1, dtype=torch.int32, device=dev)
-    changed = torch.zeros(out_grid.numel(), dtype=torch.uint8, device=dev)
-    tiles = torch.empty(capacity, dtype=torch.int32, device=dev)
-    scratch = torch.empty(capacity * tr * tc, dtype=torch.int32, device=dev)
     guard, stream = _tiles.on_device(packed)
+    workspace = _workspace(lib, dev, stream, rows, cols, tile, capacity)
+    # the returned tensors are the dispatch's own: the board copy the
+    # kernel writes in place, and the grid it writes every byte of
+    board = packed.clone()
+    out_grid = torch.empty(grid.shape, dtype=torch.bool, device=dev)
+    # the host reads the counts after the launch, so they are the
+    # dispatch's own too: another thread may launch on the same stream
+    # before this one reads them
+    counts = torch.empty(n_blocks + 1, dtype=torch.int32, device=dev)
+    in_grid = grid.contiguous()
     with guard:
         err = lib.gol_sparse_dispatch(
-            board.data_ptr(), out_grid.data_ptr(), changed.data_ptr(), tiles.data_ptr(),
-            scratch.data_ptr(), counts.data_ptr(), rows, cols, tr, tc, h, capacity,
-            n_blocks, common, dead_only, live_only, stream,
+            board.data_ptr(), in_grid.data_ptr(), out_grid.data_ptr(), counts.data_ptr(),
+            workspace.data_ptr(), rows, cols, tr, tc, h, capacity, n_blocks,
+            common, dead_only, live_only, stream,
         )
-    _build.check(err, "sparse kernel launch")
-    launches += 1 + 3 * n_blocks
+    _build.check(err, "sparse kernel cooperative launch")
+    launches += 1
     return _read_counts(board, out_grid, counts.cpu().tolist(), n_blocks, capacity)
+
+
+def _workspace(lib, dev, stream, rows, cols, tile, capacity) -> torch.Tensor:
+    """The cached workspace of a dispatch (see ``_WORKSPACES``)."""
+    key = (dev, stream, rows, cols, tuple(tile), capacity)
+    with _WORKSPACE_LOCK:
+        ws = _WORKSPACES.get(key)
+        if ws is not None:
+            _WORKSPACES.move_to_end(key)
+            return ws
+        size = ctypes.c_longlong()
+        _build.check(lib.gol_sparse_workspace_bytes(rows, cols, tile[0], tile[1], capacity,
+                                                    ctypes.byref(size)),
+                     "gol_sparse_workspace_bytes")
+        ws = torch.empty(size.value, dtype=torch.uint8, device=dev)
+        _WORKSPACES[key] = ws
+        while len(_WORKSPACES) > _WORKSPACES_KEPT:
+            _WORKSPACES.popitem(last=False)
+        return ws
 
 
 def _read_counts(board, grid, counts, n_blocks, capacity) -> Dispatch:

@@ -57,7 +57,8 @@ def _traced_kernels(fn, needles):
             torch.cuda.synchronize()
         events = prof.events()
         calls = [ev.time_range.start for ev in events
-                 if ev.device_type == DeviceType.CPU and ev.name.startswith("cudaLaunchKernel")]
+                 if ev.device_type == DeviceType.CPU
+                 and ev.name.startswith(("cudaLaunchKernel", "cudaLaunchCooperativeKernel"))]
         names |= {ev.name for ev in events
                   if ev.device_type == DeviceType.CUDA and calls
                   and ev.time_range.start >= min(calls)
@@ -763,6 +764,197 @@ def test_sparse_plane_on_the_card_equals_the_cpu(cuda_device):
         a, b = card.step_n(a, n), cpu.step_n(b, n)
         assert np.array_equal(card.decode(a), cpu.decode(b)), n
         assert (a.count, a.steady) == (b.count, b.steady), n
+
+
+def _settling_soup(seed):
+    """A 16 x 16 soup at 40% on a 128^2 torus; seed 53's settles into still
+    lifes alone at turn 320 (no oscillator keeps a tile active)."""
+    rng = np.random.default_rng(seed)
+    board = np.zeros((128, 128), np.uint8)
+    board[50:66, 50:66] = np.where(rng.random((16, 16)) < 0.4, 255, 0)
+    return board
+
+
+def _r_pentomino_board(h, w):
+    board = np.zeros((h, w), np.uint8)
+    for dx, dy in ((1, 0), (2, 0), (0, 1), (1, 1), (1, 2)):
+        board[h // 2 + dy, w // 2 + dx] = 255
+    return board
+
+
+def _sparse_against_plain(st, n_blocks, tile, h, capacity, rule=life.CONWAY):
+    """One dispatch on the card against the plain program on the CPU, every
+    field equal; the card's result."""
+    from gol_distributed_final_tpu_torch.ops import sparse_tiles
+
+    masks = (rule.birth_mask, rule.survive_mask)
+    got = sparse_tiles.dispatch(st.packed, st.grid, n_blocks, tile, h, capacity, *masks)
+    want = sparse_tiles.dispatch_plain(st.packed.cpu(), st.grid.cpu(), n_blocks, tile, h,
+                                       capacity, *masks)
+    torch.cuda.synchronize()
+    assert (got.blocks_done, got.overflow, got.active_sum, got.count) == (
+        want.blocks_done, want.overflow, want.active_sum, want.count)
+    assert torch.equal(got.packed.cpu(), want.packed)
+    assert torch.equal(got.grid.cpu(), want.grid)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks,h", [(64, 8), (512, 1)])
+@pytest.mark.parametrize("kind", ["overflow", "drain"])
+def test_sparse_long_dispatch_matches_plain(cuda_device, n_blocks, h, kind):
+    """One launch of 64 or 512 blocks that stops midway: the R-pentomino
+    outgrowing a capacity of 32 tiles, or a soup draining to still lifes."""
+    from gol_distributed_final_tpu_torch.ops import sparse
+
+    if kind == "overflow":
+        board, tile, capacity = _r_pentomino_board(256, 256), (1, 16), 32
+    else:
+        board, tile, capacity = _settling_soup(53), (1, 8), 64
+    st = sparse.SparseBitPlane(life.CONWAY, tile=tile, device=cuda_device).encode(board)
+    got = _sparse_against_plain(st, n_blocks, tile, h, capacity)
+    assert 0 < got.blocks_done < n_blocks
+    assert got.overflow if kind == "overflow" else (got.count == 0 and not got.overflow)
+
+
+def _tile_soup(shape, tile, frac, seed, device):
+    """Random words in random tiles, about ``frac`` of the tiles active once
+    the occupancy grid is dilated (1 - (1 - q)^9 = frac)."""
+    rng = np.random.default_rng(seed)
+    tr, tc = tile
+    grid_shape = (shape[0] // tr, shape[1] // tc)
+    q = 1 - (1 - frac) ** (1 / 9)
+    chosen = rng.random(grid_shape) < q
+    mask = np.repeat(np.repeat(chosen, tr, 0), tc, 1)
+    words = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(np.where(mask, words, 0).astype(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [0.05, 0.5])
+def test_sparse_frontier_past_the_resident_grid(cuda_device, frac):
+    """16384^2 soups with 5% and 50% of the default tiles active and a
+    capacity of every tile (8192): at 50% the frontier is past the CTAs the
+    card holds at once, so each CTA walks several tiles a block."""
+    from gol_distributed_final_tpu_torch.ops import bitpack, sparse, sparse_tiles
+
+    shape = bitpack.packed_shape(16384, 16384)
+    tile = sparse.sparse_tile_shape(shape)
+    packed = _tile_soup(shape, tile, frac, 16384 + int(100 * frac), cuda_device)
+    st = sparse.SparseBitPlane(life.CONWAY, device=cuda_device).from_packed(packed)
+    capacity = (shape[0] // tile[0]) * (shape[1] // tile[1])
+    ctas = sparse_tiles.ctas(tile, 8, capacity, life.CONWAY.birth_mask,
+                             life.CONWAY.survive_mask)
+    assert 0 < ctas
+    if frac == 0.5:
+        assert st.count > 2 * ctas, (st.count, ctas)
+    got = _sparse_against_plain(st, 3, tile, 8, capacity)
+    assert got.blocks_done == 3
+
+
+@pytest.mark.cuda
+def test_sparse_dispatch_repeats_bitwise(cuda_device):
+    """The same dispatch 20 times, with lists whose order the atomics vary:
+    every result bitwise equal to the first, and the first to the plain
+    program's. A race between the phases would show as a difference."""
+    from gol_distributed_final_tpu_torch.ops import bitpack, sparse, sparse_tiles
+
+    shape = bitpack.packed_shape(4096, 4096)
+    tile = sparse.sparse_tile_shape(shape)
+    st = sparse.SparseBitPlane(life.CONWAY, device=cuda_device).from_packed(
+        _tile_soup(shape, tile, 0.2, 20, cuda_device))
+    capacity = sparse._pow2_ceil(st.count * 4)
+    first = _sparse_against_plain(st, 16, tile, 8, capacity)
+    for _ in range(19):
+        again = sparse_tiles.dispatch(st.packed, st.grid, 16, tile, 8, capacity, 8, 12)
+        assert torch.equal(again.packed, first.packed) and torch.equal(again.grid, first.grid)
+        assert again[2:] == first[2:]
+
+
+@pytest.mark.cuda
+def test_sparse_held_result_survives_later_dispatches(cuda_device):
+    """A dispatch's board and grid are its own: later dispatches of the
+    same geometry, which share the cached workspace, leave them as they
+    were (the period-2 probe holds two results across dispatches)."""
+    from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+
+    st = sparse.SparseBitPlane(life.CONWAY, tile=(1, 16), device=cuda_device).encode(
+        _r_pentomino_board(256, 256))
+    held = sparse_tiles.dispatch(st.packed, st.grid, 5, (1, 16), 8, 64, 8, 12)
+    kept = (held.packed.clone(), held.grid.clone())
+    nxt = sparse_tiles.dispatch(held.packed, held.grid, 5, (1, 16), 8, 64, 8, 12)
+    again = sparse_tiles.dispatch(st.packed, st.grid, 1, (1, 16), 8, 64, 8, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(held.packed, kept[0]) and torch.equal(held.grid, kept[1])
+    assert not torch.equal(nxt.packed, held.packed) and again.blocks_done == 1
+
+
+_ONE_LAUNCH_TRACE = """
+import json, sys
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from gol_distributed_final_tpu_torch.models import CONWAY
+from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+
+board = np.zeros((256, 256), np.uint8)
+for dx, dy in ((1, 0), (2, 0), (0, 1), (1, 1), (1, 2)):
+    board[128 + dy, 128 + dx] = 255
+st = sparse.SparseBitPlane(CONWAY, tile=(1, 16), device="cuda").encode(board)
+
+def call():
+    return sparse_tiles.dispatch(st.packed, st.grid, 64, (1, 16), 8, 128, 8, 12)
+
+call()
+activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+windows = []
+for _ in range(16):
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        call()
+        call()
+        torch.cuda.synchronize()
+    with profile(activities=activities):
+        torch.cuda.synchronize()
+    events = prof.events()
+    starts = [ev.time_range.start for ev in events if ev.device_type == DeviceType.CPU
+              and ev.name.startswith(("cudaLaunchKernel", "cudaLaunchCooperativeKernel"))]
+    windows.append([ev.name for ev in events if ev.device_type == DeviceType.CUDA and starts
+                    and ev.time_range.start >= min(starts) and "sparse_" in ev.name])
+    if len(windows[-1]) == 2:
+        break
+print(json.dumps(windows))
+"""
+
+
+@pytest.mark.cuda
+def test_sparse_dispatch_is_one_launch(cuda_device):
+    """A dispatch of 64 blocks is one launch of the sparse kernel: one in
+    ``sparse_tiles.launches``, and in the profiler's trace of two dispatches
+    two launches of it and no other sparse kernel. The profiler loses
+    records, or delivers them in a later window, more often the longer a
+    process has traced (see _traced_kernels), so the trace is taken in a
+    fresh process: windows of two dispatches, each followed by an empty
+    one that takes what comes late, until one holds two launches."""
+    import json
+    import subprocess
+    import sys
+
+    from gol_distributed_final_tpu_torch.ops import sparse, sparse_tiles
+
+    st = sparse.SparseBitPlane(life.CONWAY, tile=(1, 16), device=cuda_device).encode(
+        _r_pentomino_board(256, 256))
+    assert sparse_tiles.dispatch(st.packed, st.grid, 64, (1, 16), 8, 128, 8, 12).blocks_done == 64
+    sparse_tiles.reset_counts()
+    sparse_tiles.dispatch(st.packed, st.grid, 64, (1, 16), 8, 128, 8, 12)
+    assert sparse_tiles.launches == 1 and sparse_tiles.plain_calls == 0
+    out = subprocess.run([sys.executable, "-c", _ONE_LAUNCH_TRACE], cwd=REPO_ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    windows = json.loads(out.stdout.strip().splitlines()[-1])
+    assert all(len(names) <= 2 and all("sparse_blocks_kernel" in name for name in names)
+               for names in windows), windows
+    assert len(windows[-1]) == 2, [len(names) for names in windows]
 
 
 # -- the resident worker's strip kernel (W) ----------------------------------
