@@ -33,7 +33,13 @@ brokers started through their CLIs serving ``-server`` sessions on the
 resident, haloed and 2-D tile wires; a 4096^2 soup x 1000 turns through
 ``WorkersBackend`` over four in-process workers whose strips stay on the
 card, every strip batch on the strip kernel, held against
-``DeviceBackend``), and
+``DeviceBackend``), drives the multi-device planes on one card (a (2, 4)
+mesh of eight shards on cuda:0: the 16384^2 R-pentomino through
+``Engine.run`` on ``ShardedBitPlane`` at halo depths 1 and 8, each block
+on the tiled kernel, held against the single-board run; a 4096^2 soup at
+depths 1, 3 and 8; the byte mesh plane's 512^2 sessions) and the pod (its
+CLI in a child process that joined a one-rank NCCL group, the 16384^2
+R-pentomino, stopped at turn 500 and resumed), and
 times the kernels with CUDA events and the profiler's device time,
 sparse against dense included, and the workers' fused strip batch against
 their numpy loop (the table that sets ``FUSED_STRIP_MIN_CELLS``). The kernels compile the
@@ -61,6 +67,21 @@ build/sweep), the tile whole or in parts, 224 or 480 threads, grids of
 48 to 264 CTAs, an OR barrier every turn, and prints for each one JSON
 line of its time a block by CUDA events around its launch.
 
+    python3 chip_smoke.py --sparse-dense
+
+runs the sparse plane against the dense one at 4096^2 and 8192^2 (the
+R-pentomino x 1000, and 5% and 25% tile soups x 64 and x 1000, seven
+times each in turns) and prints every wall and the median ratio, the
+measurement behind ``SPARSE_MIN_CELLS`` (the main run's table, repeated).
+
+    python3 chip_smoke.py --pod-layouts
+
+runs the pod CLI on every card of a host of two or more (an even number):
+the 16384^2 R-pentomino x 1000 from one process over every card, from two
+ranks of half the cards each, and from one rank a card, each held against
+the single card's tiled kernel, and the two-rank layout stopped at turn
+500 and resumed; a line a run with its wall.
+
     python3 chip_smoke.py --workers-times [TREE]
 
 runs phase 20b's workers run alone (a seeded 4096^2 soup x 1000 turns
@@ -74,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import filecmp
 import gc
 import io
 import inspect
@@ -82,6 +104,7 @@ import os
 import pathlib
 import queue
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -162,6 +185,16 @@ def window_records(prof, pattern: str) -> list[tuple[str, float, float]]:
     return [(ev.name, ev.time_range.start, ev.time_range.end) for ev in events
             if ev.device_type == DeviceType.CUDA and ev.time_range.start >= first
             and re.search(pattern, ev.name)]
+
+
+def launch_calls(prof) -> int:
+    """The calls in a trace that each leave one device record: kernel
+    launches, asynchronous copies and sets."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for ev in prof.events() if ev.device_type == DeviceType.CPU
+               and ev.name.startswith(("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                                       "cudaMemcpyAsync", "cudaMemsetAsync")))
 
 
 def window_kernels(prof, pattern: str) -> list[tuple[str, float]]:
@@ -289,6 +322,72 @@ class Proc:
         if self.proc.poll() is None:
             self.proc.kill()
         self.proc.wait(timeout=60)
+
+
+_POD_CHILD = """
+import json, runpy, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+init_method, runs, ck_path = sys.argv[1:4]
+dist.init_process_group("nccl", init_method=init_method, world_size=1, rank=0)
+torch.cuda.set_device(0)
+from gol_distributed_final_tpu_torch.ops import tiled
+for args in json.loads(runs):
+    sys.argv = ["gol_distributed_final_tpu_torch.pod"] + args
+    try:
+        runpy.run_module("gol_distributed_final_tpu_torch.pod", run_name="__main__")
+    except SystemExit as exc:
+        if exc.code:
+            raise
+launched = (tiled.launches, tiled.plain_calls)
+
+# the collectives a pod of several ranks adds, through NCCL on this one:
+# the broadcast and barrier of the gates, the all-gather of counts and
+# votes, the sharded checkpoint's vote and its load
+from gol_distributed_final_tpu_torch.bigboard import r_pentomino, seed_packed
+from gol_distributed_final_tpu_torch.engine.checkpoint import (
+    load_packed_checkpoint_sharded, try_write_checkpoint_sharded)
+from gol_distributed_final_tpu_torch.models import CONWAY
+from gol_distributed_final_tpu_torch.parallel import multihost
+from gol_distributed_final_tpu_torch.parallel.bit_halo import ShardedBitPlane, packed_sharding
+from gol_distributed_final_tpu_torch.parallel.mesh import ShardedBoard, make_mesh
+
+assert dist.get_backend() == "nccl" and multihost.process_count() == 1
+assert multihost.broadcast_int(7) == 7
+multihost.barrier()
+assert multihost.allgather(np.array([3, 4], np.int64)).tolist() == [[3, 4]]
+mesh = make_mesh((2, 4), devices=[torch.device("cuda", 0)] * 8)
+state = ShardedBoard.from_global(mesh, seed_packed(1024, r_pentomino(1024), device="cuda"))
+assert try_write_checkpoint_sharded(ck_path, 3, CONWAY, ShardedBitPlane(mesh), state) is None
+back, turn, rule, axis = load_packed_checkpoint_sharded(ck_path, packed_sharding(mesh))
+assert turn == 3 and torch.equal(back.gather(), state.gather())
+print("NCCL collectives ok")
+print(f"POD_LAUNCHES tiled={launched[0]} plain={launched[1]}", flush=True)
+dist.destroy_process_group()
+"""
+
+
+def pod_child(runs: list) -> str:
+    """Run the pod CLI once for each argument list of ``runs``, in one
+    child process of this checkout that has joined a one-rank NCCL group
+    (``tcp://127.0.0.1:<free port>``, world size 1), then its collectives
+    on their own; returns the child's output, which ends with its tiled
+    launch count."""
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    ck = REPO / "out" / "chip_smoke" / f"nccl_ck_{port}.npz"
+    proc = subprocess.run(
+        [sys.executable, "-c", _POD_CHILD, f"tcp://127.0.0.1:{port}", json.dumps(runs), str(ck)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=900,
+    )
+    check(proc.returncode == 0, f"pod child failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    for leftover in ck.parent.glob(ck.stem + "*"):
+        leftover.unlink()
+    return proc.stdout
 
 
 def kernel_label(mangled: str) -> str:
@@ -610,6 +709,227 @@ def sparse_times(tree: str, name: str) -> int:
 SPARSE_KERNELS = "sparse_(?:blocks|list|step|scatter|dilate)_kernel"
 
 
+def timed_wall(fn):
+    """``(seconds, fn())``: the wall of one call, synchronised both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0, out
+
+
+def device_total_ms(fn) -> float:
+    """All kernels' device time in a trace of one ``fn()``, the fullest of
+    three traces (a trace may lose records, see ``trace``)."""
+    fn()
+    return max(sum(us for _, us in window_kernels(trace(fn), r".")) for _ in range(3)) / 1e3
+
+
+def make_tile_soup(shape, tile, frac, seed, dev):
+    """Random words in round(q x tiles) random tiles of ``tile`` words (at
+    least one), q drawn so that about ``frac`` of the tiles are active once
+    the occupancy grid is dilated (1 - (1 - q)^9 = frac); made on ``dev``."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tr, tc = tile
+    grid_shape = (shape[0] // tr, shape[1] // tc)
+    tiles = grid_shape[0] * grid_shape[1]
+    q = 1 - (1 - frac) ** (1 / 9)
+    chosen = torch.zeros(tiles, dtype=torch.bool, device=dev)
+    chosen[torch.randperm(tiles, device=dev, generator=gen)[:max(1, round(q * tiles))]] = True
+    mask = chosen.view(grid_shape).repeat_interleave(tr, 0).repeat_interleave(tc, 1)
+    words = torch.randint(-2**31, 2**31, shape, dtype=torch.int64, device=dev,
+                          generator=gen).to(torch.int32)
+    return torch.where(mask, words, torch.zeros_like(words))
+
+
+def sparse_against_dense(dev, card_tag: str, sides, reps: int = 1, soups=(),
+                         device_time: bool = False) -> dict:
+    """The sparse plane against the dense one, the table behind
+    SPARSE_MIN_CELLS (ops/sparse.py): at each side, the R-pentomino x 1000
+    and each ``(fraction, turns)`` of ``soups`` (``make_tile_soup``)
+    through ``SparseBitPlane`` (``from_packed`` included) and ``BitPlane``
+    (the tiled kernel), their boards held equal after a warm-up; then the
+    walls with a synchronise, the two planes in turns (sparse first on even
+    repetitions), ``reps`` times each, and with ``device_time`` every
+    kernel's device time in a trace of each. A line per case; returns
+    ``{case: walls, the median dense/sparse wall ratio (>= 1: the sparse
+    plane holds)}``."""
+    import statistics
+
+    import torch
+
+    from gol_distributed_final_tpu_torch import bigboard
+    from gol_distributed_final_tpu_torch.models import CONWAY
+    from gol_distributed_final_tpu_torch.ops import bitpack, sparse
+    from gol_distributed_final_tpu_torch.ops.plane import BitPlane
+    from gol_distributed_final_tpu_torch.ops.sparse import SparseBitPlane
+
+    rows = {}
+    for side in sides:
+        shape = bitpack.packed_shape(side, side)
+        cases = [("R-pentomino", 1000, None)] + [(f"{frac:.0%} tile soup", turns, frac)
+                                                   for frac, turns in soups]
+        for pattern, turns, frac in cases:
+            if frac is None:
+                seed = bigboard.seed_packed(side, bigboard.r_pentomino(side), device=dev)
+            else:
+                seed = make_tile_soup(shape, sparse.sparse_tile_shape(shape), frac,
+                                      side + int(frac * 1000), dev)
+            sp, bp = SparseBitPlane(CONWAY, device=dev), BitPlane(CONWAY, 0, dev)
+
+            def sparse_run():
+                return sp.step_n(sp.from_packed(seed), turns).packed
+
+            def dense_run():
+                return bp.step_n(seed, turns)
+
+            check(torch.equal(sparse_run(), dense_run()),
+                  f"{side}^2 {pattern} x {turns}: the sparse and dense boards differ")
+            walls = {"sparse": [], "dense": []}
+            for rep in range(reps):
+                order = (("sparse", sparse_run), ("dense", dense_run))
+                for name, fn in (order if rep % 2 == 0 else order[::-1]):
+                    walls[name].append(timed_wall(fn)[0])
+            ratio = statistics.median(d / s for s, d in zip(walls["sparse"], walls["dense"]))
+            row = {"sparse_s": walls["sparse"], "dense_s": walls["dense"],
+                   "median_dense_over_sparse": ratio}
+            dev_ms = {}
+            if device_time:
+                dev_ms = {"sparse": device_total_ms(sparse_run),
+                          "dense": device_total_ms(dense_run)}
+                row.update(sparse_device_ms=dev_ms["sparse"], dense_device_ms=dev_ms["dense"])
+            rows[f"{side}^2 {pattern} x {turns}"] = row
+            print(f"  {side}^2 {pattern} x {turns}: "
+                  + ", ".join(f"{name} {', '.join(f'{w:.4f}' for w in walls[name])} s"
+                              + (f" / {dev_ms[name]:.3f} ms" if dev_ms else "")
+                              for name in ("sparse", "dense"))
+                  + f"; median dense/sparse {ratio:.3f} {card_tag}")
+            del seed
+    return rows
+
+
+def sparse_dense(reps: int = 7) -> int:
+    """``--sparse-dense``: ``sparse_against_dense`` at 4096^2 and 8192^2,
+    the R-pentomino x 1000 and 5% and 25% tile soups x 64 and x 1000,
+    ``reps`` times each; one JSON line with every wall and ratio."""
+    import torch
+
+    from gol_distributed_final_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    _build.build()
+    card = nvidia_smi("name,power.limit")
+    print("sparse against dense (wall s):")
+    rows = sparse_against_dense(torch.device("cuda"), f"[{card}]", (4096, 8192), reps,
+                                soups=((0.05, 64), (0.25, 64), (0.05, 1000), (0.25, 1000)))
+    print(json.dumps({"sparse_dense": rows, "card": card}))
+    return 0
+
+
+def pod_layouts(size: int = 16384, turns: int = 1000) -> int:
+    """``--pod-layouts``: the pod CLI on every card of one host (an even
+    number, at least two), the R-pentomino at ``size`` x ``turns``, in the
+    three layouts a host of several cards can take: one process over every
+    card (a (1, n) mesh: halos copied between cards in the process), two
+    ranks of n/2 cards each (CUDA_VISIBLE_DEVICES; a (2, n/2) mesh: each
+    row halo an NCCL message staged from several cards of a rank), and n
+    ranks of one card each (-device cuda:r; an (n, 1) mesh). Each prints
+    ``alive 156`` and its PGM, read back packed, equals the single card's
+    tiled step_n; the two-rank layout also stops at half the turns with
+    -ck -ck-every and resumes with -resume to the same PGM. One line a run
+    with its wall (the processes' start included) and one JSON line."""
+    import torch
+
+    from gol_distributed_final_tpu_torch import bigboard
+    from gol_distributed_final_tpu_torch.ops import _build, tiled
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    cards = torch.cuda.device_count()
+    check(cards >= 2 and cards % 2 == 0,
+          f"--pod-layouts needs an even number of cards, at least two; this host has {cards}")
+    _build.build(("tiled",))
+    card = nvidia_smi("name,power.limit")
+    want = tiled.step_n(bigboard.seed_packed(size, bigboard.r_pentomino(size)), turns)
+    halves = [",".join(map(str, range(h * cards // 2, (h + 1) * cards // 2))) for h in (0, 1)]
+    layouts = {
+        "one": (f"one process over {cards} cards, a (1, {cards}) mesh", [({}, "cuda")]),
+        "two": (f"two ranks of {cards // 2} cards, a (2, {cards // 2}) mesh",
+                [({"CUDA_VISIBLE_DEVICES": v}, "cuda") for v in halves]),
+        "each": (f"{cards} ranks of one card, a ({cards}, 1) mesh",
+                 [({}, f"cuda:{r}") for r in range(cards)]),
+    }
+    base = REPO / "out" / "chip_smoke" / "pod_layouts"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+
+    def pod(ranks, tag, flags):
+        """The pod CLI once, a process per rank with its environment and
+        -device; every process is stopped on the way out. Returns the
+        wall and rank 0's output."""
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        procs, logs = [], [base / f"{tag}.{r}.log" for r in range(len(ranks))]
+        t0 = time.monotonic()
+        try:
+            for r, (env, device) in enumerate(ranks):
+                group = [] if len(ranks) == 1 else [
+                    "-coordinator", f"127.0.0.1:{port}", "-num-processes", str(len(ranks)),
+                    "-process-id", str(r)]
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "gol_distributed_final_tpu_torch.pod",
+                         "-size", str(size), *flags, *group, "-device", device],
+                        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), **env),
+                        stdin=subprocess.DEVNULL, stdout=log, stderr=subprocess.STDOUT))
+            codes = [proc.wait(timeout=600) for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.monotonic() - t0
+        outs = [log.read_text() for log in logs]
+        check(codes == [0] * len(ranks),
+              f"pod {tag}: exit codes {codes}\n" + "\n".join(o[-3000:] for o in outs))
+        return wall, outs[0]
+
+    rows = {}
+    pgm = f"{size}x{size}x{turns}.pgm"
+    for tag, (label, ranks) in layouts.items():
+        wall, out = pod(ranks, tag, ["-turns", str(turns), "-out", str(base / tag)])
+        check("alive 156\n" in out, f"pod {label}: rank 0 printed {out[-2000:]}")
+        check(torch.equal(bigboard.load_packed_from_pgm(base / tag / pgm), want),
+              f"pod {label}: its PGM differs from the single card's tiled step_n")
+        rows[label] = wall
+        print(f"pod {label}: {size}^2 R-pentomino x {turns}: alive 156, the PGM equal to the "
+              f"single card's tiled step_n; wall {wall:.3f} s [{card}]")
+    label, ranks = layouts["two"]
+    ck = base / "ck" / "podck.npz"
+    stop, _ = pod(ranks, "stop", ["-turns", str(turns // 2), "-out", str(base / "stop"),
+                                  "-ck", str(ck), "-ck-every", str(turns // 2)])
+    resumed, out = pod(ranks, "resumed", ["-turns", str(turns), "-out", str(base / "resumed"),
+                                          "-ck", str(ck), "-resume"])
+    check("alive 156\n" in out, f"pod {label}, resumed: rank 0 printed {out[-2000:]}")
+    check(filecmp.cmp(base / "two" / pgm, base / "resumed" / pgm, shallow=False),
+          f"pod {label}: resumed from turn {turns // 2}, its PGM differs")
+    rows[f"{label}: stopped at {turns // 2}, resumed"] = [stop, resumed]
+    print(f"pod {label}: stopped at turn {turns // 2} (-ck -ck-every {turns // 2}, wall "
+          f"{stop:.3f} s) and resumed with -resume ({resumed:.3f} s): the same PGM [{card}]")
+    shutil.rmtree(base)
+    print(json.dumps({"pod_layouts": rows, "cards": cards, "card": card}))
+    return 0
+
+
 def kernel_times(tree: str) -> int:
     """Time the kernels of the port in ``tree`` (a checkout's root) at the
     smoke's shapes, and print them as one JSON line: the parent-and-change
@@ -861,24 +1181,6 @@ def main() -> int:
         return torch.from_numpy(
             rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
         ).to(dev)
-
-    def tile_soup(shape, tile, frac, seed):
-        """Random words in round(q x tiles) random tiles of ``tile`` words
-        (at least one), q drawn so that about ``frac`` of the tiles are
-        active once the occupancy grid is dilated (1 - (1 - q)^9 = frac);
-        made on the card."""
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        tr, tc = tile
-        grid_shape = (shape[0] // tr, shape[1] // tc)
-        tiles = grid_shape[0] * grid_shape[1]
-        q = 1 - (1 - frac) ** (1 / 9)
-        chosen = torch.zeros(tiles, dtype=torch.bool, device=dev)
-        chosen[torch.randperm(tiles, device=dev, generator=gen)[:max(1, round(q * tiles))]] = True
-        mask = chosen.view(grid_shape).repeat_interleave(tr, 0).repeat_interleave(tc, 1)
-        words = torch.randint(-2**31, 2**31, shape, dtype=torch.int64, device=dev,
-                              generator=gen).to(torch.int32)
-        return torch.where(mask, words, torch.zeros_like(words))
 
     rules = (CONWAY, HIGHLIFE, SEEDS, DAY_AND_NIGHT)
     # the bitboard kernels compile those four in; any other rule runs their
@@ -1149,7 +1451,7 @@ def main() -> int:
         tile = sparse.sparse_tile_shape(shape)
         total = (shape[0] // tile[0]) * (shape[1] // tile[1])
         for frac in (0.05, 0.20):
-            packed = tile_soup(shape, tile, frac, seed=size + int(frac * 100))
+            packed = make_tile_soup(shape, tile, frac, size + int(frac * 100), dev)
             count = int(sparse.occupancy_grid(packed, *tile).sum())
             capacity = min(sparse._pow2_ceil(max(count, 8) * 2), sparse._pow2_ceil(total))
             for h_turns in range(1, 9):
@@ -1186,13 +1488,13 @@ def main() -> int:
     shape65 = bitpack.packed_shape(65536, 65536)
     tile65 = sparse.sparse_tile_shape(shape65)
     edge_boards.append(("65536^2 soup and torus-edge tiles", tile65, (1, 8), with_edge_tiles(
-        tile_soup(shape65, tile65, 0.01, seed=65536), tile65, seed=1)))
+        make_tile_soup(shape65, tile65, 0.01, 65536, dev), tile65, seed=1)))
     edge_boards.append(("65536^2 torus-edge tiles alone", tile65, (8,), with_edge_tiles(
         torch.zeros(shape65, dtype=torch.int32, device=dev), tile65, seed=2)))
     shape512 = bitpack.packed_shape(512, 512)
     tile512 = sparse.sparse_tile_shape(shape512)
     edge_boards.append(("512^2 soup and torus-edge tiles", tile512, range(1, 9), with_edge_tiles(
-        tile_soup(shape512, tile512, 0.2, seed=512), tile512, seed=3)))
+        make_tile_soup(shape512, tile512, 0.2, 512, dev), tile512, seed=3)))
     edge_boards.append(("512^2 images/512x512.pgm", tile512, (1, 8),
                         bitpack.pack(read_pgm(REPO / "images" / "512x512.pgm"), 0, dev)))
     for label, tile, hs, packed in edge_boards:
@@ -1212,7 +1514,7 @@ def main() -> int:
     del edge_boards, packed
     shape4k = bitpack.packed_shape(4096, 4096)
     tile4k = sparse.sparse_tile_shape(shape4k)
-    packed = tile_soup(shape4k, tile4k, 0.05, seed=7)
+    packed = make_tile_soup(shape4k, tile4k, 0.05, 7, dev)
     count = int(sparse.occupancy_grid(packed, *tile4k).sum())
     for rule in bit_rules:
         err, _ = sparse_case(f"4096^2 {rule.name}", packed, tile4k, 8,
@@ -1285,7 +1587,7 @@ def main() -> int:
     shape16 = bitpack.packed_shape(16384, 16384)
     tile16 = sparse.sparse_tile_shape(shape16)
     total16 = (shape16[0] // tile16[0]) * (shape16[1] // tile16[1])
-    packed = tile_soup(shape16, tile16, 0.5, seed=16385)
+    packed = make_tile_soup(shape16, tile16, 0.5, 16385, dev)
     count = int(sparse.occupancy_grid(packed, *tile16).sum())
     ctas16 = sparse_tiles.ctas(tile16, 8, total16, 8, 12)
     check(count > 2 * ctas16, f"16384^2 soup: {count} active tiles on {ctas16} CTAs")
@@ -1528,6 +1830,8 @@ def main() -> int:
                                 f"{big_alive}, want 156")
         if route == "sparse":
             sparse16 = eng6.final_state()
+        else:
+            dense16 = eng6.final_state()  # phases 21 and 22 are held against it
     check(set(walls16["sparse"][1]) == {"sparse_tiles"} and set(walls16["dense"][1]) == {"tiled"},
           f"16384^2 launches: {walls16}")
     print(f"phase 6 real size: 16384^2 R-pentomino x 1000 turns through Engine.run: alive 156 "
@@ -2482,6 +2786,152 @@ def main() -> int:
     del strip_dev, batch_io, into, out, session
 
 
+    # 21. the mesh planes on one card: a (2, 4) mesh of eight shards on
+    # cuda:0 (parallel/mesh.py), each block stepped by the tiled kernel
+    # over its exchanged halos. The 16384^2 R-pentomino x 1000 through
+    # Engine.run on ShardedBitPlane at depth 1 and 8: 156 alive, the board
+    # equal to phase 6's single-board one, and the tiled launches exactly
+    # 8 x the exchanges of each chunk (parallel/halo.exchanges_per_dispatch)
+    from gol_distributed_final_tpu_torch.parallel import (
+        make_engine_step, sharded_bit_step_n_fn,
+    )
+    from gol_distributed_final_tpu_torch.parallel.bit_halo import ShardedBitPlane
+    from gol_distributed_final_tpu_torch.parallel.halo import exchanges_per_dispatch
+    from gol_distributed_final_tpu_torch.parallel.mesh import ShardedBoard, make_mesh
+
+    from gol_distributed_final_tpu_torch.parallel.halo import _extend
+
+    mesh24 = make_mesh((2, 4), devices=[dev] * 8)
+    soup21 = random_words(bitpack.packed_shape(4096, 4096))
+    soup21_want = tiled.step_n(soup21, 100)  # the single-board kernel, before the window
+    # the tiled kernel at the shapes the mesh path gives it, before the
+    # window: one haloed block of random words at each depth of this phase
+    # (16384^2: 258 x 4098 at depth 1, 272 x 4112 at depth 8; the 4096^2
+    # soup: 66 x 1026, 70 x 1030 and 80 x 1040), a launch of `depth` turns
+    # against its plain version on the same block
+    ext_shapes = []
+    for board21, depths in ((random_words(bitpack.packed_shape(size16, size16)), (1, 8)),
+                            (soup21, (1, 3, 8))):
+        blocks21 = ShardedBoard.from_global(mesh24, board21).blocks
+        for depth in depths:
+            ext = _extend(blocks21, mesh24, k=depth)[1, 3]
+            err = max_abs_err(tiled.step_n(ext, depth, turns_per_launch=depth),
+                              tiled.step_n_plain(ext, depth, turns_per_launch=depth))
+            check(err == 0, f"tiled kernel on a {tuple(ext.shape)} haloed block, {depth} "
+                            f"turns: max abs err {err}")
+            tiled_err = max(tiled_err, err)
+            ext_shapes.append(tuple(ext.shape))
+        del blocks21, board21
+    torch.cuda.synchronize()
+    open_window()
+    walls21 = {}
+    for depth in (1, 8):
+        plane21 = ShardedBitPlane(mesh24, CONWAY, 0, halo_depth=depth)
+        gates21 = [0]
+        eng21 = Engine(EngineConfig(final_world=False,
+                                    chunk_hook=lambda e, s, t: gates21.append(t)))
+        before = tiled.launches
+        seed21 = ShardedBoard.from_global(
+            mesh24, bigboard.seed_packed(size16, bigboard.r_pentomino(size16), device=dev))
+        t0 = time.monotonic()
+        res21 = eng21.run(Params(turns=1000, image_width=size16, image_height=size16), None,
+                          plane=plane21, initial_state=seed21)
+        alive21 = res21.alive_count
+        walls21[depth] = time.monotonic() - t0
+        final21 = eng21.final_state()
+        check(type(final21) is ShardedBoard and all(b.is_cuda for b in final21.blocks.values()),
+              f"depth {depth}: the mesh state left the card")
+        want21 = 8 * sum(exchanges_per_dispatch(b - a, depth)
+                         for a, b in zip(gates21, gates21[1:]))
+        got21 = tiled.launches - before
+        check(res21.turns_completed == 1000 and alive21 == 156,
+              f"(2, 4) mesh depth {depth}: alive {alive21} at turn {res21.turns_completed}")
+        check(torch.equal(final21.gather(), dense16),
+              f"(2, 4) mesh depth {depth}: the board differs from phase 6's single board")
+        check(got21 == want21, f"(2, 4) mesh depth {depth}: {got21} tiled launches, "
+                               f"want {want21} (8 x the exchanges of chunks {gates21})")
+        walls21[depth] = (walls21[depth], got21, len(gates21) - 1)
+    soup_launches = {}
+    for depth in (1, 3, 8):
+        before = tiled.launches
+        got = sharded_bit_step_n_fn(mesh24, halo_depth=depth)(
+            ShardedBoard.from_global(mesh24, soup21), 100)
+        soup_launches[depth] = tiled.launches - before
+        check(torch.equal(got.gather(), soup21_want),
+              f"4096^2 soup x 100 on the (2, 4) mesh, depth {depth}: differs from "
+              "the single-board tiled step_n")
+        check(soup_launches[depth] == 8 * exchanges_per_dispatch(100, depth),
+              f"4096^2 soup depth {depth}: {soup_launches[depth]} tiled launches")
+    got = close_window("the (2, 4) mesh", ("tiled",))
+    print(f"phase 21 mesh, packed: 16384^2 R-pentomino x 1000 through Engine.run on "
+          f"ShardedBitPlane over a (2, 4) mesh of eight shards on {dev} (the tiled kernel "
+          f"equal to its plain version first on haloed blocks of {ext_shapes}): alive 156 "
+          f"and the "
+          f"board equal to phase 6's single-board result at depth 1 (wall "
+          f"{walls21[1][0]:.3f} s, {walls21[1][2]} chunks, {walls21[1][1]} tiled launches) "
+          f"and depth 8 ({walls21[8][0]:.3f} s, {walls21[8][2]} chunks, {walls21[8][1]} "
+          f"launches), each 8 x the chunks' exchanges; a random 4096^2 soup x 100 at "
+          f"depth 1, 3 and 8 equal to the single-board tiled step_n "
+          f"({soup_launches[1]}, {soup_launches[3]}, {soup_launches[8]} launches); "
+          f"{got['tiled']} tiled launches in all, plain version on the card "
+          f"{tiled.plain_calls} times {card_tag}")
+    check(tiled.plain_calls == 0, "the mesh phases ran the tiled kernel's plain version")
+
+    # 21b. the byte mesh plane (parallel/halo.py, torch ops as the JAX
+    # package's XLA): 512^2 x {0, 1, 100} through run() with the (2, 4)
+    # mesh as the engine's step function, PGMs against check/images
+    open_window()
+    for turns in (0, 1, 100):
+        params = Params(turns=turns, image_width=512, image_height=512)
+        run(params, images_dir=REPO / "images", out_dir=out_dir, tick_seconds=3600,
+            engine_config=EngineConfig(step_n_fn=make_engine_step(mesh24)))
+        name = f"512x512x{turns}.pgm"
+        check((out_dir / name).read_bytes() == (REPO / "check" / "images" / name).read_bytes(),
+              f"byte mesh session {name}: PGM bytes differ from check/images")
+    close_window("the byte mesh plane", ())
+    print(f"phase 21b mesh, bytes: 512^2 x {{0, 1, 100}} through run() with "
+          f"make_engine_step on the (2, 4) mesh: PGMs equal check/images {card_tag}")
+
+    # 22. the pod: `python -m gol_distributed_final_tpu_torch.pod -size
+    # 16384 -turns 1000` in a child process that has joined a one-rank
+    # NCCL group (every gate's control word is an NCCL broadcast), its
+    # PGM read back packed against phase 6's board; a run stopped at turn
+    # 500 with -ck -ck-every 500, resumed with -resume in a fresh process
+    # to 1000, gives the same PGM. The children's tiled launches join the
+    # main path's count.
+    pod_dir = out_dir / "pod"
+    ck22 = pod_dir / "podck.npz"
+    pod_runs = [
+        [["-size", "16384", "-turns", "1000", "-out", str(pod_dir / "full")],
+         ["-size", "16384", "-turns", "500", "-out", str(pod_dir / "stop"), "-ck", str(ck22),
+          "-ck-every", "500"]],
+        [["-size", "16384", "-turns", "1000", "-out", str(pod_dir / "resumed"), "-ck",
+          str(ck22), "-resume"]],
+    ]
+    pod_out = [pod_child(runs) for runs in pod_runs]
+    pod_launches = sum(int(re.search(r"POD_LAUNCHES tiled=(\d+)", o).group(1)) for o in pod_out)
+    pod_plain = sum(int(re.search(r"plain=(\d+)", o).group(1)) for o in pod_out)
+    launches["tiled"] += pod_launches
+    plain["tiled"] += pod_plain
+    check(pod_out[0].count("alive 156\n") == 1 and "alive 156\n" in pod_out[1],
+          f"pod runs: {pod_out}")
+    check("NCCL collectives ok" in pod_out[0], "the pod child's NCCL collectives")
+    full22 = pod_dir / "full" / "16384x16384x1000.pgm"
+    check(torch.equal(bigboard.load_packed_from_pgm(full22), dense16),
+          "pod 16384^2 x 1000: its PGM differs from phase 6's single-board state")
+    with np.load(ck22, allow_pickle=False) as data:
+        ck22_turn = int(data["turn"])
+    check(ck22_turn == 500, f"pod checkpoint at turn {ck22_turn}, want 500")
+    resumed22 = pod_dir / "resumed" / "16384x16384x1000.pgm"
+    check(filecmp.cmp(full22, resumed22, shallow=False),
+          "pod resumed from turn 500: its PGM differs from the uninterrupted run's")
+    shutil.rmtree(pod_dir)
+    print(f"phase 22 pod: python -m gol_distributed_final_tpu_torch.pod -size 16384 -turns "
+          f"1000 in a one-rank NCCL group: alive 156, its PGM read back packed equals phase "
+          f"6's board; stopped at turn 500 (-ck -ck-every 500) and resumed with -resume in a "
+          f"fresh process: the same PGM; {pod_launches} tiled launches in the children "
+          f"(plain {pod_plain}) {card_tag}")
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -2534,6 +2984,58 @@ def main() -> int:
           f"({t65_by}), {t65_dev / t65_bound:.3g}x the bound; {launches65} launches for 1000 "
           f"turns, {launches65 * t65_dev / 1e3:.4f} s of device time {card_tag}")
     del state65
+
+    # the (2, 4) mesh plane on one card at 16384^2 (phase 21's board at
+    # turn 1000): device time per 64-turn dispatch at depth 1 and 8 against
+    # the single-board tiled step_n of the same 64 turns, from one trace of
+    # each (every kernel's duration; the fullest of up to six traces that
+    # hold the dispatch's tiled launches), split into the tiled kernel and
+    # the rest, which is the ext build and the halo copies; and events
+    # around each dispatch (host work included)
+    def mesh_split(fn, tiled_launches):
+        """``(tiled ms, rest ms, rest records, rest launches)`` of one
+        ``fn()``: the first of up to eight traces that holds every tiled
+        launch and a device record for each of its other launch calls;
+        else the fullest, and a line says how many records it lacks."""
+        fn()
+        best = None
+        for _ in range(8):
+            prof = trace(fn)
+            calls = launch_calls(prof)
+            records = window_records(prof, r".")
+            kern = [end - start for name, start, end in records if "tiled_kernel" in name]
+            rest = [end - start for name, start, end in records if "tiled_kernel" not in name]
+            if len(kern) == tiled_launches and len(kern) + len(rest) == calls:
+                return sum(kern) / 1e3, sum(rest) / 1e3, len(rest), calls - tiled_launches
+            if best is None or len(kern) + len(rest) > len(best[0]) + len(best[1]):
+                best = (kern, rest, calls)
+        kern, rest, calls = best
+        print(f"  mesh_split: no trace held all {tiled_launches} tiled launches and "
+              f"{calls - tiled_launches} other records; the fullest held {len(kern)} and "
+              f"{len(rest)}, so its share lacks {calls - len(kern) - len(rest)} records")
+        return sum(kern) / 1e3, sum(rest) / 1e3, len(rest), calls - tiled_launches
+
+    mesh_state = ShardedBoard.from_global(mesh24, dense16)
+    mesh_rows = []
+    for depth in (1, 8):
+        step64 = sharded_bit_step_n_fn(mesh24, halo_depth=depth)
+        kern_ms, rest_ms, rest_n, rest_want = mesh_split(
+            lambda: step64(mesh_state, 64), 8 * exchanges_per_dispatch(64, depth))
+        ev_ms = cuda_ms(lambda: step64(mesh_state, 64), reps=5)
+        mesh_rows.append((depth, kern_ms, rest_ms, rest_n, rest_want, ev_ms))
+    # the single board's 8 launches: device_ms's window of several calls,
+    # which a trace that loses a few records still serves
+    single_dev = 8 * device_ms(lambda: tiled.step_n(dense16, 64), "tiled_kernel", reps=5,
+                               per_call=8)[0]
+    single_ev = cuda_ms(lambda: tiled.step_n(dense16, 64), reps=5)
+    print(f"timing mesh 16384^2, one 64-turn dispatch (device ms from the trace: tiled kernel "
+          f"+ ext build and halo copies = total, their share; events ms): "
+          + "; ".join(f"(2, 4) depth {d}: {k:.4f} + {r:.4f} ({n} of {w} copy kernels) = "
+                      f"{k + r:.4f}, {100 * r / (k + r):.1f}% ext and halos; events {e:.3f}"
+                      for d, k, r, n, w, e in mesh_rows)
+          + f"; single board, tiled step_n: {single_dev:.4f} (8 launches), events "
+          f"{single_ev:.3f} {card_tag}")
+    del mesh_state
 
     # the activity-sparse kernel: a dispatch of 64 8-turn blocks, one
     # cooperative launch, on the R-pentomino after 1000 turns at 16384^2
@@ -2590,19 +3092,6 @@ def main() -> int:
         sparse16.packed, sparse16.grid, 8, tile16, 8, cap16, 8, 12), reps=1, warmup=1) / 8
     print(f"timing sparse plain program on the card at 16384^2 (torch ops, a measurement: "
           f"it is not on the path): {sparse_plain_ms:.3f} ms per 8-turn block {card_tag}")
-
-    def device_total_ms(fn) -> float:
-        """All kernels' device time in a trace of one ``fn()``, the fullest
-        of three traces (a trace may lose records, see ``trace``)."""
-        fn()
-        return max(sum(us for _, us in window_kernels(trace(fn), r".")) for _ in range(3)) / 1e3
-
-    def timed_wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.monotonic() - t0, out
 
     # where the 65536^2 R-pentomino x 1000 on the sparse plane spends its
     # wall: each dispatch's copy of the board it writes into (its input is
@@ -2663,24 +3152,16 @@ def main() -> int:
 
     # sparse against dense: the R-pentomino x 1000 through each plane (wall
     # with a synchronise, and device time) from 1024^2 to 65536^2, which is
-    # where SPARSE_MIN_CELLS stands; then one 8-turn block of the sparse
-    # kernel against one 8-turn launch of the tiled kernel on soups with 5%,
-    # 25%, 50% and 100% of the tiles active (capacity for every tile, so no
-    # overflow), which is where the density crossover stands, and the two
-    # planes' walls for 64 turns of the 5% and 25% soups
+    # where SPARSE_MIN_CELLS stands (``sparse_against_dense``, which
+    # --sparse-dense repeats at 4096^2 and 8192^2 with soups); then one
+    # 8-turn block of the sparse kernel against one 8-turn launch of the
+    # tiled kernel on soups with 5%, 25%, 50% and 100% of the tiles active
+    # (capacity for every tile, so no overflow), which is where the density
+    # crossover stands, and the two planes' walls for 64 turns of the 5% and
+    # 25% soups
     print("sparse against dense, the R-pentomino x 1000 (wall s / device ms; sparse "
           "from_packed included):")
-    for side in (1024, 2048, 4096, 8192, 16384, 65536):
-        seed_words = bigboard.seed_packed(side, bigboard.r_pentomino(side))
-        sp, bp = SparseBitPlane(CONWAY, device=dev), BitPlane(CONWAY, 0, dev)
-        s_wall, s_out = timed_wall(lambda: sp.step_n(sp.from_packed(seed_words), 1000))
-        d_wall, d_out = timed_wall(lambda: bp.step_n(seed_words, 1000))
-        check(torch.equal(s_out.packed, d_out), f"{side}^2 sparse and dense boards differ")
-        s_dev = device_total_ms(lambda: sp.step_n(sp.from_packed(seed_words), 1000))
-        d_dev = device_total_ms(lambda: bp.step_n(seed_words, 1000))
-        print(f"  {side}^2: sparse {s_wall:.4f} s / {s_dev:.3f} ms, dense {d_wall:.4f} s / "
-              f"{d_dev:.3f} ms ({d_wall / s_wall:.3g}x by wall) {card_tag}")
-        del seed_words, s_out, d_out
+    sparse_against_dense(dev, card_tag, (1024, 2048, 4096, 8192, 16384, 65536), device_time=True)
     print("sparse against dense, one 8-turn block of the sparse kernel against one 8-turn "
           "tiled launch (device ms / events ms), and 64 turns through each plane (wall s):")
     for side in (4096, 16384, 65536):
@@ -2688,7 +3169,7 @@ def main() -> int:
         tile = sparse.sparse_tile_shape(shape)
         total = (shape[0] // tile[0]) * (shape[1] // tile[1])
         for frac in (0.05, 0.25, 0.5, 1.0):
-            packed = tile_soup(shape, tile, frac, seed=side + int(frac * 1000))
+            packed = make_tile_soup(shape, tile, frac, side + int(frac * 1000), dev)
             grid = sparse.occupancy_grid(packed, *tile)
             count = int(grid.sum())
             cap = sparse._pow2_ceil(total)
@@ -3066,6 +3547,10 @@ if __name__ == "__main__":
         sys.exit(workers_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
     if sys.argv[1:2] == ["--sparse-sweep"]:
         sys.exit(sparse_sweep(sys.argv[2] if len(sys.argv) > 2 else str(REPO / "build" / "sweep")))
+    if sys.argv[1:2] == ["--sparse-dense"]:
+        sys.exit(sparse_dense())
+    if sys.argv[1:2] == ["--pod-layouts"]:
+        sys.exit(pod_layouts())
     if sys.argv[1:2] == ["--sparse-times"]:
         sys.exit(sparse_times(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else sys.argv[2]))
     sys.exit(main())

@@ -24,9 +24,13 @@ The ``-resume`` surfaces load through :func:`load_verified_checkpoint` or
 :func:`load_resume_checkpoint`; :func:`load_checkpoint` stays lenient for
 callers that accept files without a digest. Verification is not metered
 here: the JAX package counts each attempt on ``gol_ckpt_verify_total``
-and journals it, and the port has no ``obs/`` yet. Sharded checkpoints
-(one file per process of a multi-process job) come with the port's
-multi-process planes.
+and journals it, and the port has no ``obs/`` yet.
+
+A bitboard sharded over several processes (parallel/mesh.ShardedBoard)
+checkpoints as one file per rank, ``<stem>.rank<k>of<n>.npz``, each
+holding that rank's word rows (:func:`save_packed_checkpoint_sharded`);
+the ranks load their own and agree on the turn before any resumes
+(:func:`load_packed_checkpoint_sharded`).
 """
 
 from __future__ import annotations
@@ -226,7 +230,10 @@ def try_write_checkpoint(path, turn: int, rule: LifeRule, plane, state) -> Optio
     ``RunResult.checkpoint_error``)."""
     word_axis = getattr(plane, "word_axis", None)
     try:
-        if (word_axis is not None and isinstance(state, torch.Tensor)
+        if word_axis is not None and hasattr(state, "blocks"):
+            # a fully addressable mesh state: the one-host packed format
+            write_checkpoint(path, turn, rule, packed=state.gather(), word_axis=word_axis)
+        elif (word_axis is not None and isinstance(state, torch.Tensor)
                 and state.dtype == torch.int32):
             write_checkpoint(path, turn, rule, packed=state, word_axis=word_axis)
         else:
@@ -234,6 +241,31 @@ def try_write_checkpoint(path, turn: int, rule: LifeRule, plane, state) -> Optio
     except Exception as exc:  # noqa: BLE001 — reported by the caller
         return exc
     return None
+
+
+def try_write_checkpoint_sharded(path, turn: int, rule: LifeRule, plane, state) -> Optional[Exception]:
+    """The engine's periodic checkpoint of a state sharded over several
+    processes: each rank writes its own shard, then the ranks vote with an
+    all-gather, so a failure on any rank comes back as a failure on every
+    rank and the mixed shard set it leaves is never taken for a success.
+    Every rank reaches this at the same turn (the chunking is agreed), and
+    a rank's own failure is caught before the vote: raising first would
+    strand its peers inside the collective. Returns the failure, or None."""
+    from ..parallel.multihost import allgather
+
+    ok, err = 1, None
+    try:
+        save_packed_checkpoint_sharded(path, state, turn, rule, plane.word_axis)
+    except Exception as exc:  # noqa: BLE001 — voted on, then returned
+        ok, err = 0, exc
+    oks = allgather(np.array([ok], np.int64))
+    failed = int(len(oks) - oks.sum())
+    if failed and err is None:
+        err = OSError(
+            f"checkpoint at turn {turn}: shard write failed on {failed} other "
+            "rank(s); the on-disk set is mixed until the next successful crossing"
+        )
+    return err
 
 
 def generation_path(path, gen: int) -> pathlib.Path:
@@ -488,3 +520,127 @@ def load_packed_checkpoint(path) -> tuple[np.ndarray, int, LifeRule, int]:
         turn = int(data["turn"])
         rule = LifeRule.from_rulestring(str(data["rulestring"]))
     return packed, turn, rule, word_axis
+
+
+# -- sharded packed checkpoints: one file per rank ------------------------------
+
+
+def checkpoint_shard_path(path, rank: int, num_processes: int) -> pathlib.Path:
+    """Where rank ``rank``'s shard of a multi-process checkpoint lives:
+    ``<stem>.rank<k>of<n>.npz`` next to the configured path. Works on a
+    shared filesystem (all shards side by side) and on per-host disks
+    (each rank only ever touches its own name)."""
+    p = npz_path(path)
+    return p.with_name(f"{p.stem}.rank{rank}of{num_processes}.npz")
+
+
+def local_packed_rows(state) -> tuple[int, np.ndarray]:
+    """This process's contiguous block of packed word rows, assembled from
+    its blocks of a ``ShardedBoard`` -> ``(first_global_row, rows)``.
+    Raises unless the process owns whole contiguous mesh rows (the
+    canonical process-major placement)."""
+    row0, rows = state.local_rows()
+    return row0, rows.cpu().numpy()
+
+
+def save_packed_checkpoint_sharded(
+    path, state, turn: int, rule: LifeRule = CONWAY, word_axis: int = 0
+) -> pathlib.Path:
+    """One checkpoint shard per process for a mesh-sharded bitboard: each
+    rank writes ONLY its own word rows, under a temporary name renamed
+    into place. Every shard stamps the turn, rule, global shape and
+    process count, so the loader can refuse a mismatched reassembly. The
+    files are the JAX package's, byte for byte."""
+    from ..parallel.multihost import process_count, process_index
+
+    rank, nprocs = process_index(), process_count()
+    row0, rows = local_packed_rows(state)
+    final = checkpoint_shard_path(path, rank, nprocs)
+    tmp = final.with_name(final.name + ".tmp")
+    written = _save_npz(
+        tmp,
+        packed=rows,
+        row0=np.int64(row0),
+        global_rows=np.int64(state.shape[0]),
+        global_cols=np.int64(state.shape[1]),
+        num_processes=np.int64(nprocs),
+        process_index=np.int64(rank),
+        word_axis=np.int64(word_axis),
+        turn=np.int64(turn),
+        rulestring=np.str_(rule.rulestring),
+    )
+    written.replace(final)
+    return final
+
+
+def load_packed_checkpoint_sharded(path, sharding):
+    """Each rank loads ITS shard of a multi-process packed checkpoint and
+    places it on the mesh -> ``(ShardedBoard, turn, rule, word_axis)``.
+
+    ``sharding`` is the target placement (parallel/bit_halo
+    ``packed_sharding(mesh)``). Checks that the shard was written by a job
+    of the same process count, that its row offset is where this rank's
+    blocks start, and (through the global shape) that the geometry is
+    unchanged. Collective in a multi-process job: every rank reaches the
+    all-gather of an (ok, turn) word, its own failure caught rather than
+    raised before it (a rank raising early would strand its peers inside
+    the collective), and a mixed set of turns is refused on every rank. A
+    one-process job also reads the one-host packed format."""
+    from ..parallel.mesh import ShardedBoard
+    from ..parallel.multihost import allgather, process_count, process_index
+
+    mesh = sharding.mesh
+    rank, nprocs = process_index(), process_count()
+    p = checkpoint_shard_path(path, rank, nprocs)
+    if nprocs == 1 and not p.exists() and npz_path(path).exists():
+        packed, turn, rule, word_axis = load_packed_checkpoint(npz_path(path))
+        return ShardedBoard.from_global(mesh, packed), turn, rule, word_axis
+    err = None
+    rows = turn = rule = word_axis = gshape = None
+    try:
+        with np.load(p, allow_pickle=False) as data:
+            if "packed" not in data or "row0" not in data:
+                raise ValueError(f"{p} is not a sharded packed checkpoint")
+            if int(data["num_processes"]) != nprocs:
+                raise ValueError(
+                    f"{p} was written by {int(data['num_processes'])} "
+                    f"processes; this job has {nprocs}"
+                )
+            rows = data["packed"].astype(np.int32)
+            row0 = int(data["row0"])
+            word_axis = int(data["word_axis"])
+            turn = int(data["turn"])
+            rule = LifeRule.from_rulestring(str(data["rulestring"]))
+            gshape = (int(data["global_rows"]), int(data["global_cols"]))
+        bh, _ = sharding.block_shape(gshape)
+        want_row0 = min(i for i, _ in mesh.local_slots()) * bh
+        if row0 != want_row0:
+            raise ValueError(
+                f"shard {p} holds rows from {row0} but this rank's mesh "
+                f"placement starts at {want_row0}: process/mesh order "
+                "changed since the checkpoint was written"
+            )
+    except Exception as exc:  # noqa: BLE001 — agreed below, then raised
+        err = exc
+    if nprocs > 1:
+        word = np.array([0, -1] if err is not None else [1, turn], dtype=np.int64)
+        agreed = allgather(word)  # (nprocs, 2)
+        if err is not None:
+            raise err
+        failed = int(nprocs - agreed[:, 0].sum())
+        if failed:
+            raise ValueError(
+                f"checkpoint load: shard validation failed on {failed} "
+                f"other rank(s); the job cannot resume from {path}"
+            )
+        turns = agreed[:, 1]
+        if int(turns.min()) != int(turns.max()):
+            raise ValueError(
+                f"checkpoint shards disagree on the turn "
+                f"({int(turns.min())}..{int(turns.max())}): a crash "
+                "between per-rank writes left a mixed set; restore from "
+                "an older consistent checkpoint"
+            )
+    elif err is not None:
+        raise err
+    return ShardedBoard.from_process_local(mesh, rows, gshape), turn, rule, word_axis

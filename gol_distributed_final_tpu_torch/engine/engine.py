@@ -289,6 +289,24 @@ class Engine:
             # after the controller started its ticker but before the run
             # loop initialised must still take effect
 
+        # a state sharded over several processes (parallel/mesh.py): every
+        # rank runs this same loop, and every collective (halos, counts,
+        # votes) must come in the same order on every rank, so no decision
+        # here may rest on a rank-local wall clock
+        multiprocess = not getattr(self._state, "is_fully_addressable", True)
+        if multiprocess and self.config.checkpoint_every:
+            # only a packed plane has a multi-process format (one shard per
+            # rank): fail at entry, not hours in
+            if getattr(self._plane, "word_axis", None) is None:
+                with self._lock:
+                    self._running = False
+                    self._control.notify_all()
+                raise ValueError(
+                    "checkpoint_every on a multi-process state needs a packed "
+                    "bitboard plane (per-rank shard checkpoints); this "
+                    "plane has no word_axis"
+                )
+
         try:
             if emit_flips and emit is not None:
                 for c in alive_cells(world):
@@ -339,17 +357,30 @@ class Engine:
                 # ``packed`` (ops/sparse.py::SparseState)
                 board = getattr(new_state, "packed", new_state)
                 if board.is_cuda:
+                    # a mesh state's blocks may sit on several cards
+                    cards = getattr(board, "cuda_devices", [board.device])
                     if growing:
                         # the wall below drives the doubling: it must
                         # cover the card's work, not the launch
-                        torch.cuda.synchronize(board.device)
+                        for card in cards:
+                            torch.cuda.synchronize(card)
                     else:
-                        fence = torch.cuda.Event()
-                        fence.record(torch.cuda.current_stream(board.device))
-                        inflight.append(fence)
+                        fences = []
+                        for card in cards:
+                            fences.append(torch.cuda.Event())
+                            fences[-1].record(torch.cuda.current_stream(card))
+                        inflight.append(fences)
                         if len(inflight) > _PIPELINE_DEPTH:
-                            inflight.popleft().synchronize()
+                            for fence in inflight.popleft():
+                                fence.synchronize()
                 elapsed = time.monotonic() - t0
+                if growing and multiprocess:
+                    # the ranks agree on the slowest rank's wall, so every
+                    # rank takes the same growth decision (one all-gather a
+                    # growth chunk, at most log2(max_chunk) a run)
+                    from ..parallel.multihost import allgather
+
+                    elapsed = float(allgather(np.array([elapsed], np.float64)).max())
                 if growing:
                     if chunk >= self.config.max_chunk or (
                         elapsed >= self.config.target_dispatch_seconds
@@ -420,12 +451,15 @@ class Engine:
         and a plane's step never writes its input (ops/plane.py), so the
         host copy, on the stream after that chunk, reads the state of
         ``turn`` and nothing a queued chunk is writing."""
-        from .checkpoint import try_write_checkpoint
+        from .checkpoint import try_write_checkpoint, try_write_checkpoint_sharded
 
-        err = try_write_checkpoint(
-            self.config.checkpoint_path or "out/engine_ck.npz", turn,
-            getattr(self._plane, "rule", self.config.rule), self._plane, state,
-        )
+        path = self.config.checkpoint_path or "out/engine_ck.npz"
+        rule = getattr(self._plane, "rule", self.config.rule)
+        if not getattr(state, "is_fully_addressable", True):
+            # run() entry made sure a multi-process plane is packed
+            err = try_write_checkpoint_sharded(path, turn, rule, self._plane, state)
+        else:
+            err = try_write_checkpoint(path, turn, rule, self._plane, state)
         if err is not None:
             print(f"checkpoint at turn {turn} failed: {err}")
         return err

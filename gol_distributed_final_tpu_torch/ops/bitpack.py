@@ -142,10 +142,20 @@ def row_popcounts(packed: torch.Tensor) -> torch.Tensor:
     return popcount(packed).sum(dim=-1).to(torch.int32)
 
 
-def alive_count_packed(packed: torch.Tensor) -> int:
+def alive_count_packed(packed) -> int:
     """Alive cells of a bitboard: a popcount reduction on its device, no
-    unpack."""
-    return int(popcount(packed).sum())
+    unpack. A mesh-sharded bitboard (parallel/mesh.ShardedBoard) sums its
+    local blocks; one sharded over several processes all-gathers each
+    rank's int64 total, so every rank returns the global count."""
+    blocks = getattr(packed, "blocks", None)
+    if blocks is None:
+        return int(popcount(packed).sum())
+    local = sum(int(popcount(b).sum()) for b in blocks.values())
+    if packed.is_fully_addressable:
+        return local
+    from ..parallel.multihost import allgather
+
+    return int(allgather(np.array([local], np.int64)).sum(dtype=np.int64))
 
 
 def alive_cells_packed(packed: torch.Tensor, word_axis: int = 0) -> list[Cell]:

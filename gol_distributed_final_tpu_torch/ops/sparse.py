@@ -53,11 +53,12 @@ from .plane import BitPlane
 
 #: auto_plane routes boards of at least this many cells through
 #: SparseBitPlane (ops/auto.py). Only routing reads it: the boards come
-#: out the same either way. The JAX package routes from 4096^2; on the
-#: H100 the sparse plane takes about twice the dense plane's wall below
-#: 8192^2 and breaks even there (chip_smoke.py's "sparse against dense"
-#: table, NVIDIA H100 80GB HBM3 at 700 W)
-SPARSE_MIN_CELLS = 8192 * 8192
+#: out the same either way. The JAX package's 4096^2: on the H100 (NVIDIA
+#: H100 80GB HBM3 at 700 W) the sparse plane holds the dense plane's wall
+#: there since its kernel became one launch a dispatch, the R-pentomino x
+#: 1000 at a median 1.13x (1.69x at 8192^2; ``chip_smoke.py
+#: --sparse-dense``, seven runs each)
+SPARSE_MIN_CELLS = 4096 * 4096
 #: active-tile fraction above which step_n takes the rest of the call
 #: through the dense plane: the JAX package's value, on the winning side
 #: of the H100's crossover (~0.5 active) at 16384^2 and 65536^2
@@ -69,8 +70,10 @@ P2_PROBE_MAX_TILES = 64
 #: byte ceiling of one block's gathered windows: past it the dense path is
 #: taken even below the density crossover
 _SPARSE_EXT_BUDGET = 256 << 20
-#: blocks per dispatch at most: bounds one dispatch's queue of launches
-#: and its counts; the host loop dispatches the rest
+#: blocks per dispatch at most: a dispatch is one launch of the sparse
+#: kernel (ops/sparse_tiles.py), and this bounds the blocks that launch
+#: runs and its counts vector (one int32 a block, read back once); the
+#: host loop dispatches the rest
 _MAX_BLOCKS_PER_DISPATCH = 8192
 #: turns advanced per gathered block, clamped per tile (sparse_block_turns)
 SPARSE_TURNS_PER_GATHER = 8

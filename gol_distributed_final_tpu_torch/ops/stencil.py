@@ -50,6 +50,19 @@ def neighbour_counts(board: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def counts_from_extended(ext: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """8-neighbour counts of the (h, w) centre of an extended block that
+    already carries a one-cell border (halos, or local wrap): the mesh
+    step's count (parallel/halo.py)."""
+    ones = (ext != 0).to(torch.uint8)
+    counts = torch.zeros((h, w), dtype=torch.uint8, device=ext.device)
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            if (dy, dx) != (1, 1):
+                counts += ones[dy:dy + h, dx:dx + w]
+    return counts
+
+
 def _table(mask: int, device) -> torch.Tensor:
     return torch.tensor([bool(mask >> c & 1) for c in range(9)], device=device)
 

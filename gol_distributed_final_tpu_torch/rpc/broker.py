@@ -100,37 +100,76 @@ def _rule_of(req: Request) -> LifeRule:
 
 
 class DeviceBackend:
-    """Engine-backed data plane on one device: the counterpart of the JAX
-    package's ``TpuBackend`` (rpc/broker.py:88) without its mesh planes.
-    One persistent Engine serves every Run, so control verbs that land
-    before a Run has initialised are buffered by the engine's own
-    pending-control semantics instead of being dropped. ``halo_depth``
-    (the ``-halo-depth`` default) and a request's ``halo_depth`` are
-    accepted and have no effect, as on the reference's single-device
-    path: one device has no halo to exchange."""
+    """Engine-backed data plane: the counterpart of the JAX package's
+    ``TpuBackend`` (rpc/broker.py:88), on one device or on a mesh of all
+    the devices it sees (every card, or ``GOL_TORCH_CPU_DEVICES`` virtual
+    CPU devices for ``device="cpu"``, utils/cpumesh.py). One persistent
+    Engine serves every Run, so control verbs that land before a Run has
+    initialised are buffered by the engine's own pending-control semantics
+    instead of being dropped. ``halo_depth`` (the ``-halo-depth`` default)
+    and a request's ``halo_depth`` are the mesh planes' turns per halo
+    exchange; on one device, or a board no mesh divides, there is no halo
+    and the knob is vacuous."""
 
     def __init__(self, device=None, halo_depth: int = 1):
         if halo_depth < 1:
             raise ValueError(f"halo_depth must be >= 1, got {halo_depth}")
         self.engine = Engine(EngineConfig(device=device))
         self.device = self.engine.device
+        self._halo_depth = halo_depth  # the -halo-depth server default
         self._planes: dict = {}
 
-    def _plane_for(self, height: int, width: int, rule: LifeRule):
-        """None for the engine's own rule (the engine picks its plane);
-        for another rule the plane is handed over explicitly, by the same
-        policy as the engine's pick (ops/auto.py)."""
-        if rule.rulestring == self.engine.config.rule.rulestring:
-            return None
-        key = (height, width, rule.rulestring)
+    def _plane_for(self, height: int, width: int, rule: LifeRule, halo_depth: int):
+        """A mesh data plane if the devices divide the board (the packed
+        halo plane when a packed layout divides too, each block on the
+        tiled kernel; else the byte halo plane where the depth fits); None
+        for one device and the engine's own rule (the engine picks its
+        plane); for another rule the plane the engine would pick, handed
+        over explicitly (ops/auto.py)."""
+        key = (height, width, rule.rulestring, halo_depth)
         if key not in self._planes:
-            from ..ops.auto import auto_plane
             from ..ops.plane import BytePlane
 
-            self._planes[key] = (
-                auto_plane(rule, (height, width), self.device)
-                or BytePlane(rule, self.device)
-            )
+            from ..parallel import make_engine_step, make_mesh
+            from ..parallel.bit_halo import make_bit_plane
+            from ..parallel.halo import halo_depth_fits
+            from ..parallel.mesh import local_devices
+
+            plane = None
+            mesh_built = False
+            devices = local_devices(self.device)
+            if len(devices) > 1:
+                try:
+                    mesh = make_mesh(devices=devices, height=height, width=width)
+                    mesh_built = True
+                    nrows, ncols = mesh.grid
+                    plane = make_bit_plane(mesh, (height, width), rule, halo_depth=halo_depth)
+                    if plane is None and halo_depth_fits(
+                        halo_depth, (height // nrows, width // ncols)
+                    ):
+                        # cell blocks are 32x deeper than word blocks on
+                        # the packed axis: a board too small for the
+                        # packed layout at this depth may fit here
+                        plane = BytePlane(rule, self.device, make_engine_step(
+                            mesh, rule, halo_depth=halo_depth))
+                except ValueError:
+                    pass  # indivisible board: the one-device engine
+            if plane is None and halo_depth > 1 and mesh_built:
+                # a mesh was BUILT but no plane carries this depth: refuse
+                # rather than run at depth 1. Without a mesh (one device,
+                # or an indivisible board) there are no halo exchanges at
+                # all, so the knob is vacuous, not dishonoured
+                raise ValueError(
+                    f"halo_depth {halo_depth} cannot be honored for "
+                    f"{width}x{height} on this backend (no mesh plane "
+                    "supports it); drop -halo-depth or grow the board"
+                )
+            if plane is None and rule.rulestring != self.engine.config.rule.rulestring:
+                from ..ops.auto import auto_plane
+
+                plane = (auto_plane(rule, (height, width), self.device)
+                         or BytePlane(rule, self.device))
+            self._planes[key] = plane
         return self._planes[key]
 
     def run(self, req: Request) -> RunResult:
@@ -142,7 +181,9 @@ class DeviceBackend:
             image_width=req.image_width,
             image_height=req.image_height,
         )
-        plane = self._plane_for(req.image_height, req.image_width, _rule_of(req))
+        # 0 on the wire is the server's default (like rulestring's "")
+        depth = getattr(req, "halo_depth", 0) or self._halo_depth
+        plane = self._plane_for(req.image_height, req.image_width, _rule_of(req), depth)
         # initial_turn is an extension field: absent from an older
         # client's Request, meaning 0 (a fresh run)
         return self.engine.run(
@@ -2544,7 +2585,9 @@ def main(argv=None) -> None:
         "-halo-depth", dest="halo_depth", type=int, default=1,
         help="turns per halo exchange: with -wire resident the workers "
              "backend's batch depth K (K turns per StripStep round-trip); "
-             "on the tpu backend a mesh plane's depth, a no-op on one device",
+             "on the tpu backend the mesh planes' turns per halo exchange "
+             "when it sees several devices (every card; on the CPU "
+             "GOL_TORCH_CPU_DEVICES), vacuous on one device",
     )
     parser.add_argument(
         "-sync-interval", dest="sync_interval", type=int, default=256,

@@ -1095,3 +1095,75 @@ def test_device_session_replies_equal_a_numpy_session(cuda_device, monkeypatch, 
     full = [svc.strip_fetch(Request(worker=2)) for svc in services]
     assert np.array_equal(full[0].work_slice, full[1].work_slice)
     assert card._strip.is_cuda
+
+
+# -- the mesh planes on one card (parallel/) ------------------------------------
+
+
+def _mesh24(device):
+    from gol_distributed_final_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((2, 4), devices=[device] * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(32, 1024), (128, 4096), (45, 296)])
+def test_mesh_on_one_card_equals_the_single_board_kernel(cuda_device, depth, shape):
+    """A (2, 4) mesh of eight shards on one card, every block on the tiled
+    kernel over its exchanged halos: equal to the single-board tiled
+    step_n, one launch a block an exchange, the blocks never off the card."""
+    from gol_distributed_final_tpu_torch.parallel import sharded_bit_step_n_fn
+    from gol_distributed_final_tpu_torch.parallel.halo import exchanges_per_dispatch
+    from gol_distributed_final_tpu_torch.parallel.mesh import ShardedBoard
+
+    mesh = _mesh24(cuda_device)
+    rows, cols = shape[0] - shape[0] % 2, shape[1] - shape[1] % 4
+    packed = _words((rows, cols), depth + rows, cuda_device)
+    if min(rows // 2, cols // 4) < depth:
+        pytest.skip("the block is shallower than the halo")
+    want = tiled.step_n(packed, 37)
+    torch.cuda.synchronize()
+    tiled.reset_counts()
+    step = sharded_bit_step_n_fn(mesh, halo_depth=depth)
+    got = step(ShardedBoard.from_global(mesh, packed), 37)
+    assert all(b.is_cuda for b in got.blocks.values())
+    assert torch.equal(got.gather(), want)
+    assert tiled.launches == 8 * exchanges_per_dispatch(37, depth) and tiled.plain_calls == 0
+
+
+@pytest.mark.cuda
+def test_mesh_column_packing_and_deep_halos_run_bit_step_on_the_card(cuda_device):
+    """word_axis 1 and a halo past one launch's 8 turns keep the JAX
+    package's routing: bit_step in torch ops on the card, no tiled launch."""
+    from gol_distributed_final_tpu_torch.parallel import sharded_bit_step_n_fn
+    from gol_distributed_final_tpu_torch.parallel.mesh import ShardedBoard
+
+    mesh = _mesh24(cuda_device)
+    for word_axis, depth, shape in ((1, 1, (256, 64)), (0, 9, (32, 1024))):
+        packed = _words(shape, depth, cuda_device)
+        tiled.reset_counts()
+        got = sharded_bit_step_n_fn(mesh, word_axis=word_axis, halo_depth=depth)(
+            ShardedBoard.from_global(mesh, packed), 19)
+        assert tiled.launches == 0 and tiled.plain_calls == 0
+        assert torch.equal(got.gather(), bitpack.bit_step_n(packed, 19, word_axis))
+
+
+@pytest.mark.cuda
+def test_mesh_planes_serve_golden_sessions_on_the_card(cuda_device, tmp_path):
+    """512^2 x 100 on ShardedBitPlane through the engine, and 64^2 x 100
+    on the byte mesh plane as the engine's step function: the goldens."""
+    from gol_distributed_final_tpu_torch.parallel import make_bit_plane, make_engine_step
+
+    mesh = _mesh24(cuda_device)
+    board = read_pgm(REPO_ROOT / "images" / "512x512.pgm")
+    tiled.reset_counts()
+    res = Engine(EngineConfig(plane=make_bit_plane(mesh, (512, 512)))).run(
+        Params(turns=100, image_width=512, image_height=512), board)
+    assert tiled.launches > 0 and tiled.plain_calls == 0
+    assert np.array_equal(res.world, read_pgm(REPO_ROOT / "check" / "images" / "512x512x100.pgm"))
+    run(Params(turns=100, image_width=64, image_height=64), images_dir=REPO_ROOT / "images",
+        out_dir=tmp_path, tick_seconds=3600,
+        engine_config=EngineConfig(step_n_fn=make_engine_step(mesh)))
+    assert ((tmp_path / "64x64x100.pgm").read_bytes()
+            == (REPO_ROOT / "check" / "images" / "64x64x100.pgm").read_bytes())

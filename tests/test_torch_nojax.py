@@ -92,6 +92,30 @@ def test_cli_session_imports_no_jax(tmp_path):
     assert np.count_nonzero(read_pgm(tmp_path / "big.pgm")) == 9
 
 
+def test_pod_session_imports_no_jax(tmp_path, monkeypatch):
+    """The pod CLI in a process of its own on four virtual CPU devices (a
+    (1, 4) mesh, each block on the tiled kernel's plain version): the
+    count, the PGM, and no jax or JAX package in sys.modules."""
+    monkeypatch.setenv("GOL_TORCH_CPU_DEVICES", "4")
+    out, modules = _probe(
+        "gol_distributed_final_tpu_torch.pod",
+        ["-size", "256", "-turns", "30", "-out", str(tmp_path / "out"), "-device", "cpu"],
+        tmp_path)
+    for name in ("parallel.mesh", "parallel.halo", "parallel.bit_halo",
+                 "parallel.multihost", "utils.cpumesh", "ops.tiled"):
+        assert f"gol_distributed_final_tpu_torch.{name}" in modules
+    from gol_distributed_final_tpu_torch.bigboard import r_pentomino
+    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+
+    board = np.zeros((256, 256), np.uint8)
+    for x, y in r_pentomino(256):
+        board[y, x] = 255
+    for _ in range(30):
+        board = vector_step(board)
+    assert f"alive {int(np.count_nonzero(board))}\n" in out
+    np.testing.assert_array_equal(read_pgm(tmp_path / "out" / "256x256x30.pgm"), board)
+
+
 _SPARSE_PROBE = """
 import json, os, sys
 os.environ["GOL_SPARSE"] = "on"
@@ -218,7 +242,9 @@ def _port_sources():
     assert PORT / "rpc" / "broker.py" in files and PORT / "rpc" / "protocol.py" in files
     for new in ("ops/sparse.py", "ops/sparse_tiles.py", "io/native.py", "viz/window.py",
                 "viz/loop.py", "viz/bigview.py", "utils/visualise.py", "rpc/worker.py",
-                "rpc/faults.py", "ops/strip_steps.py"):
+                "rpc/faults.py", "ops/strip_steps.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/halo.py", "parallel/bit_halo.py",
+                "parallel/multihost.py", "pod.py", "utils/cpumesh.py"):
         assert PORT / new in files
     return files + [REPO_ROOT / "chip_smoke.py"]
 
@@ -259,10 +285,12 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_data_planes_have_no_rerouting_handlers():
-    """A failed launch raises: nothing under ops/ or in the engine catches
-    an exception (so nothing can send a CUDA tensor to a plain version)."""
+    """A failed launch raises: nothing under ops/ or parallel/ or in the
+    engine catches an exception (so nothing can send a CUDA tensor to a
+    plain version)."""
     handlers = []
-    for path in sorted((PORT / "ops").glob("*.py")) + [PORT / "engine" / "engine.py"]:
+    for path in (sorted((PORT / "ops").glob("*.py")) + sorted((PORT / "parallel").glob("*.py"))
+                 + [PORT / "engine" / "engine.py"]):
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.ExceptHandler):
                 handlers.append(f"{path.name}:{node.lineno}")

@@ -189,17 +189,18 @@ def test_auto_plane_picks_the_plane_the_reference_picks(monkeypatch, mode, shape
 
 
 @pytest.mark.parametrize("shape,sparse_route", [
-    ((4096, 4096), False), ((8192, 4096), False), ((8192, 8192), True), ((4096, 16384), True),
+    ((2048, 4096), False), ((4096, 4096), True), ((8192, 4096), True), ((4096, 16384), True),
     ((16384, 16384), True),
 ])
 def test_the_ports_floor_is_the_cards_break_even(monkeypatch, shape, sparse_route):
-    """The port routes from 8192^2 cells, where the sparse plane's wall
-    meets the dense plane's on the H100; the reference's 4096^2 is under."""
+    """The port routes from 4096^2 cells, the reference's floor, where the
+    sparse plane's wall holds the dense plane's on the H100 (chip_smoke.py
+    --sparse-dense); half of it stays dense."""
     from gol_distributed_final_tpu_torch.models import CONWAY
     from gol_distributed_final_tpu_torch.ops import auto
 
     monkeypatch.delenv("GOL_SPARSE", raising=False)
-    assert sparse.SPARSE_MIN_CELLS == 8192 * 8192 > jsparse.SPARSE_MIN_CELLS
+    assert sparse.SPARSE_MIN_CELLS == 4096 * 4096 == jsparse.SPARSE_MIN_CELLS
     assert sparse.sparse_capable(CONWAY, shape) is sparse_route
     assert isinstance(auto.auto_plane(CONWAY, shape, "cpu"), sparse.SparseBitPlane) is sparse_route
 
