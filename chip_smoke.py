@@ -39,7 +39,15 @@ mesh of eight shards on cuda:0: the 16384^2 R-pentomino through
 on the tiled kernel, held against the single-board run; a 4096^2 soup at
 depths 1, 3 and 8; the byte mesh plane's 512^2 sessions) and the pod (its
 CLI in a child process that joined a one-rank NCCL group, the 16384^2
-R-pentomino, stopped at turn 500 and resumed), and
+R-pentomino, stopped at turn 500 and resumed), drives the observability
+layer on the card (phase 23: the 512^2 x 10000 session through ``run()``
+and ``fused_step_n`` with ``-metrics -report -trace -timeline -profile``,
+equal to the run without them and to check/alive, each kernel site's
+CUDA-event count equal to its wrapper's launch counter, its device time a
+launch against the kernel's own, its rates under the card's ceilings; a
+broker with every server flag serving a ``-server`` session and 256
+SessionRuns, its Status read by ``obs.status`` with the roofline classes;
+``-trace-device``; and the flags' host cost), and
 times the kernels with CUDA events and the profiler's device time,
 sparse against dense included, and the workers' fused strip batch against
 their numpy loop (the table that sets ``FUSED_STRIP_MIN_CELLS``). The kernels compile the
@@ -87,6 +95,10 @@ the single card's tiled kernel, and the two-rank layout stopped at turn
 runs phase 20b's workers run alone (a seeded 4096^2 soup x 1000 turns
 over four in-process workers) on the port in TREE and prints its wall and
 mean StripStep handler time as one JSON line, for the same comparison.
+
+    python3 chip_smoke.py --observability
+
+builds the kernels and runs phase 23 alone.
 
 Game of Life is integer-exact: every comparison is equality (tolerance 0).
 """
@@ -927,6 +939,384 @@ def pod_layouts(size: int = 16384, turns: int = 1000) -> int:
           f"{stop:.3f} s) and resumed with -resume ({resumed:.3f} s): the same PGM [{card}]")
     shutil.rmtree(base)
     print(json.dumps({"pod_layouts": rows, "cards": cards, "card": card}))
+    return 0
+
+
+#: the card's ceilings obs/perf.py classifies against (KNOWN_CUDA_PEAKS)
+H100_INT32_OPS_PER_S = 1.673e13
+
+#: phase 23's spreads, set before its first run on the card: a site's
+#: device time from its per-launch event pairs, over its launches, against
+#: the kernel's own time at the same shape timed apart. Never below 0.8 of
+#: it (events cannot read less than the kernel); at most 1.25 of it where a
+#: launch outlasts its wrapper's host work (K1's 100s of turns), and at
+#: most the session's wall per launch where it does not (K6's 8-turn
+#: launches at 512^2: the pair then brackets the gap the host leaves).
+EVENT_FLOOR, EVENT_CEIL = 0.8, 1.25
+
+
+def obs_reset() -> None:
+    """Every observability singleton of the port off and empty, as a
+    process starts."""
+    from gol_distributed_final_tpu_torch.obs import (
+        accounting, critical, device, flight, journal, metrics, profiler, timeline, tracing,
+    )
+
+    timeline.disable()
+    journal.disable()
+    profiler.disable()
+    metrics.enable(False)
+    metrics.registry().reset()
+    tracing.enable(False)
+    tracing.tracer().reset()
+    flight.enable(False)
+    flight.recorder().reset()
+    accounting.ledger().reset()
+    critical.tracker().reset()
+    device.reset_dispatch()
+    device.reset_hbm()
+
+
+def obs_on(trace: bool, samplers: bool = True) -> None:
+    """What the controller's ``-metrics`` (and ``-trace``, and with
+    ``samplers`` ``-timeline -profile``) flags turn on (__main__.py)."""
+    from gol_distributed_final_tpu_torch.obs import flight, metrics, profiler, timeline, tracing
+
+    metrics.enable()
+    if samplers:
+        timeline.enable(period=0.5)
+        profiler.enable(period_ms=10.0, tag="controller")
+    if trace:
+        tracing.enable()
+        tracing.set_process_name("controller")
+        flight.enable()
+
+
+def series(snap: dict, name: str) -> dict:
+    for fam in snap["families"]:
+        if fam["name"] == name:
+            return {tuple(s["labels"]): s for s in fam["series"]}
+    return {}
+
+
+def observability(dev, board512, golden_counts, card_tag, open_window, close_window,
+                  controller_main) -> dict:
+    """Phase 23: the observability layer on the card (module docstring).
+    Returns the numbers it printed."""
+    import numpy as np
+    import torch
+
+    from gol_distributed_final_tpu_torch import Params, run
+    from gol_distributed_final_tpu_torch.engine import EngineConfig
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+    from gol_distributed_final_tpu_torch.obs import perf as obs_perf
+    from gol_distributed_final_tpu_torch.obs.status import fetch_status
+    from gol_distributed_final_tpu_torch.ops import bitpack, byte_tiled, whole_board
+    from gol_distributed_final_tpu_torch.ops.fused import fused_step_n
+    from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker
+
+    out_dir = REPO / "out" / "chip_smoke_obs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    params = Params(turns=10_000, image_width=512, image_height=512)
+    name = params.output_filename + ".pgm"
+    ceil = obs_perf.calibrate(torch.cuda.get_device_name(0))
+    check(ceil.source == "known" and ceil.flops_per_s == H100_INT32_OPS_PER_S
+          and ceil.bytes_per_s == HBM_BYTES_PER_S,
+          f"obs/perf.py knows the card's ceilings, got {ceil}")
+    found: dict = {}
+
+    def session(step_n_fn, report: bool):
+        """The 512^2 x 10000 session through run(); the count at each chunk
+        boundary is read as the 2 s ticker reads it."""
+        seen = {}
+
+        def hook(engine, state, turn):
+            seen[turn] = engine.retrieve(include_world=False).alive_count
+
+        wall, result = timed_wall(lambda: run(
+            params, images_dir=REPO / "images", out_dir=out_dir, tick_seconds=3600,
+            engine_config=EngineConfig(step_n_fn=step_n_fn, chunk_hook=hook), report=report))
+        check(result.turns_completed == 10_000, "phase 23: turns")
+        bad = [t for t, c in seen.items() if c != golden_counts[t]]
+        check(not bad, f"phase 23: counts differ from check/alive at turns {bad[:5]}")
+        return wall, result, seen
+
+    # 1. the session through run() (K1 under FusedBitPlane) and through
+    # fused_step_n (K6: 512^2 is past K5's gate), each without and with
+    # the flags; every launch counted, its site's events held against it
+    paths = (
+        ("run()", None, {"pallas.fused_bit": ("whole_board", whole_board)}),
+        ("fused_step_n", fused_step_n, {"pallas.fused_byte": ("byte_tiled", byte_tiled)}),
+    )
+    p512 = bitpack.pack(board512, 0, dev)
+    c512 = torch.from_numpy(board512.copy()).to(dev)
+    kernel_ms = {
+        # K1 a turn at n = 1000 a launch, events around the launch (far
+        # longer than its host work); K6's own 8-turn launch from the
+        # profiler's device time
+        "pallas.fused_bit": cuda_ms(lambda: whole_board.step_n(p512, 1000, counted=True),
+                                    reps=5) / 1000,
+        "pallas.fused_byte": device_ms(lambda: byte_tiled.step_n(c512, 8, turns_per_launch=8),
+                                       "byte_tiled_kernel", reps=50)[0],
+    }
+    for label, step_n_fn, sites in paths:
+        obs_reset()
+        plain_wall, plain, plain_seen = session(step_n_fn, report=False)
+        plain_pgm = (out_dir / name).read_bytes()
+        obs_on(trace=True)
+        open_window()
+        wall, result, seen = session(step_n_fn, report=True)
+        torch.cuda.synchronize()
+        got = close_window(f"phase 23 {label}", [m for m, _ in sites.values()])
+        stats = obs_device.dispatch_stats()
+        snap = obs_metrics.registry().snapshot()
+        report = json.loads((out_dir / f"report_{params.output_filename}.json").read_text())
+        check(np.array_equal(result.world, plain.world), f"phase 23 {label}: the board "
+              "with every flag differs from the run without")
+        check((out_dir / name).read_bytes() == plain_pgm, f"phase 23 {label}: PGM bytes")
+        common = set(seen) & set(plain_seen)
+        check(all(seen[t] == plain_seen[t] for t in common), f"phase 23 {label}: counts")
+        turns = series(snap, "gol_engine_turns_total")[()]["value"]
+        check(turns == 10_000, f"phase 23 {label}: gol_engine_turns_total {turns}")
+        check(set(stats) == set(sites), f"phase 23 {label}: sites {sorted(stats)}")
+        check(obs_device.pending_launches() == 0, f"phase 23 {label}: unresolved pairs")
+        hist = series(snap, "gol_kernel_dispatch_seconds")
+        kinds = report["devices"]["local_devices"]
+        check(kinds and kinds[0]["device_kind"] == torch.cuda.get_device_name(0),
+              f"phase 23 {label}: the report's inventory {kinds}")
+        hbm = {k: v for k, v in report["stage_timings"].items() if "hbm" in k}
+        used = series(snap, "gol_device_hbm_bytes_in_use")[("0",)]["value"]
+        limit = series(snap, "gol_device_hbm_bytes_limit")[("0",)]["value"]
+        check(0 < used <= limit, f"phase 23 {label}: HBM in use {used} of {limit}")
+        rows = {r["site"]: r for r in obs_perf.refresh_metrics(ceil)}
+        for site, (module_name, _) in sites.items():
+            s = stats[site]
+            check(s["calls"] == got[module_name] == hist[(site,)]["count"],
+                  f"phase 23 {label}: {site} timed {s['calls']} launches, "
+                  f"{module_name} counted {got[module_name]}")
+            ops_rate, byte_rate = s["flops"] / s["wall_s"], s["bytes_accessed"] / s["wall_s"]
+            check(ops_rate <= ceil.flops_per_s and byte_rate <= ceil.bytes_per_s,
+                  f"phase 23 {label}: {site} reads {ops_rate:.4g} int32/s, {byte_rate:.4g} B/s")
+            per_launch_ms = s["wall_s"] * 1e3 / s["calls"]
+            if site == "pallas.fused_bit":
+                own_ms = kernel_ms[site] * 10_000 / s["calls"]  # the same turns, same launches
+                ceiling_ms = EVENT_CEIL * own_ms
+            else:
+                own_ms = kernel_ms[site]
+                ceiling_ms = wall * 1e3 / s["calls"]
+            check(EVENT_FLOOR * own_ms <= per_launch_ms <= ceiling_ms,
+                  f"phase 23 {label}: {site} {per_launch_ms:.5f} ms a launch by its events, "
+                  f"the kernel alone {own_ms:.5f} ms")
+            found[site] = dict(launches=s["calls"], event_ms=per_launch_ms, kernel_ms=own_ms,
+                               ops_per_s=ops_rate, bytes_per_s=byte_rate,
+                               bound_class=rows[site]["bound_class"])
+            print(f"phase 23 {label}: {site} ({module_name}) {s['calls']} launches timed by "
+                  f"event pairs = the wrapper's count; {per_launch_ms:.5f} ms a launch by its "
+                  f"events against {own_ms:.5f} ms for the kernel alone "
+                  f"({per_launch_ms / own_ms:.3g}x); {ops_rate:.4g} int32 ops/s "
+                  f"({100 * ops_rate / ceil.flops_per_s:.3g}% of the ceiling), "
+                  f"{byte_rate:.4g} B/s ({100 * byte_rate / ceil.bytes_per_s:.3g}%), "
+                  f"{rows[site]['bound_class']} {card_tag}")
+        print(f"phase 23 {label}: 512^2 x 10000 with -metrics -report -trace -timeline "
+              f"-profile: board, PGM and {len(seen)} chunk counts equal the run without "
+              f"flags and check/alive; gol_engine_turns_total 10000; HBM in use "
+              f"{int(used)} of {int(limit)} B ({hbm}); inventory {kinds[0]['device_kind']}; "
+              f"wall {wall:.4f} s with the flags, {plain_wall:.4f} s without {card_tag}")
+        obs_reset()
+
+    # 2. a broker on the card with every server flag, a -server 512^2 x 100
+    # session and 256 concurrent SessionRuns (phase 10's shape); its Status
+    # read by the port's obs.status, the roofline rows classified there
+    jdir = out_dir / "journal"
+    proc = Proc(["-m", "gol_distributed_final_tpu_torch.rpc.broker", "-port", "0",
+                 "-metrics", "-timeline", "0.5", "-trace", "-journal", str(jdir),
+                 "-profile", "-session-capacity", "256"])
+    try:
+        addr = f"127.0.0.1:{proc.port('broker listening on :')}"
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            code = controller_main(["-server", addr, "-w", "512", "-h", "512",
+                                    "-turns", "100", "-noVis"])
+        check(code == 0 and filecmp.cmp(REPO / "out" / "512x512x100.pgm",
+                                        REPO / "check" / "images" / "512x512x100.pgm",
+                                        shallow=False),
+              "phase 23 broker: the -server session's PGM")
+        rng = np.random.default_rng(SEED)
+        n_sess, side = 256, 128
+        boards = np.where(rng.random((n_sess, side, side)) < 0.3, 255, 0).astype(np.uint8)
+        budgets = [1 + (999 * i) // (n_sess - 1) for i in range(n_sess)]
+        errors = []
+
+        def one(i):
+            rb = RemoteBroker(addr)
+            try:
+                res = rb.session_run(Params(turns=budgets[i], image_width=side,
+                                            image_height=side),
+                                     boards[i], session_id=i + 1, timeout=600)
+                if res.turns_completed != budgets[i]:
+                    errors.append((i, res.turns_completed))
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append((i, e))
+            finally:
+                rb.close()
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(n_sess)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"phase 23 broker: SessionRuns {errors[:3]}")
+        # the first poll starts the broker's one calibration in the
+        # background and publishes rates only; classes follow a poll later
+        for _ in range(20):
+            t0 = time.monotonic()
+            payload = fetch_status(addr, timeout=30)
+            poll_s = time.monotonic() - t0
+            rows = obs_perf.rows_from_status(payload, ceil)
+            if rows and all(r["class_source"] == "server" for r in rows):
+                break
+            time.sleep(0.5)
+        check(rows and all(r["bound_class"] in obs_perf.BOUND_CLASSES
+                           and r["class_source"] == "server" for r in rows),
+              f"phase 23 broker: roofline rows {rows}")
+        bsnap = payload["metrics"]
+        sessions = series(bsnap, "gol_session_turns_total")[()]["value"]
+        check(sessions == sum(budgets), f"phase 23 broker: session turns {sessions}")
+        check(payload.get("timeline") and payload.get("journal") and payload.get("profile")
+              and payload.get("trace_spans"), "phase 23 broker: the Status sections")
+        print(f"phase 23 broker: -metrics -timeline -trace -journal -profile on the card; "
+              f"a -server 512^2 x 100 session golden and {n_sess} SessionRuns "
+              f"(gol_session_turns_total {int(sessions)}); Status read in {poll_s:.4f} s: "
+              + "; ".join(f"{r['site']} {r.get('calls')} launches "
+                          f"{1e3 * r.get('mean_dispatch_s', 0):.5f} ms {r['bound_class']}"
+                          for r in rows) + f" {card_tag}")
+        RemoteBroker(addr).super_quit()
+        proc.proc.wait(timeout=120)
+    finally:
+        proc.stop()
+
+    # 3. -trace-device: a torch.profiler trace of a 512^2 x 100 session
+    # that holds the kernels' names and the engine.chunk ranges
+    tdir = out_dir / "trace_device"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        code = controller_main(["-w", "512", "-h", "512", "-turns", "100", "-noVis",
+                                "-trace-device", str(tdir)])
+    obs_reset()
+    traces = sorted(tdir.glob("torch_trace_*.json"))
+    check(code == 0 and traces, "phase 23 trace-device: no trace written")
+    events = json.loads(traces[-1].read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    chunks = sum(n == "engine.chunk" for n in names)
+    k1 = sum("whole_board_kernel" in n for n in names)
+    check(chunks > 0 and k1 > 0, f"phase 23 trace-device: {chunks} engine.chunk ranges, "
+          f"{k1} whole-board kernels")
+    print(f"phase 23 trace-device: {traces[-1].name} holds {chunks} engine.chunk ranges and "
+          f"{k1} whole_board_kernel records {card_tag}")
+
+    # 4. the cost of the layer: the host time of one event pair, then the
+    # 512^2 x 10000 sessions' walls with metrics off, on, on with -trace,
+    # and with every flag, in turns, median of 3
+    obs_reset()
+    obs_on(trace=False, samplers=False)
+    pairs = 2000
+    stream = obs_device.timing_stream(dev)  # as a wrapper passes it
+    t0 = time.perf_counter()
+    for _ in range(pairs):
+        obs_device.end("pallas.fused_byte", dev, obs_device.begin(dev, stream), 1.0, 1.0)
+    t_pair = (time.perf_counter() - t0) / pairs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs_device.resolve()
+    t_fold = (time.perf_counter() - t0) / pairs
+    found["pair_host_us"], found["fold_host_us"] = 1e6 * t_pair, 1e6 * t_fold
+    ev_a, ev_b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev_a.record(stream)
+    ev_b.record(stream)
+    torch.cuda.synchronize()
+
+    def host_us(fn, n=2000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    parts = {
+        "current_stream": host_us(lambda: torch.cuda.current_stream(dev)),
+        "Event()": host_us(lambda: torch.cuda.Event(enable_timing=True)),
+        "record": host_us(lambda: ev_a.record(stream)),
+        "query": host_us(ev_b.query),
+        "elapsed_time": host_us(lambda: ev_a.elapsed_time(ev_b)),
+        "histogram observe": host_us(
+            lambda: obs_device._ins.KERNEL_DISPATCH_SECONDS.labels("x").observe(1e-6)),
+        "memory_stats": host_us(lambda: torch.cuda.memory_stats(0), 200),
+        "memory_stats_as_nested_dict": host_us(
+            lambda: torch.cuda.memory_stats_as_nested_dict(0), 200),
+        "sample_hbm": host_us(obs_device.sample_hbm, 200),
+    }
+    found["host_parts_us"] = parts
+    print(f"phase 23 overhead: one event pair costs {1e6 * t_pair:.2f} us of host time at the "
+          f"launch and {1e6 * t_fold:.2f} us to fold in (mean of {pairs}); its parts, us a "
+          f"call: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f" {card_tag}")
+    modes = {"off": None, "metrics": (False, False), "metrics+trace": (True, False),
+             "every flag": (True, True)}
+    for label, step_n_fn in (("fused_step_n", fused_step_n), ("run()", None)):
+        walls = {m: [] for m in modes}
+        for _ in range(3):
+            for mode, on in modes.items():
+                obs_reset()
+                if on is not None:
+                    obs_on(trace=on[0], samplers=on[1])
+                walls[mode].append(session(step_n_fn, report=False)[0])
+        obs_reset()
+        med = {m: sorted(w)[1] for m, w in walls.items()}
+        found[f"walls {label}"] = walls
+        print(f"phase 23 overhead: 512^2 x 10000 through {label}, median of 3 in turns: "
+              + ", ".join(f"{m} {med[m]:.4f} s ({100 * (med[m] / med['off'] - 1):+.2f}%)"
+                          for m in modes)
+              + f"; every wall {json.dumps(walls)} {card_tag}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return found
+
+
+def observability_only() -> int:
+    """``--observability``: build the kernels and run phase 23 alone."""
+    import numpy as np  # noqa: F401
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from gol_distributed_final_tpu_torch.__main__ import main as controller_main
+    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+    from gol_distributed_final_tpu_torch.ops import _build, byte_tiled, whole_board
+
+    card = nvidia_smi("name,power.limit")
+    print(card)
+    _build.build()
+    with open(REPO / "check" / "alive" / "512x512.csv") as f:
+        golden_counts = {int(r["completed_turns"]): int(r["alive_cells"])
+                         for r in csv.DictReader(f)}
+    mods = {"whole_board": whole_board, "byte_tiled": byte_tiled}
+    got: dict = {}
+
+    def open_window():
+        for m in mods.values():
+            m.reset_counts()
+
+    def close_window(label, expect):
+        got.update({n: m.launches for n, m in mods.items()})
+        for n in expect:
+            check(got[n] > 0, f"{label}: the {n} kernel never launched")
+        return dict(got)
+
+    observability(torch.device("cuda"), read_pgm(REPO / "images" / "512x512.pgm"),
+                  golden_counts, f"[{card}]", open_window, close_window, controller_main)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -2932,6 +3322,11 @@ def main() -> int:
           f"fresh process: the same PGM; {pod_launches} tiled launches in the children "
           f"(plain {pod_plain}) {card_tag}")
 
+    # 23. observability on the card: the layer's own path, its launches
+    # counted in its windows like every path's
+    observability(dev, board512, golden_counts, card_tag, open_window, close_window,
+                  controller_main)
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -3551,6 +3946,8 @@ if __name__ == "__main__":
         sys.exit(sparse_dense())
     if sys.argv[1:2] == ["--pod-layouts"]:
         sys.exit(pod_layouts())
+    if sys.argv[1:2] == ["--observability"]:
+        sys.exit(observability_only())
     if sys.argv[1:2] == ["--sparse-times"]:
         sys.exit(sparse_times(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else sys.argv[2]))
     sys.exit(main())

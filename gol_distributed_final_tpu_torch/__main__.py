@@ -5,7 +5,9 @@ height, -turns, -noVis, -server (a broker's host:port, else the engine
 runs in process), plus -rule (a B.../S... rulestring), -resume (continue
 from a checkpoint, engine/checkpoint.py) and -device (where an in-process
 session computes: default cuda; ``-device cpu`` runs on the CPU; with
--server the broker's own -device decides). ``-h`` is board height as in
+-server the broker's own -device decides), and the observability flags
+-metrics, -report, -trace, -trace-device, -timeline and -profile (obs/),
+with the JAX package's meanings and defaults. ``-h`` is board height as in
 the reference, so argparse's auto-help is disabled; use --help.
 
 Without -noVis the visualiser loop consumes the event stream (main.go:57,
@@ -102,7 +104,76 @@ def main(argv=None) -> int:
         help="where an in-process session's board lives: cuda (default; "
              "fails without a card) or cpu; not with -server",
     )
+    parser.add_argument(
+        "-trace", action="store_true", default=False,
+        help="enable the span tracer + flight recorder (obs/tracing.py): "
+             "the session becomes one cross-process trace (controller, "
+             "broker, workers share a trace_id via Request.trace_ctx) and "
+             "a Perfetto-loadable Chrome trace lands in "
+             "out/trace_<W>x<H>x<Turns>.json at session end",
+    )
+    parser.add_argument(
+        "-trace-device", dest="trace_device", nargs="?", const="out/trace_device",
+        default=None, metavar="DIR",
+        help="wrap the session in a torch.profiler trace of the host and "
+             "the card written to DIR (default out/trace_device); span "
+             "names ride along as record_function ranges so host and "
+             "device timelines line up",
+    )
+    parser.add_argument(
+        "-metrics", action="store_true", default=False,
+        help="enable the metrics registry (obs/): engine, controller, "
+             "RPC-client and kernel timings accumulate in-process",
+    )
+    parser.add_argument(
+        "-report", action="store_true", default=False,
+        help="write out/report_<W>x<H>x<Turns>.json (metrics + device "
+             "inventory) at FinalTurnComplete; implies -metrics",
+    )
+    parser.add_argument(
+        "-timeline", nargs="?", const=1.0, default=None, type=float,
+        metavar="SECS",
+        help="enable the in-process metric timeline + SLO rulebook "
+             "(obs/timeline.py, obs/slo.py) at this sampling cadence "
+             "(default 1 s): rates/p99s and alert states land in the run "
+             "report, and counter tracks join the -trace Chrome export; "
+             "implies -metrics",
+    )
+    parser.add_argument(
+        "-profile", nargs="?", const=10.0, default=None, type=float,
+        metavar="MS",
+        help="enable the continuous sampling profiler (obs/profiler.py) "
+             "at this cadence (default 10 ms, adaptive backoff): the run "
+             "report embeds the hot-frame summary and collapsed-stack + "
+             "speedscope artifacts land in out/ at session end; implies "
+             "-metrics",
+    )
     args = parser.parse_args(argv)
+    if args.metrics or args.report:
+        # before any instrumented path runs, so the report sees the whole
+        # session
+        from .obs import metrics
+
+        metrics.enable()
+    if args.timeline is not None:
+        if args.timeline <= 0:
+            parser.error(f"-timeline SECS must be > 0, got {args.timeline}")
+        from .obs import timeline
+
+        timeline.enable(period=args.timeline)  # implies metrics.enable()
+    if args.trace:
+        # the controller role labels this process's track in the export
+        from .obs import flight, tracing
+
+        tracing.enable()
+        tracing.set_process_name("controller")
+        flight.enable()
+    if args.profile is not None:
+        if args.profile <= 0:
+            parser.error(f"-profile MS must be > 0, got {args.profile}")
+        from .obs import profiler as _profiler
+
+        _profiler.enable(period_ms=args.profile, tag="controller")  # implies metrics
     if args.rule and args.resume:
         parser.error("-rule conflicts with -resume (the checkpoint's rule wins)")
     rule = None
@@ -161,11 +232,32 @@ def main(argv=None) -> int:
         consumer = threading.Thread(target=viz_run, args=(params, events, keypresses))
     consumer.start()
     try:
-        # the in-process engine can feed the visualiser per-cell flips; the
-        # remote path (like the reference's distributed mode) cannot
-        run(params, events, keypresses, broker=broker, rule=rule, device=device,
-            resume_from=resume, emit_flips=not args.noVis and broker is None)
+        import contextlib
+
+        trace_ctx = contextlib.nullcontext()
+        if args.trace_device:
+            # the profiler's trace, with the span names as ranges
+            from .obs.tracing import device_trace
+
+            trace_ctx = device_trace(args.trace_device)
+        with trace_ctx:
+            # the in-process engine can feed the visualiser per-cell flips;
+            # the remote path (like the reference's distributed mode) cannot
+            run(params, events, keypresses, broker=broker, rule=rule, device=device,
+                resume_from=resume, emit_flips=not args.noVis and broker is None,
+                report=args.report)
+    except BaseException as exc:
+        if args.profile is not None:
+            from .obs import profiler as _profiler
+
+            # the profile of the session that died, on disk
+            _profiler.flush_on_crash(exc)
+        raise
     finally:
+        if args.profile is not None:
+            from .obs import profiler as _profiler
+
+            _profiler.shutdown()  # run-end artifacts + gc unhook
         consumer.join()
         restore_tty()
         if broker is not None:

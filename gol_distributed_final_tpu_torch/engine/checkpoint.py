@@ -22,9 +22,10 @@ other:
 
 The ``-resume`` surfaces load through :func:`load_verified_checkpoint` or
 :func:`load_resume_checkpoint`; :func:`load_checkpoint` stays lenient for
-callers that accept files without a digest. Verification is not metered
-here: the JAX package counts each attempt on ``gol_ckpt_verify_total``
-and journals it, and the port has no ``obs/`` yet.
+callers that accept files without a digest. Every verification attempt,
+of a full file or a delta, is counted on ``gol_ckpt_verify_total{result}``
+and journalled (``ckpt.verify``), and a resume journals what it replayed
+(``ckpt.replay``), as in the JAX package.
 
 A bitboard sharded over several processes (parallel/mesh.ShardedBoard)
 checkpoints as one file per rank, ``<stem>.rank<k>of<n>.npz``, each
@@ -44,6 +45,9 @@ import numpy as np
 import torch
 
 from ..models import CONWAY, LifeRule
+from ..obs import flight as _flight
+from ..obs import instruments as _ins
+from ..obs import journal as _journal
 
 CKPT_FORMAT_VERSION = 2
 
@@ -172,11 +176,29 @@ def _load_for_verification(path) -> tuple[np.ndarray, int, LifeRule, Optional[st
     return board, turn, rule, stored, version
 
 
+def _metered_verify(path, load):
+    """Run ``load()``, a verification of ``path`` returning ``(board, turn,
+    ...)``, counting and journalling its outcome."""
+    try:
+        result = load()
+    except CheckpointError as exc:
+        _ins.CKPT_VERIFY_TOTAL.labels("fail").inc()
+        _journal.record("ckpt.verify", "fail", path=str(path), kind=exc.kind)
+        raise
+    _ins.CKPT_VERIFY_TOTAL.labels("ok").inc()
+    _journal.record("ckpt.verify", "ok", path=str(path), turn=result[1])
+    return result
+
+
 def load_verified_checkpoint(path) -> tuple[np.ndarray, int, LifeRule]:
     """``load_checkpoint`` with the integrity contract: the file must carry
     a digest and its contents must hash to it, else a typed
     :class:`CheckpointError` — a resume never reattaches state it cannot
-    verify."""
+    verify. Every attempt is counted (``gol_ckpt_verify_total{result}``)."""
+    return _metered_verify(path, lambda: _load_verified(path))
+
+
+def _load_verified(path) -> tuple[np.ndarray, int, LifeRule]:
     board, turn, rule, stored, version = _load_for_verification(path)
     if stored is None:
         raise CheckpointError(
@@ -258,8 +280,14 @@ def try_write_checkpoint_sharded(path, turn: int, rule: LifeRule, plane, state) 
         save_packed_checkpoint_sharded(path, state, turn, rule, plane.word_axis)
     except Exception as exc:  # noqa: BLE001 — voted on, then returned
         ok, err = 0, exc
+    # the vote, recorded before the collective: if a peer never shows up,
+    # every surviving rank's flight ring names this crossing as its last act
+    _flight.record("ckpt.vote", "checkpoint_agreement", turn=turn, ok=bool(ok))
     oks = allgather(np.array([ok], np.int64))
     failed = int(len(oks) - oks.sum())
+    _flight.record(
+        "ckpt.agree", "checkpoint_agreement", turn=turn, failed_ranks=failed,
+    )
     if failed and err is None:
         err = OSError(
             f"checkpoint at turn {turn}: shard write failed on {failed} other "
@@ -322,7 +350,11 @@ def load_resume_checkpoint(path, keep: int = 1) -> tuple[np.ndarray, int, LifeRu
             except CheckpointError as exc:
                 attempts.append(f"{dpath}: [{exc.kind}] {exc}")
                 continue
+            _journal.record(
+                "ckpt.replay", "delta", turn=turn_d, gen=gen, base_turn=turn,
+            )
             return board_d, turn_d, rule, gen
+        _journal.record("ckpt.replay", "full", turn=turn, gen=gen)
         return board, turn, rule, gen
     raise CheckpointError(
         "no verifiable checkpoint generation to resume from:\n  "
@@ -420,10 +452,16 @@ def apply_delta_checkpoint(
     """Apply one delta file onto its verified base → ``(board, turn)``.
     Raises a typed CheckpointError when the base is not the one the delta
     was cut against, when the payload is malformed, or when the result
-    does not hash to the embedded digest."""
+    does not hash to the embedded digest. Every attempt is counted
+    (``gol_ckpt_verify_total{result}``)."""
+    return _metered_verify(
+        path, lambda: _apply_delta(pathlib.Path(path), base_board, base_turn, rule)
+    )
+
+
+def _apply_delta(path, base_board, base_turn: int, rule: LifeRule) -> tuple[np.ndarray, int]:
     from ..ops.sparse import apply_dirty_tiles
 
-    path = pathlib.Path(path)
     try:
         with np.load(path, allow_pickle=False) as data:
             missing = [k for k in _DELTA_FIELDS if k not in data]

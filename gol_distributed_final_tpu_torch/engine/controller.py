@@ -33,10 +33,28 @@ from ..events import (
 )
 from ..io.pgm import read_board, write_board
 from ..models import CONWAY
+from ..obs import flight as _flight
+from ..obs import instruments as _ins
+from ..obs import metrics as _metrics
+from ..obs import tracing as _tracing
 from .engine import Engine, EngineConfig, RunResult
 
 CLOSED = object()
 """Sentinel marking the end of an event stream (Go's close(events))."""
+
+
+def _emit(events: "queue.Queue", ev) -> None:
+    """events.put with per-event-type observability (obs/instruments.py):
+    emit latency and a count by event class. A flag check when metrics are
+    off; the CLOSED sentinel stays a raw put (stream plumbing, not an
+    event)."""
+    if not _metrics.enabled():
+        events.put(ev)
+        return
+    t0 = time.monotonic()
+    events.put(ev)
+    _ins.CONTROLLER_EMIT_SECONDS.observe(time.monotonic() - t0)
+    _ins.CONTROLLER_EVENTS_TOTAL.labels(type(ev).__name__).inc()
 
 
 def iter_events(q: "queue.Queue", timeout: float | None = None):
@@ -98,16 +116,23 @@ class _Ticker:
 
     _POLL = 0.02
 
-    def __init__(self, params, events, keypresses, broker, out_dir, tick_seconds):
+    def __init__(
+        self, params, events, keypresses, broker, out_dir, tick_seconds,
+        trace_parent=None,
+    ):
         self.params = params
         self.events = events
         self.keypresses = keypresses
         self.broker = broker
         self.out_dir = out_dir
         self.tick_seconds = tick_seconds
+        # the session span's context: tick and key spans run on THIS
+        # thread, where the session's thread-local stack is invisible
+        self._trace_parent = trace_parent
         self.done = threading.Event()
         self.paused = False
         self._last_turn = 0  # last turn seen by any successful retrieve
+        self._tick_failures = 0  # consecutive, for broker-outage log pacing
         self._thread = threading.Thread(target=self._loop, daemon=True)
 
     def start(self):
@@ -150,28 +175,56 @@ class _Ticker:
                 except queue.Empty:
                     key = None
             if key is not None:
+                t_key = time.monotonic() if _metrics.enabled() else 0.0
+                key_span = _tracing.start_span(
+                    _tracing.SPAN_CONTROLLER_KEY, parent_ctx=self._trace_parent, key=key,
+                )
                 try:
                     self._handle_key(key)
                 except Exception as exc:
                     # the control thread must survive a failed key action:
                     # dying here silently kills the 2 s tick AND q/k/p
                     print(f"key '{key}' failed: {exc}")
+                finally:
+                    _tracing.end_span(key_span)
+                    if t_key:
+                        _ins.CONTROLLER_KEY_SECONDS.labels(key).observe(
+                            time.monotonic() - t_key
+                        )
                 continue
             if time.monotonic() >= next_tick:
                 # re-anchor rather than increment: missed ticks coalesce
                 # like Go's time.Ticker instead of bursting
                 next_tick = time.monotonic() + self.tick_seconds
+                t_tick = time.monotonic() if _metrics.enabled() else 0.0
+                tick_span = _tracing.start_span(
+                    _tracing.SPAN_CONTROLLER_TICK, parent_ctx=self._trace_parent,
+                )
                 try:
                     snap = self.broker.retrieve(include_world=False)
                 except Exception as exc:
                     # a raising tick must not kill the control thread —
-                    # keypresses (including 'q') still need servicing
-                    print(f"tick retrieve failed: {exc}")
+                    # keypresses (including 'q') still need servicing. A
+                    # broker outage fails every tick: log the first and
+                    # every 10th, and leave each in the flight ring
+                    self._tick_failures += 1
+                    _flight.record(
+                        "controller.tick_error", type(exc).__name__,
+                        consecutive=self._tick_failures, message=str(exc)[:200],
+                    )
+                    if self._tick_failures == 1 or self._tick_failures % 10 == 0:
+                        print(f"tick retrieve failed (x{self._tick_failures}): {exc}")
                     continue
+                finally:
+                    _tracing.end_span(tick_span)
+                self._tick_failures = 0
+                if t_tick:
+                    _ins.CONTROLLER_TICK_SECONDS.observe(time.monotonic() - t_tick)
                 self._last_turn = snap.turns_completed
                 if not self.paused and not self.done.is_set():
-                    self.events.put(
-                        AliveCellsCount(snap.turns_completed, snap.alive_count)
+                    _emit(
+                        self.events,
+                        AliveCellsCount(snap.turns_completed, snap.alive_count),
                     )
                 continue
             time.sleep(self._POLL)
@@ -180,7 +233,7 @@ class _Ticker:
         # gol/distributor.go:61-122
         if key == "q":
             turn = self._try_snapshot_turn()
-            self.events.put(StateChange(turn, Quitting))
+            _emit(self.events, StateChange(turn, Quitting))
             self.done.set()
             self.broker.quit()
         elif key == "s":
@@ -188,7 +241,7 @@ class _Ticker:
             self._snapshot_to_pgm()
         elif key == "k":
             turn = self._try_snapshot_turn()
-            self.events.put(StateChange(turn, Quitting))
+            _emit(self.events, StateChange(turn, Quitting))
             self.done.set()
             self.broker.super_quit()
         elif key == "p":
@@ -198,14 +251,14 @@ class _Ticker:
             # no Paused/Executing event has been emitted yet
             if not self.paused:
                 self.broker.pause()
-                self.events.put(StateChange(snap.turns_completed, State.PAUSED))
+                _emit(self.events, StateChange(snap.turns_completed, State.PAUSED))
                 self.paused = True
             else:
                 self.broker.pause()
                 # the reference reports one turn fewer on resume
                 # (gol/distributor.go:118) — preserved for parity
-                self.events.put(
-                    StateChange(snap.turns_completed - 1, State.EXECUTING)
+                _emit(
+                    self.events, StateChange(snap.turns_completed - 1, State.EXECUTING)
                 )
                 self.paused = False
 
@@ -224,6 +277,7 @@ def run(
     tick_seconds: float = 2.0,
     device=None,
     resume_from=None,
+    report: bool = False,
 ) -> RunResult:
     """Run a full Game of Life session (gol.Run + distributor, gol/gol.go:12).
 
@@ -247,6 +301,13 @@ def run(
     early and passes it on, so the file is read and hashed once). The
     session runs under the checkpoint's rule, and a remote broker is sent
     its board, turn and rule.
+
+    ``report`` writes a RunReport (obs/report.py: the metrics registry and
+    the device inventory) to ``out_dir/report_<W>x<H>x<Turns>.json`` at
+    ``FinalTurnComplete`` — the ``-report`` CLI flag. The registry must be
+    enabled (``obs.metrics.enable()``; the flag does it) for the report to
+    carry timings; a report failure is printed, never fatal. With tracing
+    on (``-trace``) the session's Chrome trace is written beside it.
     """
     initial_turn = 0
     ckpt_rule = None
@@ -295,11 +356,23 @@ def run(
         )
 
     ticker = None
+    t_session = time.monotonic()
+    # the session root span (one flag check when -trace is off): every
+    # tick, keypress, RPC and remote engine chunk of this session parents
+    # under it — one trace_id across every process
+    session_span = _tracing.start_span(
+        _tracing.SPAN_CONTROLLER_SESSION,
+        turns=params.turns,
+        board=f"{params.image_width}x{params.image_height}",
+    )
     try:
         if broker is None:
             broker = InProcessBroker(Engine(engine_config))
         world = ckpt_world if resume_from is not None else read_board(params, images_dir)
-        ticker = _Ticker(params, events, keypresses, broker, out_dir, tick_seconds)
+        ticker = _Ticker(
+            params, events, keypresses, broker, out_dir, tick_seconds,
+            trace_parent=session_span.ctx() if session_span else None,
+        )
         ticker.start()
         # a resumed checkpoint's rule, or a non-Conway session rule, rides
         # along to the broker, which cannot otherwise know it (the
@@ -321,14 +394,56 @@ def run(
         # join the ticker BEFORE the closing sequence so no stray
         # AliveCellsCount can interleave after StateChange{Quitting}
         ticker.stop()
-        events.put(FinalTurnComplete(result.turns_completed, result.alive))
+        _emit(events, FinalTurnComplete(result.turns_completed, result.alive))
+        if _tracing.enabled():
+            # close the session span FIRST so it lands in the export, then
+            # write the Chrome trace: local spans and whatever the broker's
+            # Status verb ships back (its own, and a workers-backend
+            # broker's workers'). A failed export must not fail the session
+            _tracing.end_span(session_span)
+            session_span = None
+            try:
+                spans = _tracing.tracer().snapshot()
+                status_fn = getattr(broker, "status", None)
+                if callable(status_fn):
+                    payload = status_fn()
+                    spans.extend(payload.get("trace_spans") or [])
+                # -timeline: counter tracks on the same timeline as the spans
+                from ..obs import timeline as _timeline
+
+                sampler = _timeline.sampler()
+                counters = sampler.chrome_counter_samples() if sampler else ()
+                path = _tracing.write_chrome_trace(
+                    _tracing.trace_path(params, out_dir), spans, counters
+                )
+                print(f"chrome trace written to {path}")
+            except Exception as exc:
+                print(f"trace export failed: {exc}")
+        if report:
+            # the run's attribution artifact; a failed dump must not fail
+            # the session it describes
+            try:
+                from ..obs.report import write_run_report
+
+                path = write_run_report(
+                    params,
+                    out_dir,
+                    wall_seconds=time.monotonic() - t_session,
+                    extra={"turns_completed": result.turns_completed},
+                )
+                print(f"run report written to {path}")
+            except Exception as exc:
+                print(f"run report failed: {exc}")
         write_board(result.world, params.output_filename, out_dir)
-        events.put(
-            ImageOutputComplete(result.turns_completed, params.output_filename)
+        _emit(
+            events, ImageOutputComplete(result.turns_completed, params.output_filename)
         )
-        events.put(StateChange(result.turns_completed, Quitting))
+        _emit(events, StateChange(result.turns_completed, Quitting))
         return result
     finally:
+        # None when already closed for the export above; ends the error
+        # paths' span so the thread-local stack cannot wedge across runs
+        _tracing.end_span(session_span)
         if ticker is not None:
             ticker.done.set()
         # the stream must always terminate, even on error — a consumer

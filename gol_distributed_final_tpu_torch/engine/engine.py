@@ -22,6 +22,14 @@ thread (the controller's ticker). The state is guarded by a lock, like
 the broker's ``cWorld``/``cTurn`` under ``mt sync.Mutex``
 (broker/broker.go:32-36). Every kernel launches on the default stream, so
 a ticker's copy of the chunk's counts orders after the chunk.
+
+Each chunk is metered as the JAX package's engine meters it (obs/): a
+span and an ``engine.chunk`` profiler range, the step, dispatch, park
+and checkpoint histograms, turns, chunks and chunk size, HBM samples, the
+journal's run, chunk, early-exit and checkpoint records, the flight
+recorder's crash dump and a timeline tick. The dispatch wall of a growth
+chunk is the synchronised wall above, and the kernels' event pairs
+(obs/device.py) are folded in after each synchronisation the loop makes.
 """
 
 from __future__ import annotations
@@ -38,6 +46,14 @@ import torch
 from ..device import resolve_device
 from ..events import CellFlipped, TurnComplete
 from ..models import CONWAY, LifeRule
+from ..obs import device as _device
+from ..obs import flight as _flight
+from ..obs import instruments as _ins
+from ..obs import journal as _journal
+from ..obs import metrics as _metrics
+from ..obs import perf as _perf
+from ..obs import timeline as _timeline
+from ..obs import tracing as _tracing
 from ..ops.reduce import alive_cells
 from ..utils.cell import Cell
 
@@ -46,6 +62,22 @@ from ..utils.cell import Cell
 # outputs are live on the device and a retrieve observes a state at most
 # ~depth dispatch-targets old
 _PIPELINE_DEPTH = 3
+
+
+class _CrashRecords:
+    """Around a run: an exception leaving it dumps the flight ring and
+    flushes the journal with the crash recorded (both no-ops when off),
+    then propagates. A context manager, so the run loop holds no
+    exception handler."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc is not None:
+            _flight.dump_on_crash(exc)
+            _journal.flush_on_crash(exc)
+        return False
 
 
 class Snapshot(NamedTuple):
@@ -289,6 +321,10 @@ class Engine:
             # after the controller started its ticker but before the run
             # loop initialised must still take effect
 
+        # pre-run HBM baseline, once a run: even a run that dies in its
+        # first chunk leaves the pre-run occupancy on the gauges
+        _device.sample_hbm()
+
         # a state sharded over several processes (parallel/mesh.py): every
         # rank runs this same loop, and every collective (halos, counts,
         # votes) must come in the same order on every rank, so no decision
@@ -307,136 +343,223 @@ class Engine:
                     "plane has no word_axis"
                 )
 
-        try:
-            if emit_flips and emit is not None:
-                for c in alive_cells(world):
-                    emit(CellFlipped(0, c))
-            chunk = max(1, min(self.config.min_chunk, self.config.max_chunk))
-            ckpt_error: Exception | None = None
-            # once the chunk size stops growing, chunks are queued without
-            # waiting and the loop only blocks when more than
-            # _PIPELINE_DEPTH are outstanding (one CUDA event each)
-            inflight: deque = deque()
-            growth_done = False  # doubling ended (max_chunk OR slow chunk)
-            while True:
-                with self._lock:
-                    while self._paused and not self._quit:
-                        self._parked = True
-                        self._control.notify_all()
-                        self._control.wait()
-                    self._parked = False
-                    if self._quit or self._turn >= params.turns:
-                        break
-                    n = min(chunk, params.turns - self._turn)
-                    if emit_flips:
-                        n = 1
-                    state = self._state
-                    active_plane = self._plane
-                    # early exit (ops/plane.py protocol): a plane that
-                    # marked its state steady jumps ALL remaining turns
-                    early = None
-                    if not emit_flips:
-                        from ..ops.plane import plane_steady_kind
-
-                        early = plane_steady_kind(active_plane, state)
-                        if early:
-                            n = params.turns - self._turn
-
-                growing = not emit_flips and not growth_done
-                t0 = time.monotonic()
-                chunk_counts = None
-                if early:
-                    new_state = active_plane.fast_forward(state, n)
-                elif not emit_flips and hasattr(active_plane, "step_n_counted"):
-                    # the chunk's turns AND its alive reduction together;
-                    # the committed counts serve the count-only Retrieve
-                    new_state, chunk_counts = active_plane.step_n_counted(state, n)
-                else:
-                    new_state = active_plane.step_n(state, n)
-                # a plane's state is a tensor or holds its board in
-                # ``packed`` (ops/sparse.py::SparseState)
-                board = getattr(new_state, "packed", new_state)
-                if board.is_cuda:
-                    # a mesh state's blocks may sit on several cards
-                    cards = getattr(board, "cuda_devices", [board.device])
-                    if growing:
-                        # the wall below drives the doubling: it must
-                        # cover the card's work, not the launch
-                        for card in cards:
-                            torch.cuda.synchronize(card)
-                    else:
-                        fences = []
-                        for card in cards:
-                            fences.append(torch.cuda.Event())
-                            fences[-1].record(torch.cuda.current_stream(card))
-                        inflight.append(fences)
-                        if len(inflight) > _PIPELINE_DEPTH:
-                            for fence in inflight.popleft():
-                                fence.synchronize()
-                elapsed = time.monotonic() - t0
-                if growing and multiprocess:
-                    # the ranks agree on the slowest rank's wall, so every
-                    # rank takes the same growth decision (one all-gather a
-                    # growth chunk, at most log2(max_chunk) a run)
-                    from ..parallel.multihost import allgather
-
-                    elapsed = float(allgather(np.array([elapsed], np.float64)).max())
-                if growing:
-                    if chunk >= self.config.max_chunk or (
-                        elapsed >= self.config.target_dispatch_seconds
-                    ):
-                        # whichever way doubling ends, later chunks go
-                        # async and never re-trigger doubling
-                        growth_done = True
-                    else:
-                        chunk = min(chunk * 2, self.config.max_chunk)
-
-                with self._lock:
-                    prev_host = self._world_host if emit_flips else None
-                    self._state = new_state
-                    # a stale count must never outlive its state
-                    self._state_counts = chunk_counts
-                    self._host_dirty = True
-                    self._turn += n
-                    turn_now = self._turn
-                    if emit_flips:
-                        self._sync_host()
-                        new_host = self._world_host
-
+        # an unhandled engine exception is the moment the flight recorder
+        # exists for: its ring is dumped (no-op unless -trace) and the
+        # journal flushed with the crash recorded, then it propagates
+        with _CrashRecords():
+            try:
+                _journal.record(
+                    "run.start", "engine", turns=int(params.turns),
+                    initial_turn=initial_turn,
+                )
                 if emit_flips and emit is not None:
-                    changed = np.nonzero(prev_host != new_host)
-                    for y, x in zip(*changed):
-                        emit(CellFlipped(turn_now, Cell(int(x), int(y))))
-                    emit(TurnComplete(turn_now))
+                    for c in alive_cells(world):
+                        emit(CellFlipped(0, c))
+                chunk = max(1, min(self.config.min_chunk, self.config.max_chunk))
+                ckpt_error: Exception | None = None
+                # once the chunk size stops growing, chunks are queued without
+                # waiting and the loop only blocks when more than
+                # _PIPELINE_DEPTH are outstanding (one CUDA event each)
+                inflight: deque = deque()
+                growth_done = False  # doubling ended (max_chunk OR slow chunk)
+                while True:
+                    t_iter0 = time.monotonic()
+                    park_dt = 0.0
+                    with self._lock:
+                        if self._paused and not self._quit:
+                            # the park gate, timed and spanned: how long
+                            # control traffic held the data plane still
+                            t_park = time.monotonic()
+                            park_span = _tracing.start_span(
+                                _tracing.SPAN_ENGINE_PARK, turn=self._turn
+                            )
+                            while self._paused and not self._quit:
+                                self._parked = True
+                                self._control.notify_all()
+                                self._control.wait()
+                            _tracing.end_span(park_span)
+                            park_dt = time.monotonic() - t_park
+                            _ins.ENGINE_PARK_SECONDS.observe(park_dt)
+                        self._parked = False
+                        if self._quit or self._turn >= params.turns:
+                            break
+                        n = min(chunk, params.turns - self._turn)
+                        if emit_flips:
+                            n = 1
+                        state = self._state
+                        active_plane = self._plane
+                        # early exit (ops/plane.py protocol): a plane that
+                        # marked its state steady jumps ALL remaining turns
+                        early = None
+                        if not emit_flips:
+                            from ..ops.plane import plane_steady_kind
 
-                if self.config.chunk_hook is not None:
-                    # a hook that blocks IS a pause: the loop cannot
-                    # advance past it
-                    self.config.chunk_hook(self, new_state, turn_now)
+                            early = plane_steady_kind(active_plane, state)
+                            if early:
+                                n = params.turns - self._turn
 
-                every = self.config.checkpoint_every
-                if every and turn_now // every > (turn_now - n) // every:
-                    ckpt_error = self._write_checkpoint(new_state, turn_now) or ckpt_error
-
-            with self._lock:
-                turns_done = self._turn
-                if self.config.final_world:
-                    self._sync_host()
-                    return RunResult(
-                        turns_done, self._world_host, checkpoint_error=ckpt_error
+                    growing = not emit_flips and not growth_done
+                    t0 = time.monotonic()
+                    # per-chunk span (one flag check when -trace is off), and
+                    # the same name as a profiler range under -trace-device
+                    chunk_span = (
+                        _tracing.start_span(_tracing.SPAN_ENGINE_CHUNK, turns=n)
+                        if _tracing.enabled() else None
                     )
-                state_f, plane_f = self._state, self._plane
-            return RunResult(
-                turns_done, None, state=state_f, plane=plane_f,
-                checkpoint_error=ckpt_error,
-            )
-        finally:
-            with self._lock:
-                self._running = False
-                self._paused = False
-                self._quit = False  # consumed; a reattached run starts fresh
-                # _plane/_state stay: Retrieve keeps serving the final board
-                self._control.notify_all()
+                    chunk_counts = None
+                    with _tracing.annotate("engine.chunk"):
+                        if early:
+                            new_state = active_plane.fast_forward(state, n)
+                        elif not emit_flips and hasattr(active_plane, "step_n_counted"):
+                            # the chunk's turns AND its alive reduction
+                            # together; the committed counts serve the
+                            # count-only Retrieve
+                            new_state, chunk_counts = active_plane.step_n_counted(state, n)
+                        else:
+                            new_state = active_plane.step_n(state, n)
+                    # a plane's state is a tensor or holds its board in
+                    # ``packed`` (ops/sparse.py::SparseState)
+                    board = getattr(new_state, "packed", new_state)
+                    if board.is_cuda:
+                        # a mesh state's blocks may sit on several cards
+                        cards = getattr(board, "cuda_devices", [board.device])
+                        if growing:
+                            # the wall below drives the doubling: it must
+                            # cover the card's work, not the launch
+                            for card in cards:
+                                torch.cuda.synchronize(card)
+                        else:
+                            fences = []
+                            for card in cards:
+                                fences.append(torch.cuda.Event())
+                                fences[-1].record(torch.cuda.current_stream(card))
+                            inflight.append(fences)
+                            if len(inflight) > _PIPELINE_DEPTH:
+                                for fence in inflight.popleft():
+                                    fence.synchronize()
+                        if _metrics.enabled():
+                            # the launches the card has finished by now
+                            _device.resolve()
+                    if chunk_span is not None:
+                        _tracing.end_span(chunk_span, sync=growing)
+                    elapsed = time.monotonic() - t0
+                    attribution = _metrics.enabled() and _perf.attribution_enabled()
+                    if attribution:
+                        # dispatch-wall decomposition (obs/perf.py): planning
+                        # and lock time before the dispatch against the
+                        # dispatch itself; the demux segment closes after the
+                        # commit below
+                        _ins.TURN_SEGMENT_SECONDS.labels("engine", "host_prep").observe(
+                            max(0.0, t0 - t_iter0 - park_dt)
+                        )
+                        _ins.TURN_SEGMENT_SECONDS.labels("engine", "device_compute").observe(
+                            elapsed
+                        )
+                    if _metrics.enabled() and not early:
+                        # the chunk's wall spread over its turns, so the step
+                        # histogram's count is the turn count; an early-exit
+                        # jump is excluded: its turns were never computed
+                        _ins.ENGINE_DISPATCH_SECONDS.observe(elapsed)
+                        _ins.ENGINE_STEP_SECONDS.observe_n(elapsed / n, n)
+                        _ins.ENGINE_TURNS_TOTAL.inc(n)
+                        _ins.ENGINE_CHUNKS_TOTAL.inc()
+                        _ins.ENGINE_CHUNK_SIZE.set(chunk)
+                    if _metrics.enabled():
+                        _device.sample_hbm()
+                    # opportunistic timeline tick at the chunk boundary
+                    _timeline.maybe_sample()
+                    if growing and multiprocess:
+                        # the ranks agree on the slowest rank's wall, so every
+                        # rank takes the same growth decision (one all-gather a
+                        # growth chunk, at most log2(max_chunk) a run)
+                        from ..parallel.multihost import allgather
+
+                        elapsed = float(allgather(np.array([elapsed], np.float64)).max())
+                    if growing:
+                        if chunk >= self.config.max_chunk or (
+                            elapsed >= self.config.target_dispatch_seconds
+                        ):
+                            # whichever way doubling ends, later chunks go
+                            # async and never re-trigger doubling
+                            growth_done = True
+                        else:
+                            chunk = min(chunk * 2, self.config.max_chunk)
+
+                    t_commit0 = time.monotonic()
+                    with self._lock:
+                        prev_host = self._world_host if emit_flips else None
+                        self._state = new_state
+                        # a stale count must never outlive its state
+                        self._state_counts = chunk_counts
+                        self._host_dirty = True
+                        self._turn += n
+                        turn_now = self._turn
+                        if emit_flips:
+                            self._sync_host()
+                            new_host = self._world_host
+
+                    # journal outside the lock: one record a chunk boundary
+                    _journal.record(
+                        "chunk.commit", "engine", k=n, turn=turn_now,
+                        route="early" if early else (
+                            "fused" if chunk_counts is not None else "plain"
+                        ),
+                    )
+                    if early:
+                        _journal.record("early.exit", early, turn=turn_now)
+                    if emit_flips and emit is not None:
+                        changed = np.nonzero(prev_host != new_host)
+                        for y, x in zip(*changed):
+                            emit(CellFlipped(turn_now, Cell(int(x), int(y))))
+                        emit(TurnComplete(turn_now))
+                    if attribution:
+                        _ins.TURN_SEGMENT_SECONDS.labels("engine", "demux").observe(
+                            time.monotonic() - t_commit0
+                        )
+
+                    if self.config.chunk_hook is not None:
+                        # a hook that blocks IS a pause: the loop cannot
+                        # advance past it
+                        self.config.chunk_hook(self, new_state, turn_now)
+
+                    every = self.config.checkpoint_every
+                    if every and turn_now // every > (turn_now - n) // every:
+                        # an HBM sample at every checkpoint, metrics on or off:
+                        # it advances the peak the RunReport publishes
+                        _device.sample_hbm()
+                        t_ckpt = time.monotonic()
+                        ckpt_span = _tracing.start_span(
+                            _tracing.SPAN_ENGINE_CHECKPOINT, turn=turn_now
+                        )
+                        err = self._write_checkpoint(new_state, turn_now)
+                        if err is None:
+                            _journal.record("ckpt.write", "engine", turn=turn_now)
+                        else:
+                            ckpt_error = err
+                            _ins.ENGINE_CHECKPOINT_ERRORS_TOTAL.inc()
+                        _tracing.end_span(ckpt_span, ok=err is None)
+                        _ins.ENGINE_CHECKPOINT_SECONDS.observe(time.monotonic() - t_ckpt)
+
+                with self._lock:
+                    turns_done = self._turn
+                    if self.config.final_world:
+                        self._sync_host()
+                        return RunResult(
+                            turns_done, self._world_host, checkpoint_error=ckpt_error
+                        )
+                    state_f, plane_f = self._state, self._plane
+                return RunResult(
+                    turns_done, None, state=state_f, plane=plane_f,
+                    checkpoint_error=ckpt_error,
+                )
+            finally:
+                _journal.record("run.end", "engine", turn=self._turn)
+                with self._lock:
+                    self._running = False
+                    self._paused = False
+                    self._quit = False  # consumed; a reattached run starts fresh
+                    # _plane/_state stay: Retrieve keeps serving the final board
+                    self._control.notify_all()
 
     def _write_checkpoint(self, state, turn: int) -> Optional[Exception]:
         """The periodic checkpoint of ``state`` at ``turn``, between chunks:

@@ -34,7 +34,10 @@ Concurrency model: ``admit`` / ``snapshot`` / ``cancel`` may be called
 from any thread (RPC handlers); ``advance`` must be called from ONE
 driver thread (rpc/broker.SessionScheduler owns it). The batch state and
 every session's committed (turns_done, alive_count) move together under
-one lock, so a snapshot never pairs a new turn with a stale count. A
+one lock, so a snapshot never pairs a new turn with a stale count. The
+table meters admissions, refusals, occupancy, turns and the chunk wall
+per universe-turn, feeds the tenant ledger (obs/accounting.py) and
+journals admissions, commits and finals, as the JAX package's does. A
 handler that decodes a universe outside the lock keeps its own reference
 to the state tensor it read under the lock, so the driver replacing the
 state cannot free it; every launch and copy runs on the device's current
@@ -44,17 +47,23 @@ stream, so the decode orders after the launch that wrote it.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 
 from ..events import AliveCellsCount, FinalTurnComplete, TurnComplete
 from ..models import CONWAY, LifeRule
+from ..obs import accounting as _acct
+from ..obs import instruments as _ins
+from ..obs import journal as _journal
+from ..obs import metrics as _metrics
+from ..obs import perf as _perf
 from ..ops.auto import auto_batch_plane
 from ..ops.reduce import alive_cells
 
 #: admission-refusal reasons (``SessionRejected.reason``), the JAX
-#: package's stable label set
+#: package's stable label set of ``gol_sessions_rejected_total``
 REJECT_REASONS = ("capacity", "geometry", "rule", "turns", "tag")
 
 
@@ -67,9 +76,12 @@ class SessionRejected(RuntimeError):
         self.reason = reason
 
 
-def reject(reason: str, message: str) -> SessionRejected:
-    """Build one admission refusal (table- and scheduler-level refusals
-    alike)."""
+def reject(reason: str, message: str, tenant: str = "-") -> SessionRejected:
+    """Count, journal and build one admission refusal (table- and
+    scheduler-level refusals alike). ``tenant`` is the accounting identity
+    where the caller knows it."""
+    _ins.SESSIONS_REJECTED_TOTAL.labels(reason).inc()
+    _journal.record("session.reject", reason, tenant=tenant, message=message[:200])
     return SessionRejected(reason, message)
 
 
@@ -79,7 +91,7 @@ class Session:
 
     __slots__ = (
         "sid", "turns", "turns_done", "alive_count", "done", "result",
-        "cancelled", "error", "on_event",
+        "cancelled", "error", "on_event", "tenant",
     )
 
     def __init__(
@@ -89,6 +101,7 @@ class Session:
         initial_turn: int,
         alive_count: int,
         on_event: Optional[Callable] = None,
+        tenant: str = "-",
     ):
         self.sid = sid
         self.turns = turns  # the budget: total turns this session runs to
@@ -99,6 +112,10 @@ class Session:
         self.cancelled = False
         self.error: Optional[Exception] = None
         self.on_event = on_event
+        # the accounting identity (obs/accounting.tenant_of of the session
+        # tag): every chunk this session rides attributes its share of the
+        # launch's wall to this tenant
+        self.tenant = tenant
 
     @property
     def remaining(self) -> int:
@@ -147,7 +164,9 @@ class SessionTable:
 
     # -- admission control ------------------------------------------------
 
-    def admit(self, board, turns: int, on_event: Optional[Callable] = None) -> Session:
+    def admit(
+        self, board, turns: int, on_event: Optional[Callable] = None, tenant: str = "-",
+    ) -> Session:
         """Admission-controlled join. The universe enters the device batch
         at the next ``advance`` boundary; until then snapshots serve its
         seed board."""
@@ -157,19 +176,26 @@ class SessionTable:
                 "geometry",
                 f"session board is {board.shape}, this batch serves "
                 f"{self.shape} (one geometry per batch)",
+                tenant=tenant,
             )
         if turns < 1:
-            raise reject("turns", f"turn budget must be >= 1, got {turns}")
+            raise reject("turns", f"turn budget must be >= 1, got {turns}", tenant=tenant)
         with self._lock:
             if len(self._active) + len(self._pending) >= self.capacity:
                 raise reject(
-                    "capacity", f"session table full ({self.capacity} universes)"
+                    "capacity", f"session table full ({self.capacity} universes)",
+                    tenant=tenant,
                 )
             sess = Session(
-                self._next_sid, turns, 0, int(np.count_nonzero(board)), on_event
+                self._next_sid, turns, 0, int(np.count_nonzero(board)), on_event,
+                tenant,
             )
             self._next_sid += 1
             self._pending.append((sess, board.copy()))
+            _ins.SESSIONS_ADMITTED_TOTAL.inc()
+            _ins.SESSIONS_ACTIVE.set(len(self._active) + len(self._pending))
+        # journal outside the table lock: record() takes its own lock
+        _journal.record("session.admit", str(sess.sid), turns=turns, tenant=tenant)
         return sess
 
     def cancel(self, sess: Session) -> None:
@@ -193,6 +219,8 @@ class SessionTable:
         # that makes them active, so a concurrent snapshot always finds a
         # session in exactly one list. admit only appends and advance is
         # single-threaded, so the grabbed prefix is stable.
+        t_adv0 = time.monotonic()
+        attribution = _metrics.enabled() and _perf.attribution_enabled()
         with self._lock:
             pending = list(self._pending)
         if pending:
@@ -205,6 +233,7 @@ class SessionTable:
             active = list(self._active)
             state = self._state
         if not active:
+            _ins.SESSIONS_ACTIVE.set(0)
             return 0
 
         # one batched launch: k turns for every universe (k bounded by the
@@ -220,19 +249,34 @@ class SessionTable:
             # reference's; a budget-T session drains in <= log2(T) + 2
             # launches and still lands on its budget exactly.
             k = 1 << (k.bit_length() - 1)
+        t_chunk = time.monotonic()
         if k > 0:
             # the chunk's turns AND the per-universe counts in one launch;
             # the host fold of the counts waits for the device
             state, counts = self._plane.step_n_counts(state, k)
         else:
             counts = self._plane.alive_counts(state)
+        # the counts' host copy waited for the launch: real time
+        dt_chunk = time.monotonic() - t_chunk
+        if attribution:
+            # dispatch-wall decomposition (obs/perf.py): joining pending
+            # universes is host_prep, the launch device_compute; demux
+            # closes at the bottom
+            _ins.TURN_SEGMENT_SECONDS.labels("sessions", "host_prep").observe(
+                max(0.0, t_chunk - t_adv0)
+            )
+            _ins.TURN_SEGMENT_SECONDS.labels("sessions", "device_compute").observe(dt_chunk)
+        t_demux0 = time.monotonic()
 
         events: List[tuple[Session, object]] = []
         finished: List[int] = []
+        advanced: List[str] = []  # tenant per universe this chunk advanced
+        died: List[int] = []  # sids early-retired all-dead this chunk
         with self._lock:
             self._state = state
             for i, s in enumerate(active):
                 if k > 0 and not s.cancelled:
+                    advanced.append(s.tenant)
                     s.turns_done += k
                     s.alive_count = int(counts[i])
                     if s.on_event is not None:
@@ -244,8 +288,26 @@ class SessionTable:
                         # all-dead universe: it can never change again, so
                         # the rest of its budget is credited, not computed
                         s.turns_done = s.turns
+                        _ins.EARLY_EXIT_TOTAL.labels("dead").inc()
+                        died.append(s.sid)
                 if s.cancelled or s.remaining == 0:
                     finished.append(i)
+            if advanced:
+                _ins.SESSION_TURNS_TOTAL.inc(k * len(advanced))
+        if advanced:
+            # the serving-latency objective (obs/slo.py) and the per-tenant
+            # ledger (obs/accounting.py) split the same chunk wall; all
+            # derive from the one `advanced` list the lock committed, so
+            # the ledger reconciles with gol_session_turns_total exactly
+            m = len(advanced)
+            _ins.SESSION_TURN_SECONDS.observe_n(dt_chunk / (k * m), k * m)
+            _acct.ledger().record_chunk(advanced, k, dt_chunk)
+            _journal.record(
+                "chunk.commit", "sessions", k=k, universes=m,
+                dt_s=round(dt_chunk, 6), route="fused",
+            )
+        for sid in died:
+            _journal.record("early.exit", "dead", sid=sid)
 
         # retire + compact: ONE gather + ONE decode for every finishing
         # universe (a burst of equal budgets must not pay a launch per
@@ -267,8 +329,13 @@ class SessionTable:
                 # the snapshot above sit in _pending until the next advance
                 self._active = [active[i] for i in keep]
                 left = len(self._active) + len(self._pending)
+                _ins.SESSIONS_ACTIVE.set(left)
             for i in finished:
                 s = active[i]
+                if not s.cancelled:
+                    _journal.record(
+                        "session.final", str(s.sid), turn=s.turns_done, tenant=s.tenant,
+                    )
                 if s.on_event is not None and not s.cancelled:
                     events.append(
                         (s, FinalTurnComplete(s.turns_done, alive_cells(s.result)))
@@ -276,6 +343,7 @@ class SessionTable:
         else:
             with self._lock:
                 left = len(self._active) + len(self._pending)
+                _ins.SESSIONS_ACTIVE.set(left)
 
         # callbacks outside the lock: user code must not hold the table
         for s, ev in events:
@@ -287,6 +355,10 @@ class SessionTable:
         # FinalTurnComplete included — already delivered
         for i in finished:
             active[i].done.set()
+        if attribution and (advanced or finished):
+            _ins.TURN_SEGMENT_SECONDS.labels("sessions", "demux").observe(
+                time.monotonic() - t_demux0
+            )
         return left
 
     def fail_all(self, exc: Exception) -> None:
@@ -295,6 +367,11 @@ class SessionTable:
         with self._lock:
             sessions = list(self._active) + [s for s, _ in self._pending]
             self._active, self._pending, self._state = [], [], None
+            _ins.SESSIONS_ACTIVE.set(0)
+        _journal.record(
+            "integrity.fail", "sessions.fail_all",
+            error_kind=type(exc).__name__, sessions=len(sessions),
+        )
         for s in sessions:
             s.error = exc
             s.done.set()

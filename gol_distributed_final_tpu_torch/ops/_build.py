@@ -18,6 +18,9 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
+
+from ..obs import device as _device
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "cuda"
@@ -59,6 +62,7 @@ def build(names=SOURCES) -> dict:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         todo = [n for n in names if not library_path(n).exists()]
         procs = {}
+        t0 = time.monotonic()
         for name in todo:
             # a per-process temporary name, renamed into place: processes
             # building the same source at once never see a partial library
@@ -71,6 +75,9 @@ def build(names=SOURCES) -> dict:
         for name, (tmp, proc) in procs.items():
             output, _ = proc.communicate()
             reports[name] = output
+            # the build's wall up to the collection of its output: at most
+            # the slowest build started with it
+            _device.note_build(name, time.monotonic() - t0)
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{output}")
                 tmp.unlink(missing_ok=True)
@@ -88,6 +95,7 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            _device.note_build_request(name)
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in signatures.items():

@@ -23,6 +23,8 @@ from __future__ import annotations
 from typing import Optional
 
 from ..device import resolve_device
+from ..obs import device as _device
+from ..obs import instruments as _ins
 from .bitpack import packed_shape
 from .fused import FusedBitPlane, fused_enabled
 from .plane import BitPlane
@@ -41,16 +43,38 @@ def choose_word_axis(shape: tuple[int, int]) -> Optional[int]:
     return None
 
 
+#: (tier, rulestring, shape, device) decisions already noted: a session
+#: table or a broker asking per admission counts one routing decision, as
+#: the JAX package's per-(rule, shape) cache counts it
+_NOTED: set = set()
+
+
+def _note_selection(tier: str, rule, shape, device) -> None:
+    """One selection event, once per decision: an HBM sample at decision
+    time and the tier counter a Status snapshot shows routing decisions
+    on (the JAX package's labels)."""
+    key = (tier, getattr(rule, "rulestring", None), tuple(shape), str(device))
+    if key in _NOTED:
+        return
+    _NOTED.add(key)
+    _device.sample_hbm()
+    _ins.OPS_PLANE_SELECTED_TOTAL.labels(tier).inc()
+
+
 def auto_plane(rule, shape: tuple[int, int], device):
     """The data plane (ops/plane.py interface) for this rule, geometry
     and device, or None if only the roll stencil applies."""
     word_axis = choose_word_axis(shape)
     if word_axis is None:
+        _note_selection("roll_stencil", rule, shape, device)
         return None
     if word_axis == 0 and sparse_capable(rule, shape):
+        _note_selection("sparse_bitplane", rule, shape, device)
         return SparseBitPlane(rule, device=device)
     if fused_enabled() and fits(packed_shape(*shape, word_axis), device):
+        _note_selection("fused_bitplane", rule, shape, device)
         return FusedBitPlane(rule, word_axis, device)
+    _note_selection("bitplane", rule, shape, device)
     return BitPlane(rule, word_axis, device)
 
 
@@ -63,13 +87,16 @@ def auto_step_n_fn(rule, shape: tuple[int, int], device=None):
     every call; ``auto_plane`` keeps the board packed across chunks."""
     word_axis = choose_word_axis(shape)
     if word_axis is None:
+        _note_selection("roll_stencil", rule, shape, device)
         return None
     if resolve_device(device).type == "cuda":
         from .pallas_stencil import pallas_bit_step_n_fn
 
+        _note_selection("pallas_bit_step", rule, shape, device)
         return pallas_bit_step_n_fn(word_axis=word_axis, rule=rule, device=device)
     from .bitpack import packed_step_n_fn
 
+    _note_selection("packed_xla_step", rule, shape, device)
     return packed_step_n_fn(word_axis, rule=rule, device=device)
 
 
@@ -82,5 +109,7 @@ def auto_batch_plane(rule, shape: tuple[int, int], device):
 
     word_axis = choose_word_axis(shape)
     if word_axis is None:
+        _note_selection("batch_roll_stencil", rule, shape, device)
         return BatchBytePlane(rule, device)
+    _note_selection("batch_bitplane", rule, shape, device)
     return BatchBitPlane(rule, word_axis, device)

@@ -21,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import device as _device
 from . import whole_board
-from .bitpack import bit_step_n_batch, row_popcounts
+from .bitpack import bit_launch_cost, bit_step_n_batch, row_popcounts
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
 #: kernel launches made by ``step_n``; ``plain_calls`` counts the times it
@@ -59,17 +60,25 @@ def step_n(
     survive_mask: int = CONWAY_SURVIVE_MASK,
     *,
     counted: bool = True,
+    site: str = "pallas.vmem_bit_batch",
 ):
     """n turns of every universe of an int32 batch ``[B, rows, cols]``;
     with ``counted`` (the default) also their ``int32[B, rows]`` row
-    popcounts, as ``(batch, counts)``. The input is never written."""
+    popcounts, as ``(batch, counts)``. The input is never written.
+    ``site`` is the telemetry site the launch is timed under."""
     global launches, plain_calls
     n = int(n)
     if n < 0:
         raise ValueError(f"turn count must be >= 0, got {n}")
     if packed.device.type == "cpu":
         plain_calls += 1
+        started = _device.begin(packed.device)
         out, counts = step_n_plain(packed, n, word_axis, birth_mask, survive_mask)
+        if started is not None:
+            _device.end(site, packed.device, started, *bit_launch_cost(
+                packed.numel(), n, birth_mask, survive_mask,
+                4 * packed.shape[0] * packed.shape[1] if counted else 0,
+            ))
         return (out, counts) if counted else out
     whole_board.check_launchable(packed, 3, word_axis, "batched bitboard kernel")
     batch, rows, _ = packed.shape
@@ -79,6 +88,6 @@ def step_n(
         if counted else None
     )
     if batch:
-        whole_board.launch(packed, out, counts, n, word_axis, birth_mask, survive_mask)
+        whole_board.launch(packed, out, counts, n, word_axis, birth_mask, survive_mask, site)
         launches += 1
     return (out, counts) if counted else out

@@ -43,7 +43,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import CONWAY, LifeRule
-from . import batch_board, bitpack, tiled
+from . import batch_board, bitpack, fused, tiled
 from .reduce import alive_count_batch
 from .stencil import step_n_batch
 
@@ -90,6 +90,8 @@ class BatchBytePlane(_BatchPlane):
     def step_n_counts(self, state, n: int):
         """n turns for every universe and their alive counts, as
         ``(state, np.int64[B])``; the host transfer waits for the device."""
+        if int(n) > 0:
+            fused._meter_single(int(n))
         out = self.step_n(state, n)
         return out, self.alive_counts(out)
 
@@ -133,8 +135,9 @@ class BatchBitPlane(_BatchPlane):
         n = int(n)
         if n <= 0:
             return state, self.alive_counts(state)
+        fused._meter_single(n)
         if batch_board.fits(tuple(state.shape), state.device):
-            out, counts = batch_board.step_n(state, *self._args(n))
+            out, counts = batch_board.step_n(state, *self._args(n), site="pallas.fused_bit_batch")
         else:
             out = self.step_n(state, n)
             counts = bitpack.row_popcounts(out)

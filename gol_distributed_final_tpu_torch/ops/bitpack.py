@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import device as _device
 from ..utils.cell import Cell
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK, as_board
 
@@ -389,6 +390,25 @@ def byte_ops_per_cell(birth_mask: int, survive_mask: int, turns: int) -> float:
     return turns * per_word / WORD + 2 * PACK_OPS_PER_CELL
 
 
+def bit_launch_cost(words: int, turns: int, birth_mask: int, survive_mask: int,
+                    extra_bytes: int = 0) -> tuple[float, float]:
+    """``(int32 operations, bytes)`` of the roofline bound of ``turns``
+    turns on ``words`` int32 words: ``ops_per_word`` a word a turn, and the
+    words read once and written once plus ``extra_bytes`` of other outputs
+    (row counts). What obs/device.py adds to a kernel site per launch."""
+    return (float(turns * words * ops_per_word(birth_mask, survive_mask)),
+            float(2 * 4 * words + extra_bytes))
+
+
+def byte_launch_cost(cells: int, turns: int, birth_mask: int, survive_mask: int,
+                     extra_bytes: int = 0) -> tuple[float, float]:
+    """``(int32 operations, bytes)`` of the roofline bound of ``turns``
+    turns of a byte board of ``cells`` cells (``byte_ops_per_cell``), its
+    bytes read once and written once plus ``extra_bytes``."""
+    return (float(cells * byte_ops_per_cell(birth_mask, survive_mask, turns)),
+            float(2 * cells + extra_bytes))
+
+
 def packed_step_n_fn(word_axis: int = 0, rule=None, *, device=None):
     """An engine step function ``(board_uint8, n) -> board_uint8``: pack,
     n turns of ``bit_step_n`` in torch ops, unpack, all on the board's
@@ -399,6 +419,12 @@ def packed_step_n_fn(word_axis: int = 0, rule=None, *, device=None):
 
     def step_n(board, n):
         packed = pack(as_board(board, device), word_axis)
-        return unpack(bit_step_n(packed, int(n), word_axis, birth, survive), word_axis)
+        # the torch ops' device time under the JAX package's XLA site
+        started = _device.begin(packed.device)
+        out = bit_step_n(packed, int(n), word_axis, birth, survive)
+        if started is not None:
+            _device.end("bitpack.xla_step", packed.device, started,
+                        *bit_launch_cost(packed.numel(), int(n), birth, survive))
+        return unpack(out, word_axis)
 
     return step_n

@@ -46,8 +46,9 @@ import ctypes
 
 import torch
 
+from ..obs import device as _device
 from . import _build, _tiles, whole_board
-from .bitpack import WORD
+from .bitpack import WORD, byte_launch_cost
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 from .stencil import step_n as stencil_step_n
 
@@ -171,21 +172,28 @@ def step_sizes(
     *,
     form: str | None = None,
     cluster: int | None = None,
+    site: str = "pallas.vmem_byte",
 ) -> torch.Tensor:
     """One launch of n turns for each n >= 1 of ``sizes``, the board of each
     the result of the one before, with the scratch boards, the device and
     the stream taken once for them all: a whole ladder in one call.
     ``form`` (one of ``FORMS``) and ``cluster`` force what the kernel
     otherwise picks by shape; a launch the card refuses raises. The input is
-    never written."""
+    never written. ``site`` is the telemetry site each launch is timed
+    under (obs/device.py)."""
     global plain_calls, _entry
     sizes = [int(n) for n in sizes]
     if any(n < 1 for n in sizes):
         raise ValueError(f"a launch takes >= 1 turns, got {sizes}")
+    cells = board.numel()
     if board.device.type == "cpu":
         plain_calls += len(sizes)
         for n in sizes:
+            started = _device.begin(board.device)
             board = step_n_plain(board, n, birth_mask, survive_mask)
+            if started is not None:
+                _device.end(site, board.device, started,
+                            *byte_launch_cost(cells, n, birth_mask, survive_mask))
         return board
     if board.device.type != "cuda":
         raise ValueError(f"no whole-board byte kernel for device {board.device}")
@@ -210,14 +218,19 @@ def step_sizes(
     if _entry is None:
         _entry = _build.load("byte_board", _SIGNATURES).gol_byte_board_step_as
     entry = _entry
+    timing = _device.timing_stream(board.device)
 
     def launch(src, dst, n, stream):
         global launches
+        started = _device.begin(src.device, timing)
         err = entry(src.data_ptr(), dst.data_ptr(), shape[0], shape[1], n, birth_mask,
                     survive_mask, which, blocks, stream)
         if err:
             _build.check(err, "whole-board byte kernel launch")
         launches += 1
+        if started is not None:
+            _device.end(site, src.device, started,
+                        *byte_launch_cost(cells, n, birth_mask, survive_mask))
 
     return _tiles.ping_pong(board, sizes, launch)
 
@@ -230,6 +243,7 @@ def step_n(
     *,
     form: str | None = None,
     cluster: int | None = None,
+    site: str = "pallas.vmem_byte",
 ) -> torch.Tensor:
     """n turns of a uint8 board ``[H, W]`` (any nonzero cell is alive; the
     result holds 0 and 255) in one launch. n = 0 returns a copy and
@@ -239,4 +253,5 @@ def step_n(
         raise ValueError(f"turn count must be >= 0, got {n}")
     if n == 0:
         return board.clone()
-    return step_sizes(board, [n], birth_mask, survive_mask, form=form, cluster=cluster)
+    return step_sizes(board, [n], birth_mask, survive_mask, form=form, cluster=cluster,
+                      site=site)

@@ -25,8 +25,9 @@ import ctypes
 
 import torch
 
+from ..obs import device as _device
 from . import _build, _tiles
-from .bitpack import WORD, bit_step_n, pack, unpack
+from .bitpack import WORD, bit_step_n, byte_launch_cost, pack, unpack
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
 #: turns one launch may take: the halo is that many rows deep, and the one
@@ -139,20 +140,27 @@ def step_sizes(
     survive_mask: int = CONWAY_SURVIVE_MASK,
     *,
     tile=None,
+    site: str = "pallas.fused_byte",
 ) -> torch.Tensor:
     """One launch for each k of ``sizes`` (each 1..MAX_TURNS turns), the
     board of each the result of the one before, with the scratch boards,
     the device and the stream taken once for them all: a whole ladder in one
     call. ``tile`` forces ``TILE`` or ``SMALL_TILE``. The input is never
-    written."""
+    written. ``site`` is the telemetry site each launch is timed under
+    (obs/device.py; the JAX package's byte tiles are its fused ladder's)."""
     global plain_calls, _entry
     sizes = [int(k) for k in sizes]
     for k in sizes:
         _launch_sizes(k, k)
+    cells = board.numel()
     if board.device.type == "cpu":
         plain_calls += len(sizes)
         for k in sizes:
+            started = _device.begin(board.device)
             board = launch_plain(board, k, birth_mask, survive_mask, tile=tile)
+            if started is not None:
+                _device.end(site, board.device, started,
+                            *byte_launch_cost(cells, k, birth_mask, survive_mask))
         return board
     if board.device.type != "cuda":
         raise ValueError(f"no byte-tile kernel for device {board.device}")
@@ -171,14 +179,19 @@ def step_sizes(
     if _entry is None:
         _entry = _build.load("byte_tiled", _SIGNATURES).gol_byte_tiled_step_tile
     entry = _entry
+    timing = _device.timing_stream(board.device)
 
     def launch(src, dst, k, stream):
         global launches
+        started = _device.begin(src.device, timing)
         err = entry(src.data_ptr(), dst.data_ptr(), rows, cols, k, birth_mask, survive_mask,
                     which, stream)
         if err:
             _build.check(err, "byte-tile kernel launch")
         launches += 1
+        if started is not None:
+            _device.end(site, src.device, started,
+                        *byte_launch_cost(cells, k, birth_mask, survive_mask))
 
     return _tiles.ping_pong(board, sizes, launch)
 

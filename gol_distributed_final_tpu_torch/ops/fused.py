@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import instruments as _ins
 from . import batch_board, byte_board, byte_tiled, strip_steps, tiled, whole_board
 from .bitpack import row_popcounts
 from .byte_tiled import can_tile as can_tile_byte
@@ -97,9 +98,26 @@ def _ladder_sizes(n: int, k: int) -> tuple[int, ...]:
 
 def _run_ladder(launch, state, n: int, k: int):
     """``launch(state, turns)`` once per launch of the ladder of n, k."""
-    for turns in _ladder_sizes(n, k):
+    sizes = _ladder_sizes(n, k)
+    _meter_ladder(sizes)
+    for turns in sizes:
         state = launch(state, turns)
     return state
+
+
+def _meter_ladder(sizes) -> None:
+    """The ladder meters: one launch a rung, each observing its turns (the
+    full-K rungs in one observation of their count)."""
+    _ins.FUSED_LAUNCHES_TOTAL.inc(len(sizes))
+    for turns in sorted(set(sizes)):
+        _ins.FUSED_TURNS_PER_LAUNCH.observe_n(float(turns), sizes.count(turns))
+
+
+def _meter_single(n: int) -> None:
+    """One launch covering all ``n`` turns (the step+count launches and
+    the plain fallbacks: still one fused dispatch, K == n)."""
+    _ins.FUSED_LAUNCHES_TOTAL.inc()
+    _ins.FUSED_TURNS_PER_LAUNCH.observe(float(n))
 
 
 def _resolve(rule, birth_mask, survive_mask) -> tuple[int, int]:
@@ -134,11 +152,15 @@ def fused_step_n(
     birth, survive = _resolve(rule, birth_mask, survive_mask)
     kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
     shape = tuple(board.shape)
+    sizes = _ladder_sizes(n, kq)
     if byte_board.fits(shape, board.device):
-        return byte_board.step_sizes(board, _ladder_sizes(n, kq), birth, survive)
+        _meter_ladder(sizes)
+        return byte_board.step_sizes(board, sizes, birth, survive, site="pallas.fused_byte")
     # on the card a board the tiles cannot take raises in byte_tiled.step_sizes
     if can_tile_byte(shape) or board.device.type != "cpu":
-        return byte_tiled.step_sizes(board, _ladder_sizes(n, kq), birth, survive)
+        _meter_ladder(sizes)
+        return byte_tiled.step_sizes(board, sizes, birth, survive)
+    _meter_single(n)
     return stencil_step_n(board, n, birth_mask=birth, survive_mask=survive)
 
 
@@ -169,11 +191,13 @@ def fused_bit_step_n(
     kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
     if not force_tiles and whole_board.fits(tuple(packed.shape), packed.device):
         return _run_ladder(
-            lambda p, t: whole_board.step_n(p, t, word_axis, birth, survive),
+            lambda p, t: whole_board.step_n(p, t, word_axis, birth, survive,
+                                            site="pallas.fused_bit"),
             packed, n, kq,
         )
     return _run_ladder(
-        lambda p, t: tiled.step_n(p, t, word_axis, birth, survive, turns_per_launch=t),
+        lambda p, t: tiled.step_n(p, t, word_axis, birth, survive, turns_per_launch=t,
+                                  site="pallas.fused_tiled"),
         packed, n, kq,
     )
 
@@ -199,13 +223,15 @@ def fused_bit_step_n_batch(
     kq = quantise_k(FUSED_K_DEFAULT if k is None else k)
     if batch_board.fits(tuple(packed.shape), packed.device):
         return _run_ladder(
-            lambda p, t: batch_board.step_n(p, t, word_axis, birth, survive, counted=False),
+            lambda p, t: batch_board.step_n(p, t, word_axis, birth, survive, counted=False,
+                                            site="pallas.fused_bit_batch"),
             packed, n, kq,
         )
 
     def tiled_each(p, t):
         return torch.stack([
-            tiled.step_n(board, t, word_axis, birth, survive, turns_per_launch=t)
+            tiled.step_n(board, t, word_axis, birth, survive, turns_per_launch=t,
+                         site="pallas.fused_tiled")
             for board in p
         ])
 
@@ -230,10 +256,13 @@ class FusedBitPlane(BitPlane):
 
     def step_n_counted(self, state, n: int):
         n = int(n)
+        if n > 0:
+            _meter_single(n)
         if whole_board.fits(tuple(state.shape), state.device):
             return whole_board.step_n(
                 state, n, self.word_axis,
                 self.rule.birth_mask, self.rule.survive_mask, counted=True,
+                site="pallas.fused_bit",
             )
         out = self.step_n(state, n)
         return out, row_popcounts(out)
@@ -253,6 +282,7 @@ def fused_strip_steps(padded, k: int, strip_rows: int, *, attest: bool = False, 
     k, h = int(k), int(strip_rows)
     block = torch.from_numpy(np.ascontiguousarray(padded, np.uint8)).to(resolve_device(device))
     res = strip_steps.strip_steps(block, k, h, attest=attest)
+    _meter_single(k)
     bands = []
     if attest:
         bands = strip_steps.split_bands(res.bands.cpu().numpy(), k, block.shape[1])

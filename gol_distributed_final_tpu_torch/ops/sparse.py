@@ -46,6 +46,8 @@ import torch
 
 from ..device import resolve_device
 from ..models import CONWAY, LifeRule
+from ..obs import instruments as _ins
+from ..obs import metrics as _metrics
 from . import sparse_tiles
 from .plane import BitPlane
 
@@ -237,7 +239,14 @@ class SparseBitPlane:
             run = sparse_tiles.dispatch(
                 st.packed, st.grid, n_units, (tr, tc), h_eff, capacity, birth, survive
             )
-            remaining -= run.blocks_done * h_eff
+            turns_done = run.blocks_done * h_eff
+            if _metrics.enabled():
+                # the JAX package's tile meters: the frontier, and the
+                # tile-turns it did not have to step
+                _ins.ACTIVE_TILES.set(run.count)
+                if turns_done:
+                    _ins.TILE_SKIPS_TOTAL.inc(max(0, turns_done * total - run.active_sum * h_eff))
+            remaining -= turns_done
             if run.overflow:
                 # the frontier outgrew the bucket: the blocks done are
                 # committed; the rest goes one bucket up
@@ -246,6 +255,8 @@ class SparseBitPlane:
             if run.blocks_done < n_units:
                 # the grid drained before the budget: a still life, whose
                 # remaining turns are no-ops, done by definition
+                if _metrics.enabled():
+                    _ins.EARLY_EXIT_TOTAL.labels("still").inc()
                 return SparseState(run.packed, run.grid, run.count, steady="still")
             st = SparseState(run.packed, run.grid, run.count)
         if st.steady is None and 0 < st.count <= P2_PROBE_MAX_TILES:
@@ -264,6 +275,8 @@ class SparseBitPlane:
         if two.blocks_done != 1 or two.overflow:
             return st
         if torch.equal(two.packed, st.packed) and not torch.equal(one.packed, st.packed):
+            if _metrics.enabled():
+                _ins.EARLY_EXIT_TOTAL.labels("period2").inc()
             return SparseState(st.packed, st.grid, st.count, steady="period2", alt=one.packed)
         return st
 

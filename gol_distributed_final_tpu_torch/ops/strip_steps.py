@@ -46,7 +46,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..obs import device as _device
+from ..models import CONWAY
 from . import _build, _tiles
+from .bitpack import byte_launch_cost
 from .sparse import WIRE_TILE_COLS, WIRE_TILE_ROWS, wire_tile_grid
 
 #: turns one launch may take: one halo word of 32 columns covers as many
@@ -255,6 +258,25 @@ def _check_into(into: StripBatch, h: int, width: int, k: int, attest: bool, devi
             raise ValueError(f"into.{name} must be {spec} on {device}, got {have}")
 
 
+#: the telemetry site W's launches are timed under (obs/device.py): the
+#: JAX package's fused strip program
+SITE = "fused.strip"
+
+
+def _cost(cells_read: int, turns: int, written: int) -> tuple[float, float]:
+    """``(int32 operations, bytes)`` of W's bound for one launch: the byte
+    board's operations on every cell it reads (Conway, W's only rule),
+    those cells read once and ``written`` bytes written once."""
+    ops, _ = byte_launch_cost(cells_read, turns, CONWAY.birth_mask, CONWAY.survive_mask)
+    return ops, float(cells_read + written)
+
+
+def _side_bytes(into: "StripBatch") -> int:
+    """Bytes of a batch's outputs beside the strip: counts, bands, dirty
+    grid, digest sums and edges, written once each."""
+    return sum(t.numel() * t.element_size() for t in into[1:] if t is not None)
+
+
 def _count(name: str) -> None:
     # the wrappers run on several workers' threads at once
     global launches, plain_calls
@@ -287,10 +309,14 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
         raise ValueError("the new strip must not be written over an input")
     if strip.device.type == "cpu":
         _count("plain_calls")
+        started = _device.begin(strip.device)
         res = strip_steps_plain(torch.cat([top, strip, bottom]), k, h, attest)
         for dst, src in zip(into, res):
             if dst is not None:
                 dst.copy_(src)
+        if started is not None:
+            _device.end(SITE, strip.device, started, *_cost(
+                (h + 2 * k) * width, k, into.strip.numel() + _side_bytes(into)))
         return into
     if strip.device.type != "cuda":
         raise ValueError(f"no strip kernel for device {strip.device}")
@@ -307,6 +333,7 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
     entry = _entry_fn()
     bands = into.bands if attest and into.bands.numel() else None
     guard, stream = _tiles.on_device(strip)
+    timing = _device.timing_stream(dev)
     parts, done = (top, strip, bottom), 0
     with guard:
         while done < k:
@@ -314,6 +341,7 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
             rest = k - done - step  # halo lines left after this launch
             dst = into.strip if rest == 0 else torch.empty((h + 2 * rest, width),
                                                            dtype=torch.uint8, device=dev)
+            started = _device.begin(dev, timing)
             err = entry(parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
                         strip.data_ptr(), dst.data_ptr(), width, step, h, k, done,
                         into.counts.data_ptr(), None if bands is None else bands.data_ptr(),
@@ -323,6 +351,10 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
             if err:
                 _build.check(err, "strip kernel launch")
             _count("launches")
+            if started is not None:
+                _device.end(SITE, dev, started, *_cost(
+                    (h + 2 * (rest + step)) * width, step,
+                    dst.numel() + (_side_bytes(into) if rest == 0 else 0)))
             parts = (dst[:rest], dst[rest:rest + h], dst[rest + h:])
             done += step
     return into
@@ -337,6 +369,11 @@ def strip_steps(padded: torch.Tensor, k: int, h: int, attest: bool = False, *, t
     _check(padded, k, h)
     if padded.device.type == "cpu":
         _count("plain_calls")
-        return strip_steps_plain(padded, k, h, attest)
+        started = _device.begin(padded.device)
+        res = strip_steps_plain(padded, k, h, attest)
+        if started is not None:
+            _device.end(SITE, padded.device, started,
+                        *_cost(padded.numel(), k, res.strip.numel() + _side_bytes(res)))
+        return res
     return strip_batch(padded[:k], padded[k:k + h], padded[k + h:], k, attest, tile=tile,
                        ctas=ctas)

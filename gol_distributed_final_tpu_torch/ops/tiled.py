@@ -23,8 +23,9 @@ import ctypes
 
 import torch
 
+from ..obs import device as _device
 from . import _build, _tiles
-from .bitpack import bit_step_n, rule_masks
+from .bitpack import bit_launch_cost, bit_step_n, rule_masks
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
 #: turns one launch may take: the halo on the other axis is that many
@@ -92,18 +93,25 @@ def step_n(
     survive_mask: int = CONWAY_SURVIVE_MASK,
     *,
     turns_per_launch: int = MAX_TURNS,
+    site: str = "pallas.tiled",
 ) -> torch.Tensor:
     """n turns of an int32 bitboard ``[rows, cols]`` in ceil(n / k)
     launches of k = ``turns_per_launch`` turns (the last takes the rest).
-    The input is never written."""
+    The input is never written. ``site`` is the telemetry site each launch
+    is timed under (obs/device.py)."""
     global plain_calls
     sizes = _launch_sizes(n, turns_per_launch)
     if packed.device.type == "cpu":
         plain_calls += 1
-        return step_n_plain(
+        started = _device.begin(packed.device)
+        out = step_n_plain(
             packed, n, word_axis, birth_mask, survive_mask,
             turns_per_launch=turns_per_launch,
         )
+        if started is not None:
+            _device.end(site, packed.device, started,
+                        *bit_launch_cost(packed.numel(), n, birth_mask, survive_mask))
+        return out
     if packed.device.type != "cuda":
         raise ValueError(f"no tiled kernel for device {packed.device}")
     if packed.dtype != torch.int32 or packed.dim() != 2 or not packed.is_contiguous():
@@ -116,15 +124,20 @@ def step_n(
     rows, cols = packed.shape
     common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
     lib = _build.load("tiled", _SIGNATURES)
+    timing = _device.timing_stream(packed.device)
 
     def launch(src, dst, k, stream):
         global launches
+        started = _device.begin(src.device, timing)
         err = lib.gol_tiled_step(
             src.data_ptr(), dst.data_ptr(), rows, cols, word_axis, k,
             common, dead_only, live_only, stream,
         )
         _build.check(err, "tiled kernel launch")
         launches += 1
+        if started is not None:
+            _device.end(site, src.device, started,
+                        *bit_launch_cost(rows * cols, k, birth_mask, survive_mask))
 
     return _tiles.ping_pong(packed, sizes, launch)
 

@@ -30,8 +30,9 @@ import ctypes
 
 import torch
 
+from ..obs import device as _device
 from . import _build
-from .bitpack import bit_step_n, row_popcounts, rule_masks
+from .bitpack import bit_launch_cost, bit_step_n, row_popcounts, rule_masks
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
 #: cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100: the gate a CPU
@@ -58,21 +59,29 @@ def _lib():
     return _build.load("whole_board", _SIGNATURES)
 
 
-def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask) -> None:
+def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask, site) -> None:
     """One launch over the boards of a contiguous int32 ``[batch, rows,
     cols]`` tensor (the callers check it): ``out`` gets each board after n
     turns and, unless ``counts`` is None, ``counts[batch, rows]`` its row
-    popcounts. Raises on a refused launch."""
+    popcounts. Raises on a refused launch. With metrics on the launch is
+    timed on the card under ``site`` (obs/device.py)."""
     batch, rows, cols = packed.shape
     common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
     with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream()
+        started = _device.begin(packed.device, stream)
         err = _lib().gol_whole_board_step(
             packed.data_ptr(), out.data_ptr(),
             None if counts is None else counts.data_ptr(),
             batch, rows, cols, word_axis, n, common, dead_only, live_only,
-            torch.cuda.current_stream().cuda_stream,
+            stream.cuda_stream,
         )
-    _build.check(err, "whole-board kernel launch")
+        _build.check(err, "whole-board kernel launch")
+        if started is not None:
+            _device.end(site, packed.device, started, *bit_launch_cost(
+                packed.numel(), n, birth_mask, survive_mask,
+                0 if counts is None else 4 * batch * rows,
+            ))
 
 
 def reset_counts() -> None:
@@ -145,17 +154,25 @@ def step_n(
     survive_mask: int = CONWAY_SURVIVE_MASK,
     *,
     counted: bool = False,
+    site: str = "pallas.vmem_bit",
 ):
     """n turns of an int32 bitboard ``[rows, cols]``; with ``counted`` also
     its ``int32[rows]`` row popcounts, as ``(board, counts)``. The input is
-    never written."""
+    never written. ``site`` is the telemetry site the launch is timed
+    under (obs/device.py)."""
     global launches, plain_calls
     n = int(n)
     if n < 0:
         raise ValueError(f"turn count must be >= 0, got {n}")
     if packed.device.type == "cpu":
         plain_calls += 1
+        started = _device.begin(packed.device)
         out, counts = step_n_plain(packed, n, word_axis, birth_mask, survive_mask)
+        if started is not None:
+            _device.end(site, packed.device, started, *bit_launch_cost(
+                packed.numel(), n, birth_mask, survive_mask,
+                4 * packed.shape[0] if counted else 0,
+            ))
         return (out, counts) if counted else out
     check_launchable(packed, 2, word_axis, "whole-board kernel")
     rows = packed.shape[0]
@@ -164,6 +181,6 @@ def step_n(
         torch.empty(rows, dtype=torch.int32, device=packed.device) if counted else None
     )
     launch(packed[None], out[None], None if counts is None else counts[None],
-           n, word_axis, birth_mask, survive_mask)
+           n, word_axis, birth_mask, survive_mask, site)
     launches += 1
     return (out, counts) if counted else out

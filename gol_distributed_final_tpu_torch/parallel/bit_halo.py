@@ -37,12 +37,14 @@ import numpy as np
 
 from ..models import CONWAY, LifeRule
 from ..ops import tiled
-from ..ops.bitpack import WORD, bit_step, pack, packed_shape, unpack
+from ..ops.bitpack import WORD, bit_launch_cost, bit_step, pack, packed_shape, unpack
 from .halo import (
     _extend,
     check_halo_depth,
     halo_depth_fits,
+    metered_dispatch,
     run_sharded,
+    timed_block,
     wide_loop,
 )
 from .mesh import COLS, ROWS, BlockSharding, Mesh, ShardedBoard
@@ -67,11 +69,21 @@ def _rule_masks(rule: LifeRule) -> dict:
     return {"birth_mask": rule.birth_mask, "survive_mask": rule.survive_mask}
 
 
+def _bit_cost(rule: LifeRule):
+    return lambda words, turns: bit_launch_cost(words, turns, rule.birth_mask,
+                                                rule.survive_mask)
+
+
 def _local_bit_step(blocks: dict, *, rule: LifeRule, mesh: Mesh, word_axis: int) -> dict:
     """One turn: one-word halos, ``bit_step`` on the extended block, the
     interior kept (the cyclic rolls spoil only the outer ring)."""
-    return {slot: bit_step(ext, word_axis, **_rule_masks(rule))[1:-1, 1:-1]
-            for slot, ext in _extend(blocks, mesh).items()}
+    return {
+        slot: timed_block(
+            "halo.bit", ext, 1, _bit_cost(rule),
+            lambda ext=ext: bit_step(ext, word_axis, **_rule_masks(rule))[1:-1, 1:-1],
+        )
+        for slot, ext in _extend(blocks, mesh).items()
+    }
 
 
 def _local_bit_step_wide(
@@ -82,9 +94,12 @@ def _local_bit_step_wide(
     own shape."""
     out = {}
     for slot, ext in _extend(blocks, mesh, k=depth).items():
-        for _ in range(depth):
-            ext = bit_step(ext, word_axis, **_rule_masks(rule))[1:-1, 1:-1]
-        out[slot] = ext
+        def turns(ext=ext):
+            for _ in range(depth):
+                ext = bit_step(ext, word_axis, **_rule_masks(rule))[1:-1, 1:-1]
+            return ext
+
+        out[slot] = timed_block("halo.bit", ext, depth, _bit_cost(rule), turns)
     return out
 
 
@@ -95,7 +110,7 @@ def _local_bit_step_tiled(blocks: dict, *, rule: LifeRule, mesh: Mesh, depth: in
     out = {}
     for slot, ext in _extend(blocks, mesh, k=depth).items():
         stepped = tiled.step_n(ext, depth, 0, rule.birth_mask, rule.survive_mask,
-                               turns_per_launch=depth)
+                               turns_per_launch=depth, site="halo.bit")
         out[slot] = stepped[depth:-depth, depth:-depth]
     return out
 
@@ -163,9 +178,12 @@ def sharded_bit_step_n_fn(
             return _local_bit_step_wide(blocks, rule=rule, mesh=mesh, word_axis=word_axis,
                                         depth=halo_depth)
 
+    plane = "bit_pallas" if use_tiled else "bit_xla"  # the JAX package's labels
+
     def step_n(packed, n):
         check_halo_depth(halo_depth, BlockSharding(mesh).block_shape(tuple(packed.shape)))
-        return run_sharded(mesh, packed, lambda b: wide_loop(b, int(n), halo_depth, local, wide))
+        return metered_dispatch(plane, int(n), halo_depth, lambda: run_sharded(
+            mesh, packed, lambda b: wide_loop(b, int(n), halo_depth, local, wide)))
 
     return step_n
 

@@ -16,17 +16,25 @@ the column messages carry the row halos' end cells, so corners arrive
 without diagonal messages.
 
 Every function takes a Mesh with axes ('rows', 'cols'); either axis may
-have size 1. The JAX package's metrics and spans around a dispatch have no
-counterpart yet: the port has no ``obs/``.
+have size 1. Each dispatch carries the JAX package's halo meters
+(``metered_dispatch``: a span, an ``halo.dispatch`` profiler range, the
+exchanges and the host wall), and each block's local turns are timed on its
+device under the ``halo.byte`` or ``halo.bit`` site (obs/device.py).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
 
 from ..models import CONWAY, LifeRule
+from ..obs import device as _device
+from ..obs import instruments as _ins
+from ..obs import metrics as _metrics
+from ..obs import tracing as _tracing
+from ..ops.bitpack import byte_launch_cost
 from ..ops.stencil import apply_rule, counts_from_extended
 from . import multihost
 from .mesh import BlockSharding, Mesh, ShardedBoard
@@ -130,14 +138,53 @@ def _extend(blocks: dict, mesh: Mesh, k: int = 1, pad: int = 0) -> dict:
     return _exchange(ext, mesh, 1, pad=pad, k=k)
 
 
+def timed_block(site: str, ext, turns: int, cost, step):
+    """``step()``, a block's local turns on its extended block ``ext``,
+    timed on the block's device under ``site`` (obs/device.py) with the
+    ``(ops, bytes)`` of ``cost(cells_or_words, turns)``; just ``step()``
+    with metrics off."""
+    started = _device.begin(ext.device)
+    out = step()
+    if started is not None:
+        _device.end(site, ext.device, started, *cost(ext.numel(), turns))
+    return out
+
+
+def metered_dispatch(plane: str, n: int, depth: int, run: Callable):
+    """``run()``, one mesh dispatch of ``n`` turns, with the JAX package's
+    halo meters: its span and profiler range, the exchanges it makes and
+    its host wall (``gol_halo_dispatch_seconds{plane}``). Just ``run()``
+    with metrics and tracing off."""
+    if not (_metrics.enabled() or _tracing.enabled() or _tracing.device_trace_active()):
+        return run()
+    span = _tracing.start_span(_tracing.SPAN_HALO_DISPATCH, plane=plane, turns=n)
+    if _metrics.enabled():
+        _ins.HALO_EXCHANGES_TOTAL.labels(plane).inc(exchanges_per_dispatch(n, depth))
+    t0 = time.monotonic()
+    with _tracing.annotate("halo.dispatch"):
+        out = run()
+    if _metrics.enabled():
+        _ins.HALO_DISPATCH_SECONDS.labels(plane).observe(time.monotonic() - t0)
+    _tracing.end_span(span)
+    return out
+
+
+def _byte_cost(rule: LifeRule):
+    return lambda cells, turns: byte_launch_cost(cells, turns, rule.birth_mask,
+                                                 rule.survive_mask)
+
+
 def _local_step(blocks: dict, *, rule: LifeRule, mesh: Mesh) -> dict:
     """One turn on every local block, halos included."""
     out = {}
     for slot, ext in _extend(blocks, mesh).items():
-        h, w = ext.shape[0] - 2, ext.shape[1] - 2
-        counts = counts_from_extended(ext, h, w)
-        out[slot] = apply_rule(ext[1:-1, 1:-1], counts, birth_mask=rule.birth_mask,
-                               survive_mask=rule.survive_mask)
+        def turn(ext=ext):
+            h, w = ext.shape[0] - 2, ext.shape[1] - 2
+            counts = counts_from_extended(ext, h, w)
+            return apply_rule(ext[1:-1, 1:-1], counts, birth_mask=rule.birth_mask,
+                              survive_mask=rule.survive_mask)
+
+        out[slot] = timed_block("halo.byte", ext, 1, _byte_cost(rule), turn)
     return out
 
 
@@ -181,12 +228,15 @@ def _local_step_wide(blocks: dict, *, rule: LifeRule, mesh: Mesh, depth: int) ->
     last turn leaves the block's own shape."""
     out = {}
     for slot, ext in _extend(blocks, mesh, k=depth).items():
-        for _ in range(depth):
-            h, w = ext.shape[0] - 2, ext.shape[1] - 2
-            counts = counts_from_extended(ext, h, w)
-            ext = apply_rule(ext[1:-1, 1:-1], counts, birth_mask=rule.birth_mask,
-                             survive_mask=rule.survive_mask)
-        out[slot] = ext
+        def turns(ext=ext):
+            for _ in range(depth):
+                h, w = ext.shape[0] - 2, ext.shape[1] - 2
+                counts = counts_from_extended(ext, h, w)
+                ext = apply_rule(ext[1:-1, 1:-1], counts, birth_mask=rule.birth_mask,
+                                 survive_mask=rule.survive_mask)
+            return ext
+
+        out[slot] = timed_block("halo.byte", ext, depth, _byte_cost(rule), turns)
     return out
 
 
@@ -230,7 +280,8 @@ def sharded_step_n_fn(
     def step_n(board, n):
         block_shape = BlockSharding(mesh).block_shape(tuple(board.shape))
         check_halo_depth(halo_depth, block_shape)
-        return run_sharded(mesh, board, lambda b: wide_loop(b, int(n), halo_depth, local, wide))
+        return metered_dispatch("byte", int(n), halo_depth, lambda: run_sharded(
+            mesh, board, lambda b: wide_loop(b, int(n), halo_depth, local, wide)))
 
     return step_n
 

@@ -31,8 +31,11 @@ Run it with ``python -m gol_distributed_final_tpu_torch.rpc.broker -port P
 [-backend workers -workers A,B,... [-wire resident -halo-depth K]]
 [-resume CKPT [-ckpt-keep N]] [-device cuda|cpu]``. ``-resume`` reattaches
 a crashed run: the first fresh Run continues from the checkpoint's board,
-turn and rule. Not ported yet, and refused with an error naming them: the
-observability flags, the canary and the Status verb.
+turn and rule. The observability flags (``-metrics -timeline -trace
+-journal -profile``, obs/cli.py) and the ``Status`` verb are the JAX
+package's, and so are the meters, spans, journal and flight records of
+both backends and the session scheduler's tenant ledger. Not ported yet,
+and refused with an error naming them: ``-canary`` and ``-canary-verb``.
 """
 
 from __future__ import annotations
@@ -51,6 +54,17 @@ import numpy as np
 from ..device import resolve_device
 from ..engine.engine import Engine, EngineConfig, RunResult, Snapshot
 from ..models import CONWAY, LifeRule
+from ..obs import accounting as _acct
+from ..obs import cli as _obs_cli
+from ..obs import critical as _critical
+from ..obs import flight as _flight
+from ..obs import instruments as _ins
+from ..obs import journal as _journal
+from ..obs import metrics as _metrics
+from ..obs import perf as _perf
+from ..obs import profiler as _profiler
+from ..obs import tracing as _tracing
+from ..utils import locksan as _locksan
 from . import faults as _faults
 from . import integrity as _integrity
 from .client import RpcClient, RpcError
@@ -325,6 +339,12 @@ class WorkersBackend:
     # client->address index) mutate from the turn loop, the probe thread,
     # and RPC handler threads at once: every touch goes through _lock —
     # entered directly or via the _control Condition wrapping it
+    # (machine-enforced: analysis/locks.py)
+    _GUARDED_BY = {
+        "_lost": ("_lock", "_control"),
+        "_probe_backoff": ("_lock", "_control"),
+        "_client_addr": ("_lock", "_control"),
+    }
 
     def __init__(
         self,
@@ -403,10 +423,12 @@ class WorkersBackend:
         self._ckpt_dirty: np.ndarray | None = None
         self._last_batch_dirty: np.ndarray | None = None
         self._ckpt_base: tuple[int, str] | None = None
-        # guards the roster maps, the run state and the board; _control is
-        # the turn loop's and the control verbs' wake-up on the same lock
-        self._lock = threading.Lock()
-        self._control = threading.Condition(self._lock)
+        # guards the roster maps (_GUARDED_BY); GOL_LOCKSAN swaps in the
+        # instrumented wrapper (utils/locksan.py), plain Lock otherwise
+        self._lock = _locksan.lock("WorkersBackend._lock")
+        self._control = _locksan.condition(
+            "WorkersBackend._control", self._lock
+        )
         # the FULL roster is kept (not just the connected subset): a dead
         # or flapping address stays probe-able, so capacity recovers when
         # the worker comes back instead of only ever degrading
@@ -579,17 +601,25 @@ class WorkersBackend:
         its gather simply hangs on worker death)."""
         import concurrent.futures
 
-        def scatter(client, world, s, e, deadline):
-            # deadline bounds the REPLY wait: a wedged worker costs one
-            # deadline, never the whole run
+        def scatter(client, world, s, e, deadline, trace_parent=None,
+                    sink=None, idx=0):
+            # _call_worker handles the pool-thread plumbing: deadline
+            # bounds the REPLY wait (a wedged worker costs one deadline,
+            # never the whole run) and trace_parent rides in explicitly
+            # (the turn span's thread-local stack is invisible here).
             if self._wire == "full":
                 # reference-exact: ship the whole board, worker slices
                 req = Request(world=world, start_y=s, end_y=e)
             else:
                 rows = np.arange(s - 1, e + 1) % h
                 req = Request(world=world[rows], start_y=-1)
+            if sink is not None:
+                return self._timed_call(
+                    client, Methods.WORKER_UPDATE, req, deadline,
+                    trace_parent, sink, idx,
+                ).work_slice
             return self._call_worker(
-                client, Methods.WORKER_UPDATE, req, deadline
+                client, Methods.WORKER_UPDATE, req, deadline, trace_parent
             ).work_slice
 
         def plan(active):
@@ -612,51 +642,90 @@ class WorkersBackend:
                         return
                     world = self._world
 
+                # one span per turn: the scatter/gather barrier the
+                # reference implements host-side — exactly the region that
+                # wedges when a worker stalls, so it must be on the timeline
+                turn_span = (
+                    _tracing.start_span(
+                        _tracing.SPAN_BROKER_TURN, turn=self._turn
+                    )
+                    if _tracing.enabled() else None
+                )
+                tp = turn_span.ctx() if turn_span else None
                 t_turn = time.monotonic()
                 had_loss = False
-                while True:  # retries the SAME turn after losing workers
-                    # re-snapshot each attempt AND each turn: the probe
-                    # thread appends readmitted clients concurrently
-                    with self._lock:
-                        active = list(self.clients)
-                    if not active:
-                        raise RpcError("all workers lost mid-run")
-                    n, bounds = plan(active)
-                    deadline = self._scatter_deadline()
-                    futures = [
-                        pool.submit(
-                            scatter, active[i], world, *bounds[i], deadline,
+                attribution = self._attribution_on()
+                try:
+                    while True:  # retries the SAME turn after losing workers
+                        # re-snapshot each attempt AND each turn: the probe
+                        # thread appends readmitted clients concurrently
+                        with self._lock:
+                            active = list(self.clients)
+                        if not active:
+                            raise RpcError("all workers lost mid-run")
+                        n, bounds = plan(active)
+                        deadline = self._scatter_deadline()
+                        # a fresh sink per attempt: a retried turn's dead
+                        # replies must not pollute the committed batch's
+                        # critical-path attribution
+                        sink = [] if attribution else None
+                        t_attempt = time.monotonic()
+                        futures = [
+                            pool.submit(
+                                scatter, active[i], world, *bounds[i],
+                                deadline, tp, sink, i,
+                            )
+                            for i in range(n)
+                        ]
+                        t_submitted = time.monotonic()
+                        # _bounded_gather time-bounds the gather beyond the
+                        # reply deadline (a scatter thread stuck in sendall
+                        # must not hang fut.result() — the send allowance
+                        # rationale lives on the helper)
+                        strips, dead = self._bounded_gather(futures, deadline)
+                        t_gathered = time.monotonic()
+                        if not dead:
+                            break
+                        with self._lock:
+                            if self._quit:
+                                return  # shutdown race, not a failure
+                        had_loss = True
+                        for i in dead:
+                            self._mark_lost(active[i], "scatter failed")
+                        _ins.TURN_RETRY_TOTAL.inc()
+                        with self._lock:
+                            left = len(self.clients)
+                        logger.warning(
+                            "%d worker(s) lost mid-run at turn %d; "
+                            "resplitting over %d",
+                            len(dead), self._turn, left,
                         )
-                        for i in range(n)
-                    ]
-                    # _bounded_gather time-bounds the gather beyond the
-                    # reply deadline (a scatter thread stuck in sendall
-                    # must not hang fut.result() — the send allowance
-                    # rationale lives on the helper)
-                    strips, dead = self._bounded_gather(futures, deadline)
-                    if not dead:
-                        break
-                    with self._lock:
-                        if self._quit:
-                            return  # shutdown race, not a failure
-                    had_loss = True
-                    for i in dead:
-                        self._mark_lost(active[i], "scatter failed")
-                    with self._lock:
-                        left = len(self.clients)
-                    logger.warning(
-                        "%d worker(s) lost mid-run at turn %d; "
-                        "resplitting over %d",
-                        len(dead), self._turn, left,
-                    )
+                        _journal.record(
+                            "recovery.resplit", "scatter", turn=self._turn,
+                            lost=len(dead), remaining=left,
+                        )
 
-                new_world = np.concatenate(strips, axis=0)
-                count = int(np.count_nonzero(new_world))  # outside the lock
-                with self._lock:
-                    self._world = new_world
-                    self._turn += 1
-                    self._sync_turn = self._turn  # a fresh full world
-                    self._record_alive(self._turn, count)
+                    new_world = np.concatenate(strips, axis=0)
+                    count = int(np.count_nonzero(new_world))  # outside the lock
+                    with self._lock:
+                        self._world = new_world
+                        self._turn += 1
+                        self._sync_turn = self._turn  # a fresh full world
+                        self._record_alive(self._turn, count)
+                        turn_now = self._turn
+                    _ins.TURN_BATCH_SIZE.observe(1)
+                    if attribution:
+                        self._feed_critical(sink, active, turn_now, 1)
+                        self._observe_segments(
+                            t_submitted - t_attempt,
+                            t_gathered - t_submitted,
+                            time.monotonic() - t_gathered,
+                            sink,
+                        )
+                finally:
+                    # ends on every exit — commit, shutdown race, all-lost
+                    # raise — so a wedged NEXT turn is the one left open
+                    _tracing.end_span(turn_span)
                 # the adaptive-deadline signal: EWMA of CLEAN committed
                 # turns only. A loss turn's dt contains the deadline stall
                 # itself — feeding it back would let one cold wedge (300 s)
@@ -679,10 +748,67 @@ class WorkersBackend:
 
     # -- the resident-strip data plane (-wire resident) ----------------------
 
-    def _call_worker(self, client, method, req, deadline):
+    def _call_worker(self, client, method, req, deadline, trace_parent=None):
         """One bounded worker call on a pool thread (the scatter posture:
-        timeout covers the REPLY wait)."""
-        return client.call(method, req, timeout=deadline)
+        timeout covers the REPLY wait; trace_parent only when tracing set
+        it, so duck-typed fakes survive)."""
+        kw = {"timeout": deadline}
+        if trace_parent is not None:
+            kw["trace_parent"] = trace_parent
+        return client.call(method, req, **kw)
+
+    @staticmethod
+    def _attribution_on() -> bool:
+        """Hot-loop guard for the dispatch-wall decomposition + critical-
+        path feeds: metrics on AND obs/perf's attribution switch on (the
+        bench's ≤2% decomposition-overhead gate A/Bs the switch)."""
+        return _metrics.enabled() and _perf.attribution_enabled()
+
+    def _timed_call(self, client, method, req, deadline, tp, sink, idx):
+        """``_call_worker`` with per-call attribution: appends
+        ``(idx, round_trip_s, service_s | None)`` to ``sink`` (service is
+        the worker-reported handler wall — getattr: an older worker's
+        reply lacks the field and the split degrades to round trip).
+        list.append is atomic, so pool threads share the sink lock-free."""
+        t0 = time.monotonic()
+        res = self._call_worker(client, method, req, deadline, tp)
+        service = getattr(res, "service_seconds", 0.0)
+        sink.append((idx, time.monotonic() - t0, service or None))
+        return res
+
+    def _feed_critical(self, sink, active, turn, k, strip=False):
+        """Commit one batch's per-worker walls: per-addr StripStep
+        histogram (resident mode) + the critical-path tracker
+        (obs/critical.py), whose snapshot rides the Status payload."""
+        if not sink:
+            return
+        with self._lock:
+            addrs = {
+                id(c): self._client_addr.get(id(c), "<local>") for c in active
+            }
+        entries = []
+        for idx, rt, service in sink:
+            addr = addrs.get(id(active[idx]), "<local>")
+            if strip:
+                _ins.STRIP_STEP_SECONDS.labels(addr).observe(rt)
+            entries.append((addr, rt, service))
+        _critical.tracker().record_batch(entries, turn=turn, k=k)
+
+    @staticmethod
+    def _observe_segments(host_prep, gather, demux, sink):
+        """One batch's dispatch-wall decomposition: the gather wall splits
+        into the gating worker's reported service time (device_compute)
+        and the residual wire time; a roster of non-reporting workers
+        books the whole gather as wire (the honest degradation)."""
+        compute = 0.0
+        if sink:
+            gating = max(sink, key=lambda e: e[1])
+            compute = min(gating[2] or 0.0, gather)
+        seg = _ins.TURN_SEGMENT_SECONDS
+        seg.labels("broker", "host_prep").observe(max(0.0, host_prep))
+        seg.labels("broker", "device_compute").observe(compute)
+        seg.labels("broker", "wire").observe(max(0.0, gather - compute))
+        seg.labels("broker", "demux").observe(max(0.0, demux))
 
     def _bounded_gather(self, futures, deadline):
         """``(results, dead_indices)`` with the scatter loop's time bound:
@@ -737,7 +863,7 @@ class WorkersBackend:
             block = _strip_step(block)  # 2 fewer rows per step
         return block
 
-    def _resident_seed(self, req, h: int, depth: int, pool):
+    def _resident_seed(self, req, h: int, depth: int, pool, tp=None):
         """Deploy (or re-deploy) the resident plan: split the current full
         board — which the plan-is-None invariant guarantees is at
         ``self._turn`` — over the active clients and ``StripStart`` each.
@@ -770,6 +896,7 @@ class WorkersBackend:
                         initial_turn=turn,
                     ),
                     deadline,
+                    tp,
                 )
                 for i in range(n)
             ]
@@ -785,6 +912,11 @@ class WorkersBackend:
                     if _integrity.enabled()
                     else None
                 )
+                if _metrics.enabled():
+                    # the strip plane IS the n x 1 tile layout
+                    _ins.TILE_GRID_ROWS.set(n)
+                    _ins.TILE_GRID_COLS.set(1)
+                    _ins.TILE_EDGE_CELLS.set(2 * k * world.shape[1])
                 return _ResidentPlan(active, bounds, k, edges, digests)
             for i in dead:
                 self._mark_lost(active[i], "resident seed failed")
@@ -797,7 +929,7 @@ class WorkersBackend:
         want = self._grid_rows_forced or (req.threads or n_active)
         return max(1, min(want, n_active, h))
 
-    def _resident_sync(self, plan, pool) -> bool:
+    def _resident_sync(self, plan, pool, tp=None) -> bool:
         """Gather every resident strip (``StripFetch``) and refresh the
         broker's full board at the committed turn. True on success; False
         after marking failures — or lockstep-diverged strips — lost (the
@@ -831,7 +963,7 @@ class WorkersBackend:
         futures = [
             pool.submit(
                 self._call_worker, c, Methods.STRIP_FETCH,
-                Request(worker=i, delta_base_turn=delta_base), deadline,
+                Request(worker=i, delta_base_turn=delta_base), deadline, tp,
             )
             for i, c in enumerate(plan.active)
         ]
@@ -863,6 +995,10 @@ class WorkersBackend:
                     )
                     ok = False
                     continue
+                if _metrics.enabled():
+                    _ins.SPARSE_FRAME_BYTES_TOTAL.inc(
+                        payload.nbytes + dirty.size
+                    )
             else:
                 strip = np.asarray(res.work_slice, np.uint8)
             if res.turns_completed != turn or strip.shape[0] != e - s:
@@ -876,6 +1012,7 @@ class WorkersBackend:
                 # the committed chain: a strip corrupted since its last
                 # verified step — or a wrongly-applied delta — must never
                 # be assembled into the broker's board
+                _ins.INTEGRITY_CHECKS_TOTAL.inc()
                 if _integrity.state_digest(strip) != plan.digests[i]:
                     self._integrity_suspect(
                         plan, i, "fetch",
@@ -900,9 +1037,10 @@ class WorkersBackend:
         with self._lock:
             self._world = world
             self._sync_turn = turn
+        _ins.STRIP_RESYNC_TOTAL.inc()
         return True
 
-    def _resident_recover(self, plan, pool) -> None:
+    def _resident_recover(self, plan, pool, tp=None) -> None:
         """After a loss: rebuild the full board at the committed turn.
         Survivor strips still AT the committed turn are fetched and
         contribute their rows verbatim; rows held by lost workers — or by
@@ -925,7 +1063,7 @@ class WorkersBackend:
             futures = [
                 pool.submit(
                     self._call_worker, c, Methods.STRIP_FETCH,
-                    Request(worker=i), deadline,
+                    Request(worker=i), deadline, tp,
                 )
                 for i, c in survivors
             ]
@@ -947,6 +1085,7 @@ class WorkersBackend:
                         # verbatim — verify them against the chain first;
                         # on mismatch fall through to the local recompute
                         # (bit-identical by construction) instead
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
                         if _integrity.state_digest(strip) != plan.digests[i]:
                             self._integrity_suspect(
                                 plan, i, "fetch",
@@ -969,6 +1108,7 @@ class WorkersBackend:
         with self._lock:
             self._world = world
             self._sync_turn = t1
+        _ins.STRIP_RESYNC_TOTAL.inc()
 
     def _resident_turn_loop(self, req, h: int, initial_turn: int = 0) -> None:
         """The stateful data plane: strips stay on the workers (seeded by
@@ -1049,157 +1189,208 @@ class WorkersBackend:
                     turn0 = self._turn
                 k = min(plan.k, req.turns - turn0)
                 n = len(plan.active)
+                turn_span = (
+                    _tracing.start_span(
+                        _tracing.SPAN_BROKER_TURN, turn=turn0, batch=k
+                    )
+                    if _tracing.enabled() else None
+                )
+                tp = turn_span.ctx() if turn_span else None
                 t_batch = time.monotonic()
-                deadline = self._scatter_deadline()
-                futures = []
-                for i in range(n):
-                    # the worker's next halos are its neighbours'
-                    # boundary rows at turn0: the strip above
-                    # contributes its LAST k rows, the strip below its
-                    # FIRST k (n == 1 wraps onto itself)
-                    top = plan.edges[(i - 1) % n][1][-k:]
-                    bottom = plan.edges[(i + 1) % n][0][:k]
-                    req_i = Request(
-                        world=np.concatenate([top, bottom], axis=0),
-                        worker=i,
-                        turns=k,
-                        initial_turn=turn0,
-                    )
-                    futures.append(pool.submit(
-                        self._call_worker, plan.active[i],
-                        Methods.STRIP_STEP, req_i, deadline,
-                    ))
-                results, dead = self._bounded_gather(futures, deadline)
-                check = _integrity.enabled()
-                attests = [None] * n
-                for i, res in enumerate(results):
-                    if res is None:
-                        continue
-                    edges = getattr(res, "edges", None)
-                    if (
-                        res.turns_completed != turn0 + k
-                        or edges is None
-                        or edges.shape[0] != 2 * k
-                    ):
-                        # a malformed success is a protocol violation,
-                        # not a committable strip
+                attribution = self._attribution_on()
+                sink = [] if attribution else None
+                try:
+                    deadline = self._scatter_deadline()
+                    futures = []
+                    halo_bytes = 0  # strip halos are all row-axis traffic
+                    for i in range(n):
+                        # the worker's next halos are its neighbours'
+                        # boundary rows at turn0: the strip above
+                        # contributes its LAST k rows, the strip below its
+                        # FIRST k (n == 1 wraps onto itself)
+                        top = plan.edges[(i - 1) % n][1][-k:]
+                        bottom = plan.edges[(i + 1) % n][0][:k]
+                        halo_bytes += top.nbytes + bottom.nbytes
+                        req_i = Request(
+                            world=np.concatenate([top, bottom], axis=0),
+                            worker=i,
+                            turns=k,
+                            initial_turn=turn0,
+                        )
+                        if sink is not None:
+                            futures.append(pool.submit(
+                                self._timed_call, plan.active[i],
+                                Methods.STRIP_STEP, req_i, deadline, tp,
+                                sink, i,
+                            ))
+                        else:
+                            futures.append(pool.submit(
+                                self._call_worker, plan.active[i],
+                                Methods.STRIP_STEP, req_i, deadline, tp,
+                            ))
+                    t_submitted = time.monotonic()
+                    results, dead = self._bounded_gather(futures, deadline)
+                    t_gathered = time.monotonic()
+                    check = _integrity.enabled()
+                    attests = [None] * n
+                    for i, res in enumerate(results):
+                        if res is None:
+                            continue
+                        edges = getattr(res, "edges", None)
+                        if (
+                            res.turns_completed != turn0 + k
+                            or edges is None
+                            or edges.shape[0] != 2 * k
+                        ):
+                            # a malformed success is a protocol violation,
+                            # not a committable strip
+                            dead.append(i)
+                            results[i] = None
+                            continue
+                        dig = getattr(res, "digests", None) if check else None
+                        if not isinstance(dig, dict):
+                            # non-attesting peer (version skew, or its
+                            # -integrity is off): skew-safe skip — the
+                            # chain stops being tracked for this worker
+                            continue
+                        # digest chain: the strip this worker stepped FROM
+                        # must be the strip the broker last committed for
+                        # it — an in-place corruption between batches
+                        # (bit flip, buggy kernel scribble) fails here,
+                        # within one K-turn batch of happening
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
+                        if (
+                            plan.digests[i] is not None
+                            and dig.get("pre") != plan.digests[i]
+                        ):
+                            self._integrity_suspect(
+                                plan, i, "strip",
+                                f"pre-batch strip digest at turn {turn0} "
+                                "does not match the committed chain",
+                            )
+                            dead.append(i)
+                            results[i] = None
+                            continue
+                        # reply-edge digest: covers the worker-side
+                        # serialisation of the rows the neighbours will
+                        # step from next batch
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
+                        if dig.get("edges") != _integrity.state_digest(edges):
+                            self._integrity_suspect(
+                                plan, i, "edges",
+                                "returned edge rows do not match their "
+                                "attested digest",
+                            )
+                            dead.append(i)
+                            results[i] = None
+                            continue
+                        attests[i] = (
+                            dig.get("attest_top"), dig.get("attest_bottom")
+                        )
+                    # halo cross-attestation: neighbouring strips compute
+                    # the boundary band REDUNDANTLY at every intermediate
+                    # shrinking step (worker i's block starts where worker
+                    # i-1's ends), so their rolled band digests must agree —
+                    # a worker computing wrong rows near a boundary is
+                    # caught here, in the same batch, instead of poisoning
+                    # the board until the next sync. Disagreement cannot
+                    # name the liar, so BOTH are suspects: recovery
+                    # rebuilds from the verified last sync either way.
+                    suspects = set()
+                    for i in range(n):
+                        up = (i - 1) % n
+                        if results[i] is None or results[up] is None:
+                            continue
+                        a, b = attests[i], attests[up]
+                        if not a or not b or not a[0] or not b[1]:
+                            continue
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
+                        if a[0] != b[1]:
+                            self._integrity_suspect(
+                                plan, i, "attest",
+                                f"boundary band digests disagree with "
+                                f"worker {up} across the batch at turn "
+                                f"{turn0}",
+                            )
+                            suspects.update((i, up))
+                    for i in suspects:
                         dead.append(i)
                         results[i] = None
-                        continue
-                    dig = getattr(res, "digests", None) if check else None
-                    if not isinstance(dig, dict):
-                        # non-attesting peer (version skew, or its
-                        # -integrity is off): skew-safe skip — the
-                        # chain stops being tracked for this worker
-                        continue
-                    # digest chain: the strip this worker stepped FROM
-                    # must be the strip the broker last committed for
-                    # it — an in-place corruption between batches
-                    # (bit flip, buggy kernel scribble) fails here,
-                    # within one K-turn batch of happening
-                    if (
-                        plan.digests[i] is not None
-                        and dig.get("pre") != plan.digests[i]
-                    ):
-                        self._integrity_suspect(
-                            plan, i, "strip",
-                            f"pre-batch strip digest at turn {turn0} "
-                            "does not match the committed chain",
+                    if dead:
+                        with self._lock:
+                            if self._quit:
+                                return  # shutdown race, not a failure
+                        for i in sorted(set(dead)):
+                            self._mark_lost(plan.active[i], "strip step failed")
+                        _ins.TURN_RETRY_TOTAL.inc()
+                        with self._lock:
+                            left = len(self.clients)
+                        logger.warning(
+                            "%d worker(s) lost mid-batch at turn %d; "
+                            "recovering over %d",
+                            len(set(dead)), turn0, left,
                         )
-                        dead.append(i)
-                        results[i] = None
-                        continue
-                    # reply-edge digest: covers the worker-side
-                    # serialisation of the rows the neighbours will
-                    # step from next batch
-                    if dig.get("edges") != _integrity.state_digest(edges):
-                        self._integrity_suspect(
-                            plan, i, "edges",
-                            "returned edge rows do not match their "
-                            "attested digest",
+                        _journal.record(
+                            "recovery.resplit", "resident", turn=turn0,
+                            lost=len(set(dead)), remaining=left,
                         )
-                        dead.append(i)
-                        results[i] = None
+                        self._resident_recover(plan, pool, tp)
+                        plan = None
                         continue
-                    attests[i] = (
-                        dig.get("attest_top"), dig.get("attest_bottom")
-                    )
-                # halo cross-attestation: neighbouring strips compute
-                # the boundary band REDUNDANTLY at every intermediate
-                # shrinking step (worker i's block starts where worker
-                # i-1's ends), so their rolled band digests must agree —
-                # a worker computing wrong rows near a boundary is
-                # caught here, in the same batch, instead of poisoning
-                # the board until the next sync. Disagreement cannot
-                # name the liar, so BOTH are suspects: recovery
-                # rebuilds from the verified last sync either way.
-                suspects = set()
-                for i in range(n):
-                    up = (i - 1) % n
-                    if results[i] is None or results[up] is None:
-                        continue
-                    a, b = attests[i], attests[up]
-                    if not a or not b or not a[0] or not b[1]:
-                        continue
-                    if a[0] != b[1]:
-                        self._integrity_suspect(
-                            plan, i, "attest",
-                            f"boundary band digests disagree with "
-                            f"worker {up} across the batch at turn "
-                            f"{turn0}",
+                    # commit: every strip advanced turn0 -> turn0 + k in
+                    # lockstep; only the fresh boundary rows came back.
+                    # The ticker feed needs the LANDING turn's count only
+                    # (each reply's counts[-1] — the intermediate steps
+                    # are unobservable between batches)
+                    total = 0
+                    for res in results:
+                        counts = getattr(res, "counts", None) or []
+                        if counts:
+                            total += int(counts[-1])
+                    for i, res in enumerate(results):
+                        # shape/None-validated in the reply loop above;
+                        # getattr keeps the read skew-safe regardless
+                        edges = getattr(res, "edges", None)
+                        halo_bytes += edges.nbytes
+                        plan.edges[i] = (edges[:k], edges[k:])
+                        # advance the digest chain to the committed turn
+                        # (None = this worker stopped attesting: the chain
+                        # is no longer checkable for it, never guessed)
+                        dig = getattr(res, "digests", None)
+                        plan.digests[i] = (
+                            dig.get("strip")
+                            if check and isinstance(dig, dict)
+                            else None
                         )
-                        suspects.update((i, up))
-                for i in suspects:
-                    dead.append(i)
-                    results[i] = None
-                if dead:
                     with self._lock:
-                        if self._quit:
-                            return  # shutdown race, not a failure
-                    for i in sorted(set(dead)):
-                        self._mark_lost(plan.active[i], "strip step failed")
-                    with self._lock:
-                        left = len(self.clients)
-                    logger.warning(
-                        "%d worker(s) lost mid-batch at turn %d; "
-                        "recovering over %d",
-                        len(set(dead)), turn0, left,
-                    )
-                    self._resident_recover(plan, pool)
-                    plan = None
-                    continue
-                # commit: every strip advanced turn0 -> turn0 + k in
-                # lockstep; only the fresh boundary rows came back.
-                # The ticker feed needs the LANDING turn's count only
-                # (each reply's counts[-1] — the intermediate steps
-                # are unobservable between batches)
-                total = 0
-                for res in results:
-                    counts = getattr(res, "counts", None) or []
-                    if counts:
-                        total += int(counts[-1])
-                for i, res in enumerate(results):
-                    # shape/None-validated in the reply loop above;
-                    # getattr keeps the read skew-safe regardless
-                    edges = getattr(res, "edges", None)
-                    plan.edges[i] = (edges[:k], edges[k:])
-                    # advance the digest chain to the committed turn
-                    # (None = this worker stopped attesting: the chain
-                    # is no longer checkable for it, never guessed)
-                    dig = getattr(res, "digests", None)
-                    plan.digests[i] = (
-                        dig.get("strip")
-                        if check and isinstance(dig, dict)
-                        else None
-                    )
-                with self._lock:
-                    self._turn = turn0 + k
-                    self._record_alive(turn0 + k, total)
-                # the batch's dirty-tile bitmaps: the cluster-level
-                # frontier gauge + the delta-checkpoint window
-                self._note_batch_dirty(results, plan, h)
-            # clean batches only, like the scatter loop; the EWMA unit
-            # here is one BATCH (what one deadline must cover)
+                        self._turn = turn0 + k
+                        self._record_alive(turn0 + k, total)
+                    # the batch's dirty-tile bitmaps: the cluster-level
+                    # frontier gauge + the delta-checkpoint window
+                    self._note_batch_dirty(results, plan, h)
+                    _ins.TURN_BATCH_SIZE.observe(k)
+                    if _metrics.enabled():
+                        # committed batches only, both directions: the
+                        # strip plane's halos are entirely row traffic
+                        _ins.HALO_BYTES_TOTAL.labels("row").inc(halo_bytes)
+                    if attribution:
+                        # per-addr StripStep walls + critical-path gating
+                        # (obs/critical.py) and the K-batch's dispatch-wall
+                        # decomposition — committed batches only, so a loss
+                        # retry never skews the attribution
+                        self._feed_critical(
+                            sink, plan.active, turn0 + k, k, strip=True
+                        )
+                        self._observe_segments(
+                            t_submitted - t_batch,
+                            t_gathered - t_submitted,
+                            time.monotonic() - t_gathered,
+                            sink,
+                        )
+                finally:
+                    _tracing.end_span(turn_span)
+                # clean batches only, like the scatter loop; the EWMA unit
+                # here is one BATCH (what one deadline must cover)
                 dt = time.monotonic() - t_batch
                 self._turn_seconds = (
                     dt if self._turn_seconds is None
@@ -1246,7 +1437,7 @@ class WorkersBackend:
             block = _tile_step(block)  # 2 fewer rows AND cols per step
         return block
 
-    def _tile_seed(self, req, h: int, w: int, depth: int, pool):
+    def _tile_seed(self, req, h: int, w: int, depth: int, pool, tp=None):
         """_resident_seed's checkerboard twin: lay the current full board
         out as the resolved rows x cols grid and ``StripStart`` every
         tile (the grid extension fields mark the session 2-D; the worker
@@ -1298,6 +1489,7 @@ class WorkersBackend:
                         end_x=x1,
                     ),
                     deadline,
+                    tp,
                 )
                 for i, (s, e, x0, x1) in enumerate(bounds)
             ]
@@ -1322,13 +1514,19 @@ class WorkersBackend:
                     if _integrity.enabled()
                     else None
                 )
+                if _metrics.enabled():
+                    _ins.TILE_GRID_ROWS.set(rows)
+                    _ins.TILE_GRID_COLS.set(cols)
+                    th = max(e - s for s, e in rbounds)
+                    tw = max(x1 - x0 for x0, x1 in cbounds)
+                    _ins.TILE_EDGE_CELLS.set(2 * k * (th + tw) + 4 * k * k)
                 return _TilePlan(
                     active, bounds, (rows, cols), k, edges, digests
                 )
             for i in dead:
                 self._mark_lost(active[i], "tile seed failed")
 
-    def _tile_sync(self, plan, pool) -> bool:
+    def _tile_sync(self, plan, pool, tp=None) -> bool:
         """_resident_sync for a tile plan: gather every resident tile
         (``StripFetch``, dirty-tile deltas included — the wire-tile codec
         is already 2-D) and reassemble the full board at the committed turn.
@@ -1350,7 +1548,7 @@ class WorkersBackend:
         futures = [
             pool.submit(
                 self._call_worker, c, Methods.STRIP_FETCH,
-                Request(worker=i, delta_base_turn=delta_base), deadline,
+                Request(worker=i, delta_base_turn=delta_base), deadline, tp,
             )
             for i, c in enumerate(plan.active)
         ]
@@ -1377,12 +1575,17 @@ class WorkersBackend:
                     self._mark_lost(plan.active[i], "tile delta malformed")
                     ok = False
                     continue
+                if _metrics.enabled():
+                    _ins.SPARSE_FRAME_BYTES_TOTAL.inc(
+                        payload.nbytes + dirty.size
+                    )
             else:
                 tile = np.asarray(res.work_slice, np.uint8)
             if res.turns_completed != turn or tile.shape != (e - s, x1 - x0):
                 self._mark_lost(plan.active[i], "tile lockstep divergence")
                 ok = False
             elif plan.digests[i] is not None and _integrity.enabled():
+                _ins.INTEGRITY_CHECKS_TOTAL.inc()
                 if _integrity.state_digest(tile) != plan.digests[i]:
                     self._integrity_suspect(
                         plan, i, "fetch",
@@ -1408,9 +1611,10 @@ class WorkersBackend:
         with self._lock:
             self._world = world
             self._sync_turn = turn
+        _ins.STRIP_RESYNC_TOTAL.inc()
         return True
 
-    def _tile_recover(self, plan, pool) -> None:
+    def _tile_recover(self, plan, pool, tp=None) -> None:
         """_resident_recover over 2-D blocks: survivor tiles still AT the
         committed turn contribute verbatim (digest-verified); blocks held
         by lost workers — or survivors already past the commit — are
@@ -1431,7 +1635,7 @@ class WorkersBackend:
             futures = [
                 pool.submit(
                     self._call_worker, c, Methods.STRIP_FETCH,
-                    Request(worker=i), deadline,
+                    Request(worker=i), deadline, tp,
                 )
                 for i, c in survivors
             ]
@@ -1446,6 +1650,7 @@ class WorkersBackend:
                 tile = np.asarray(res.work_slice, np.uint8)
                 if res.turns_completed == t1 and tile.shape == (e - s, x1 - x0):
                     if plan.digests[i] is not None and _integrity.enabled():
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
                         if _integrity.state_digest(tile) != plan.digests[i]:
                             self._integrity_suspect(
                                 plan, i, "fetch",
@@ -1470,6 +1675,7 @@ class WorkersBackend:
         with self._lock:
             self._world = world
             self._sync_turn = t1
+        _ins.STRIP_RESYNC_TOTAL.inc()
 
     def _tile_turn_loop(
         self, req, h: int, w: int, initial_turn: int = 0
@@ -1564,166 +1770,222 @@ class WorkersBackend:
                 k = min(plan.k, req.turns - turn0)
                 n = len(plan.active)
                 rows, cols = plan.grid
-                t_batch = time.monotonic()
-                deadline = self._scatter_deadline()
-                futures = []
-                edge_shapes = [
-                    tile_edge_shapes(k, e - s, x1 - x0)
-                    for s, e, x0, x1 in plan.bounds
-                ]
-                for i in range(n):
-                    # tile (r, c)'s next halos at turn0: edge bands
-                    # from the four adjacent tiles, corner blocks cut
-                    # from the DIAGONAL neighbours' row bands (a 1-col
-                    # or 1-row grid wraps onto itself, same toroidal
-                    # rule as the strip plane's n == 1)
-                    r, c = divmod(i, cols)
-                    up = plan.edges[((r - 1) % rows) * cols + c]
-                    dn = plan.edges[((r + 1) % rows) * cols + c]
-                    lf = plan.edges[r * cols + (c - 1) % cols]
-                    rt = plan.edges[r * cols + (c + 1) % cols]
-                    tl = plan.edges[((r - 1) % rows) * cols + (c - 1) % cols]
-                    tr = plan.edges[((r - 1) % rows) * cols + (c + 1) % cols]
-                    bl = plan.edges[((r + 1) % rows) * cols + (c - 1) % cols]
-                    br = plan.edges[((r + 1) % rows) * cols + (c + 1) % cols]
-                    buf = pack_tile_blocks((
-                        up[1][-k:],       # top halo rows
-                        dn[0][:k],        # bottom halo rows
-                        lf[3][:, -k:],    # left halo cols
-                        rt[2][:, :k],     # right halo cols
-                        tl[1][-k:, -k:],  # top-left corner
-                        tr[1][-k:, :k],   # top-right corner
-                        bl[0][:k, -k:],   # bottom-left corner
-                        br[0][:k, :k],    # bottom-right corner
-                    ))
-                    req_i = Request(
-                        world=buf,
-                        worker=i,
-                        turns=k,
-                        initial_turn=turn0,
+                turn_span = (
+                    _tracing.start_span(
+                        _tracing.SPAN_BROKER_TURN, turn=turn0, batch=k
                     )
-                    futures.append(pool.submit(
-                        self._call_worker, plan.active[i],
-                        Methods.STRIP_STEP, req_i, deadline,
-                    ))
-                results, dead = self._bounded_gather(futures, deadline)
-                check = _integrity.enabled()
-                attests: list[dict | None] = [None] * n
-                for i, res in enumerate(results):
-                    if res is None:
-                        continue
-                    edges = getattr(res, "edges", None)
-                    want = sum(_packed_len(sh) for sh in edge_shapes[i])
-                    if (
-                        res.turns_completed != turn0 + k
-                        or edges is None
-                        or getattr(edges, "ndim", 0) != 1
-                        or edges.size != want
-                    ):
-                        # a malformed success is a protocol violation
-                        dead.append(i)
-                        results[i] = None
-                        continue
-                    dig = getattr(res, "digests", None) if check else None
-                    if not isinstance(dig, dict):
-                        continue  # non-attesting peer: skew-safe skip
-                    if (
-                        plan.digests[i] is not None
-                        and dig.get("pre") != plan.digests[i]
-                    ):
-                        self._integrity_suspect(
-                            plan, i, "strip",
-                            f"pre-batch tile digest at turn {turn0} "
-                            "does not match the committed chain",
-                        )
-                        dead.append(i)
-                        results[i] = None
-                        continue
-                    if dig.get("edges") != _integrity.state_digest(edges):
-                        self._integrity_suspect(
-                            plan, i, "edges",
-                            "returned edge bands do not match their "
-                            "attested digest",
-                        )
-                        dead.append(i)
-                        results[i] = None
-                        continue
-                    attests[i] = dig
-                # 2-D halo cross-attestation: every shared edge AND
-                # corner is computed redundantly by both parties at
-                # each shrinking step; four directed comparisons per
-                # tile (up, left, and the two upward diagonals) cover
-                # all eight adjacency relations grid-wide. A
-                # disagreement cannot name the liar: BOTH parties are
-                # quarantined, recovery rebuilds from the last
-                # verified sync.
-                suspects = set()
-                pairs = (
-                    ("attest_top", -1, 0, "attest_bottom"),
-                    ("attest_left", 0, -1, "attest_right"),
-                    ("attest_tl", -1, -1, "attest_br"),
-                    ("attest_tr", -1, 1, "attest_bl"),
+                    if _tracing.enabled() else None
                 )
-                for i in range(n):
-                    if results[i] is None or attests[i] is None:
-                        continue
-                    r, c = divmod(i, cols)
-                    for mine, dr, dc, theirs in pairs:
-                        j = ((r + dr) % rows) * cols + (c + dc) % cols
-                        if results[j] is None or attests[j] is None:
+                tp = turn_span.ctx() if turn_span else None
+                t_batch = time.monotonic()
+                attribution = self._attribution_on()
+                sink = [] if attribution else None
+                try:
+                    deadline = self._scatter_deadline()
+                    futures = []
+                    halo_row_b = halo_col_b = halo_corner_b = 0
+                    edge_shapes = [
+                        tile_edge_shapes(k, e - s, x1 - x0)
+                        for s, e, x0, x1 in plan.bounds
+                    ]
+                    for i in range(n):
+                        # tile (r, c)'s next halos at turn0: edge bands
+                        # from the four adjacent tiles, corner blocks cut
+                        # from the DIAGONAL neighbours' row bands (a 1-col
+                        # or 1-row grid wraps onto itself, same toroidal
+                        # rule as the strip plane's n == 1)
+                        r, c = divmod(i, cols)
+                        up = plan.edges[((r - 1) % rows) * cols + c]
+                        dn = plan.edges[((r + 1) % rows) * cols + c]
+                        lf = plan.edges[r * cols + (c - 1) % cols]
+                        rt = plan.edges[r * cols + (c + 1) % cols]
+                        tl = plan.edges[((r - 1) % rows) * cols + (c - 1) % cols]
+                        tr = plan.edges[((r - 1) % rows) * cols + (c + 1) % cols]
+                        bl = plan.edges[((r + 1) % rows) * cols + (c - 1) % cols]
+                        br = plan.edges[((r + 1) % rows) * cols + (c + 1) % cols]
+                        buf = pack_tile_blocks((
+                            up[1][-k:],       # top halo rows
+                            dn[0][:k],        # bottom halo rows
+                            lf[3][:, -k:],    # left halo cols
+                            rt[2][:, :k],     # right halo cols
+                            tl[1][-k:, -k:],  # top-left corner
+                            tr[1][-k:, :k],   # top-right corner
+                            bl[0][:k, -k:],   # bottom-left corner
+                            br[0][:k, :k],    # bottom-right corner
+                        ))
+                        sh = edge_shapes[i]
+                        halo_row_b += 2 * _packed_len(sh[0])
+                        halo_col_b += 2 * _packed_len(sh[2])
+                        halo_corner_b += 4 * _packed_len((k, k))
+                        req_i = Request(
+                            world=buf,
+                            worker=i,
+                            turns=k,
+                            initial_turn=turn0,
+                        )
+                        if sink is not None:
+                            futures.append(pool.submit(
+                                self._timed_call, plan.active[i],
+                                Methods.STRIP_STEP, req_i, deadline, tp,
+                                sink, i,
+                            ))
+                        else:
+                            futures.append(pool.submit(
+                                self._call_worker, plan.active[i],
+                                Methods.STRIP_STEP, req_i, deadline, tp,
+                            ))
+                    t_submitted = time.monotonic()
+                    results, dead = self._bounded_gather(futures, deadline)
+                    t_gathered = time.monotonic()
+                    check = _integrity.enabled()
+                    attests: list[dict | None] = [None] * n
+                    for i, res in enumerate(results):
+                        if res is None:
                             continue
-                        a = attests[i].get(mine)
-                        b = attests[j].get(theirs)
-                        if not a or not b:
+                        edges = getattr(res, "edges", None)
+                        want = sum(_packed_len(sh) for sh in edge_shapes[i])
+                        if (
+                            res.turns_completed != turn0 + k
+                            or edges is None
+                            or getattr(edges, "ndim", 0) != 1
+                            or edges.size != want
+                        ):
+                            # a malformed success is a protocol violation
+                            dead.append(i)
+                            results[i] = None
                             continue
-                        if a != b:
+                        halo_row_b += 2 * _packed_len(edge_shapes[i][0])
+                        halo_col_b += 2 * _packed_len(edge_shapes[i][2])
+                        dig = getattr(res, "digests", None) if check else None
+                        if not isinstance(dig, dict):
+                            continue  # non-attesting peer: skew-safe skip
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
+                        if (
+                            plan.digests[i] is not None
+                            and dig.get("pre") != plan.digests[i]
+                        ):
                             self._integrity_suspect(
-                                plan, i, "attest",
-                                f"{mine} band digests disagree with "
-                                f"tile {j}'s {theirs} across the "
-                                f"batch at turn {turn0}",
+                                plan, i, "strip",
+                                f"pre-batch tile digest at turn {turn0} "
+                                "does not match the committed chain",
                             )
-                            suspects.update((i, j))
-                for i in suspects:
-                    dead.append(i)
-                    results[i] = None
-                if dead:
+                            dead.append(i)
+                            results[i] = None
+                            continue
+                        _ins.INTEGRITY_CHECKS_TOTAL.inc()
+                        if dig.get("edges") != _integrity.state_digest(edges):
+                            self._integrity_suspect(
+                                plan, i, "edges",
+                                "returned edge bands do not match their "
+                                "attested digest",
+                            )
+                            dead.append(i)
+                            results[i] = None
+                            continue
+                        attests[i] = dig
+                    # 2-D halo cross-attestation: every shared edge AND
+                    # corner is computed redundantly by both parties at
+                    # each shrinking step; four directed comparisons per
+                    # tile (up, left, and the two upward diagonals) cover
+                    # all eight adjacency relations grid-wide. A
+                    # disagreement cannot name the liar: BOTH parties are
+                    # quarantined, recovery rebuilds from the last
+                    # verified sync.
+                    suspects = set()
+                    pairs = (
+                        ("attest_top", -1, 0, "attest_bottom"),
+                        ("attest_left", 0, -1, "attest_right"),
+                        ("attest_tl", -1, -1, "attest_br"),
+                        ("attest_tr", -1, 1, "attest_bl"),
+                    )
+                    for i in range(n):
+                        if results[i] is None or attests[i] is None:
+                            continue
+                        r, c = divmod(i, cols)
+                        for mine, dr, dc, theirs in pairs:
+                            j = ((r + dr) % rows) * cols + (c + dc) % cols
+                            if results[j] is None or attests[j] is None:
+                                continue
+                            a = attests[i].get(mine)
+                            b = attests[j].get(theirs)
+                            if not a or not b:
+                                continue
+                            _ins.INTEGRITY_CHECKS_TOTAL.inc()
+                            if a != b:
+                                self._integrity_suspect(
+                                    plan, i, "attest",
+                                    f"{mine} band digests disagree with "
+                                    f"tile {j}'s {theirs} across the "
+                                    f"batch at turn {turn0}",
+                                )
+                                suspects.update((i, j))
+                    for i in suspects:
+                        dead.append(i)
+                        results[i] = None
+                    if dead:
+                        with self._lock:
+                            if self._quit:
+                                return  # shutdown race, not a failure
+                        for i in sorted(set(dead)):
+                            self._mark_lost(plan.active[i], "tile step failed")
+                        _ins.TURN_RETRY_TOTAL.inc()
+                        with self._lock:
+                            left = len(self.clients)
+                        logger.warning(
+                            "%d tile(s) lost mid-batch at turn %d; "
+                            "recovering over %d",
+                            len(set(dead)), turn0, left,
+                        )
+                        _journal.record(
+                            "recovery.resplit", "tile", turn=turn0,
+                            lost=len(set(dead)), remaining=left,
+                        )
+                        self._tile_recover(plan, pool, tp)
+                        plan = None
+                        continue
+                    # commit: lockstep advance, fresh edge bands only
+                    total = 0
+                    for res in results:
+                        counts = getattr(res, "counts", None) or []
+                        if counts:
+                            total += int(counts[-1])
+                    for i, res in enumerate(results):
+                        edges = getattr(res, "edges", None)
+                        plan.edges[i] = tuple(
+                            unpack_tile_blocks(edges, edge_shapes[i])
+                        )
+                        dig = getattr(res, "digests", None)
+                        plan.digests[i] = (
+                            dig.get("strip")
+                            if check and isinstance(dig, dict)
+                            else None
+                        )
                     with self._lock:
-                        if self._quit:
-                            return  # shutdown race, not a failure
-                    for i in sorted(set(dead)):
-                        self._mark_lost(plan.active[i], "tile step failed")
-                    with self._lock:
-                        left = len(self.clients)
-                    logger.warning(
-                        "%d tile(s) lost mid-batch at turn %d; "
-                        "recovering over %d",
-                        len(set(dead)), turn0, left,
-                    )
-                    self._tile_recover(plan, pool)
-                    plan = None
-                    continue
-                # commit: lockstep advance, fresh edge bands only
-                total = 0
-                for res in results:
-                    counts = getattr(res, "counts", None) or []
-                    if counts:
-                        total += int(counts[-1])
-                for i, res in enumerate(results):
-                    edges = getattr(res, "edges", None)
-                    plan.edges[i] = tuple(
-                        unpack_tile_blocks(edges, edge_shapes[i])
-                    )
-                    dig = getattr(res, "digests", None)
-                    plan.digests[i] = (
-                        dig.get("strip")
-                        if check and isinstance(dig, dict)
-                        else None
-                    )
-                with self._lock:
-                    self._turn = turn0 + k
-                    self._record_alive(turn0 + k, total)
-                self._note_batch_dirty(results, plan, h)
+                        self._turn = turn0 + k
+                        self._record_alive(turn0 + k, total)
+                    self._note_batch_dirty(results, plan, h)
+                    _ins.TURN_BATCH_SIZE.observe(k)
+                    if _metrics.enabled():
+                        # committed batches, both directions, split by
+                        # axis — the O(K·edge) vs O(K·W) scaling claim is
+                        # measured, not asserted
+                        _ins.HALO_BYTES_TOTAL.labels("row").inc(halo_row_b)
+                        _ins.HALO_BYTES_TOTAL.labels("col").inc(halo_col_b)
+                        _ins.HALO_BYTES_TOTAL.labels("corner").inc(
+                            halo_corner_b
+                        )
+                    if attribution:
+                        self._feed_critical(
+                            sink, plan.active, turn0 + k, k, strip=True
+                        )
+                        self._observe_segments(
+                            t_submitted - t_batch,
+                            t_gathered - t_submitted,
+                            time.monotonic() - t_gathered,
+                            sink,
+                        )
+                finally:
+                    _tracing.end_span(turn_span)
                 dt = time.monotonic() - t_batch
                 self._turn_seconds = (
                     dt if self._turn_seconds is None
@@ -1757,29 +2019,43 @@ class WorkersBackend:
     # -- fault tolerance ---------------------------------------------------
 
     def _integrity_suspect(self, plan, i, kind: str, detail: str) -> None:
-        """Record one integrity violation loudly (an error log). The caller then routes the suspect through the
+        """Record one integrity violation loudly (metric by kind, flight
+        event, error log). The caller then routes the suspect through the
         EXISTING loss machinery — recovery rebuilds the committed turn
         from the last verified sync, the probe quarantines/readmits."""
+        _ins.INTEGRITY_FAILURES_TOTAL.labels(kind).inc()
         with self._lock:
             addr = self._client_addr.get(id(plan.active[i]), "<local>")
+        _flight.record("integrity.fail", addr, check=kind)
+        _journal.record("integrity.fail", addr, check=kind, detail=detail[:200])
         logger.error(
             "INTEGRITY violation (%s) from worker %s: %s", kind, addr, detail
         )
 
     def _note_batch_dirty(self, results, plan, height: int) -> None:
         """Fold one committed K-batch's per-strip dirty bitmaps
-        (``StripStep`` replies, ops/sparse.py wire tiles) into the global
-        dirty grid the delta auto-checkpoint cuts tiles from. A reply without the field — a
+        (``StripStep`` replies, ops/sparse.py wire tiles) into the
+        cluster frontier gauge and the global dirty grid the delta
+        auto-checkpoint cuts tiles from. A reply without the field — a
         version-skewed worker — poisons the window: the next checkpoint
         falls back to a full keyframe rather than trust a partial view.
         Turn-loop-local state only; no lock needed."""
-        if not self._auto_checkpoint:
+        if not self._auto_checkpoint and not _metrics.enabled():
             return  # nobody consumes the bitmaps: keep the hot loop clean
         from ..ops.sparse import WIRE_TILE_COLS, WIRE_TILE_ROWS, wire_tile_grid
 
-        known = all(
-            isinstance(getattr(res, "dirty", None), np.ndarray) for res in results
-        )
+        total_dirty = 0
+        known = True
+        for res in results:
+            d = getattr(res, "dirty", None)
+            if isinstance(d, np.ndarray):
+                total_dirty += int(np.count_nonzero(d))
+            else:
+                known = False
+        if _metrics.enabled() and known:
+            _ins.ACTIVE_TILES.set(total_dirty)
+        if not self._auto_checkpoint:
+            return
         if not known:
             # window unknown -> the next write is a full keyframe
             self._ckpt_dirty = None
@@ -1844,13 +2120,17 @@ class WorkersBackend:
 
     def _scatter_deadline(self) -> float:
         """Reply bound for one scatter call. ``-rpc-deadline`` pins it;
-        otherwise it adapts to the observed turn time."""
+        otherwise it adapts to the observed turn time. Published on the
+        ``gol_scatter_deadline_seconds`` gauge so the timeline sampler
+        sees the EWMA drift (the 'scatter-deadline-growth' SLO rule:
+        a cluster getting slower before anything has failed)."""
         if self._rpc_deadline:
             deadline = self._rpc_deadline
         elif self._turn_seconds is None:
             deadline = _DEADLINE_COLD
         else:
             deadline = max(_DEADLINE_FLOOR, 20.0 * self._turn_seconds + 1.0)
+        _ins.SCATTER_DEADLINE_SECONDS.set(deadline)
         return deadline
 
     def _mark_lost(self, client, reason: str) -> None:
@@ -1881,6 +2161,19 @@ class WorkersBackend:
                 )
                 self._probe_backoff[addr] = backoff
                 self._lost[addr] = time.monotonic() + backoff
+        _ins.WORKER_LOST_TOTAL.inc()
+        _flight.record("worker.lost", addr or "<local>", reason=reason)
+        _journal.record(
+            "worker.lost", addr or "<local>", reason=reason,
+            backoff_s=round(backoff, 2),
+        )
+        if addr is not None and backoff > self._probe_interval:
+            # an escalated backoff IS the quarantine decision — journal it
+            # as its own lifecycle event so history/doctor can correlate
+            # repeat losses with the flap window
+            _journal.record(
+                "worker.quarantine", addr, backoff_s=round(backoff, 2)
+            )
         logger.warning("worker %s lost (%s)", addr or "<local>", reason)
 
     def _probe_loop(self) -> None:
@@ -1945,6 +2238,9 @@ class WorkersBackend:
                     self.clients.append(client)
                     self._client_addr[id(client)] = addr
                     connected = len(self.clients)
+                _ins.WORKER_READMITTED_TOTAL.inc()
+                _flight.record("worker.readmit", addr)
+                _journal.record("worker.readmit", addr, connected=connected)
                 logger.info(
                     "worker %s readmitted; %d connected", addr, connected
                 )
@@ -2041,6 +2337,35 @@ class WorkersBackend:
         except Exception as exc:
             logger.error("auto-checkpoint at turn %d failed: %s", turn, exc)
             return
+        _ins.AUTO_CHECKPOINT_TOTAL.inc()
+        _flight.record("ckpt.auto", str(p), turn=turn, delta=bool(delta))
+        _journal.record(
+            "ckpt.write", "broker", turn=turn, delta=bool(delta),
+            path=str(p),
+        )
+
+    def worker_health(self) -> list[dict]:
+        """Per-address roster health for the Status payload (rendered as
+        the watch dashboard's WORKERS column): connected clients first,
+        then lost/never-connected addresses with their next probe ETA."""
+        now = time.monotonic()
+        with self._lock:
+            health = [
+                {
+                    "address": self._client_addr.get(id(c), "<local>"),
+                    "state": "connected",
+                }
+                for c in self.clients
+            ]
+            health += [
+                {
+                    "address": a,
+                    "state": "lost",
+                    "retry_in_s": round(max(0.0, t - now), 2),
+                }
+                for a, t in sorted(self._lost.items())
+            ]
+        return health
 
     def pause(self):
         """Toggle pause. On pause, blocks until the turn loop has actually
@@ -2163,6 +2488,26 @@ class WorkersBackend:
             count = int(np.count_nonzero(world))
         return Snapshot(world if include_world else None, turn, count)
 
+    def collect_remote_spans(self) -> list:
+        """Each connected worker's finished spans, via its own Status verb
+        — so ONE broker Status reply carries the whole fan-out topology and
+        the controller's trace export gets a track per worker. Strictly
+        best-effort with a short reply bound: a dead or wedged worker must
+        cost 2 s, not hang the Status poll (the verb exists to debug
+        exactly such runs); pre-Status workers reply without the field.
+        Dead clients are CLOSED and dropped at loss time (_mark_lost), so
+        this no longer pays a 2 s timeout per corpse."""
+        spans: list = []
+        with self._lock:
+            clients = list(self.clients)
+        for client in clients:
+            try:
+                res = client.call(Methods.WORKER_STATUS, Request(), timeout=2.0)
+            except (RpcError, OSError):
+                continue
+            payload = getattr(res, "status", None) or {}
+            spans.extend(payload.get("trace_spans") or [])
+        return spans
 
 
 class SessionScheduler:
@@ -2195,8 +2540,8 @@ class SessionScheduler:
         self.device = resolve_device(device)
         # guards _table, _tags, _finished, _finished_bytes, _stop and
         # _thread; _work is the driver's wake-up on the same lock
-        self._lock = threading.Lock()
-        self._work = threading.Condition(self._lock)
+        self._lock = _locksan.lock("SessionScheduler._lock")
+        self._work = _locksan.condition("SessionScheduler._work", self._lock)
         self._table = None  # current SessionTable (one geometry/rule)
         self._tags: dict = {}  # session_id -> Session
         self._finished: collections.OrderedDict = collections.OrderedDict()
@@ -2207,46 +2552,63 @@ class SessionScheduler:
     def submit(self, req: Request) -> RunResult:
         """Blocking: admit this Run into the batch, wait for its universe
         to finish, return its result. Raises ``SessionRejected`` on an
-        admission refusal (an error reply to the client)."""
-        from ..engine.sessions import SessionTable, reject
+        admission refusal (an error reply to the client). The session's
+        tag names its tenant (obs/accounting.tenant_of), whose ledger
+        entry records the admission, its wait and any refusal."""
+        from ..engine.sessions import SessionRejected, SessionTable, reject
 
         rule = _rule_of(req)
         shape = (req.image_height, req.image_width)
         world = np.asarray(req.world, np.uint8)
         tag = getattr(req, "session_id", 0)
-        with self._work:
-            if self._stop:
-                raise RpcError("broker is shutting down")
-            if self._table is not None and self._table.occupancy == 0 and (
-                self._table.shape != shape
-                or self._table.rule.rulestring != rule.rulestring
-            ):
-                self._table = None  # drained: a new geometry may claim it
-            if self._table is None:
-                self._table = SessionTable(
-                    rule, shape, self.capacity, max_chunk=self.max_chunk,
-                    device=self.device,
-                )
-            if self._table.rule.rulestring != rule.rulestring:
-                raise reject(
-                    "rule",
-                    f"this batch serves {self._table.rule.rulestring}, "
-                    f"not {rule.rulestring} (one rule per batch)",
-                )
-            if tag and tag in self._tags:
-                raise reject("tag", f"session tag {tag} already in use")
-            # geometry/capacity/turns admission happens in the table
-            sess = self._table.admit(world, req.turns)
-            if tag:
-                self._tags[tag] = sess
-                # a reused tag belongs to its NEW session now
-                old = self._finished.pop(tag, None)
-                if old is not None and old.result is not None:
-                    self._finished_bytes -= old.result.nbytes
-            if self._thread is None:
-                self._thread = threading.Thread(target=self._drive, daemon=True)
-                self._thread.start()
-            self._work.notify_all()
+        tenant = _acct.tenant_of(tag)
+        ledger = _acct.ledger()
+        # admission latency, entry to joining the table: the
+        # 'session-admit-latency' SLO feed
+        t_admit = time.monotonic()
+        try:
+            with self._work:
+                if self._stop:
+                    raise RpcError("broker is shutting down")
+                if self._table is not None and self._table.occupancy == 0 and (
+                    self._table.shape != shape
+                    or self._table.rule.rulestring != rule.rulestring
+                ):
+                    self._table = None  # drained: a new geometry may claim it
+                if self._table is None:
+                    self._table = SessionTable(
+                        rule, shape, self.capacity, max_chunk=self.max_chunk,
+                        device=self.device,
+                    )
+                if self._table.rule.rulestring != rule.rulestring:
+                    raise reject(
+                        "rule",
+                        f"this batch serves {self._table.rule.rulestring}, "
+                        f"not {rule.rulestring} (one rule per batch)",
+                        tenant=tenant,
+                    )
+                if tag and tag in self._tags:
+                    raise reject("tag", f"session tag {tag} already in use", tenant=tenant)
+                # geometry/capacity/turns admission happens in the table
+                sess = self._table.admit(world, req.turns, tenant=tenant)
+                if tag:
+                    self._tags[tag] = sess
+                    # a reused tag belongs to its NEW session now
+                    old = self._finished.pop(tag, None)
+                    if old is not None and old.result is not None:
+                        self._finished_bytes -= old.result.nbytes
+                if self._thread is None:
+                    self._thread = threading.Thread(target=self._drive, daemon=True)
+                    self._thread.start()
+                self._work.notify_all()
+                wait = time.monotonic() - t_admit
+                _ins.SESSION_ADMIT_WAIT_SECONDS.observe(wait)
+                ledger.record_admit(tenant, wait, world.nbytes)
+        except SessionRejected as exc:
+            # the per-tenant side of gol_sessions_rejected_total (metered
+            # inside reject())
+            ledger.record_reject(tenant, exc.reason)
+            raise
         try:
             sess.done.wait()
         finally:
@@ -2406,6 +2768,8 @@ class BrokerService:
         if rule.rulestring != CONWAY.rulestring:
             req.rulestring = rule.rulestring
         logger.info("Run reattached to -resume checkpoint at turn %d", turn)
+        _flight.record("ckpt.resume", "broker", turn=turn)
+        _journal.record("ckpt.replay", "broker", turn=turn)
 
     def run(self, req: Request) -> Response:
         req = _require_request(req)
@@ -2421,7 +2785,12 @@ class BrokerService:
                 f"world shape {req.world.shape} does not match params "
                 f"{req.image_width}x{req.image_height}"
             )
+        _journal.record(
+            "run.start", "broker", turns=int(req.turns),
+            initial_turn=initial_turn, resumed=resumed,
+        )
         result = self.backend.run(req)
+        _journal.record("run.end", "broker", turn=int(result.turns_completed))
         if resumed and result.turns_completed > initial_turn:
             # consumed only once the run progressed past the checkpoint: a
             # Run that a buffered Quit ended at once must not burn it, or
@@ -2461,6 +2830,48 @@ class BrokerService:
         # fully SENT its reply
         self._server.wait_idle(timeout=60)
         self.shutdown()
+
+    def status(self, req: Request) -> Response:
+        """Read-only registry snapshot (obs/): answerable mid-Run without
+        touching the engine or the board, and without synchronising the
+        card (the kernels' event pairs that have completed are folded in,
+        obs/device.py). Ignores every request field but the incremental
+        windows' ``*_since`` seqs (getattr: an older client's pickle lacks
+        them and gets the full rings).
+
+        With tracing on the payload carries this process's span and
+        flight rings, and a workers backend folds in its workers' spans;
+        with ``-timeline`` the metric-timeline window and the SLO alert
+        states; the tenant ledger, journal tail and profile windows ride
+        along when on (obs/report.status_payload)."""
+        from ..obs.report import status_payload
+
+        since = getattr(req, "timeline_since", 0)
+        asince = getattr(req, "accounting_since", 0)
+        jsince = getattr(req, "journal_since", 0)
+        psince = getattr(req, "profile_since", 0)
+        payload = status_payload(
+            role="broker", backend=type(self.backend).__name__,
+            timeline_since=since if isinstance(since, int) else 0,
+            accounting_since=asince if isinstance(asince, int) else 0,
+            journal_since=jsince if isinstance(jsince, int) else 0,
+            profile_since=psince if isinstance(psince, int) else 0,
+        )
+        # the admission bound (-session-capacity)
+        payload["session_capacity"] = self._session_capacity
+        health = getattr(self.backend, "worker_health", None)
+        if callable(health):
+            try:
+                payload["workers"] = health()
+            except Exception as exc:  # health must never break Status
+                payload["worker_health_error"] = str(exc)
+        collect = getattr(self.backend, "collect_remote_spans", None)
+        if callable(collect) and _tracing.enabled():
+            try:
+                payload.setdefault("trace_spans", []).extend(collect())
+            except Exception as exc:  # a trace must never break Status
+                payload["trace_collect_error"] = str(exc)
+        return Response(status=payload)
 
     def retrieve(self, req: Request) -> Response:
         req = _require_request(req)
@@ -2543,15 +2954,14 @@ def serve(
     server.register(Methods.QUIT, service.quit)
     server.register(Methods.SUPER_QUIT, service.super_quit)
     server.register(Methods.RETRIEVE, service.retrieve)
+    server.register(Methods.STATUS, service.status)
     server.serve_background()
     return server, service
 
 
-#: the reference broker's flags this slice does not carry, each refused
-#: by name
-_NOT_PORTED = (
-    "-metrics", "-timeline", "-trace", "-journal", "-profile", "-canary", "-canary-verb",
-)
+#: the reference broker's flags this package does not carry yet (the
+#: canary prober, obs/canary.py), each refused by name
+_NOT_PORTED = ("-canary", "-canary-verb")
 
 
 def main(argv=None) -> None:
@@ -2668,6 +3078,7 @@ def main(argv=None) -> None:
              "cuda (default; fails without a card) or cpu. The workers "
              "backend holds no board on a device",
     )
+    _obs_cli.add_obs_flags(parser, "broker")
     args, rest = parser.parse_known_args(argv)
     for token in rest:
         flag = token.split("=", 1)[0]
@@ -2678,6 +3089,7 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
     )
+    _obs_cli.enable_obs(parser, args, "broker")
     _integrity.set_enabled(args.integrity == "on")
     # the reference broker's checks, in its order and with its messages
     if args.ckpt_keep < 1:
@@ -2774,7 +3186,8 @@ def main(argv=None) -> None:
         device=device,
     )
     print(f"broker listening on :{server.port} (backend={args.backend})", flush=True)
-    service.quit_event.wait()
+    with _obs_cli.ObsLifetime():
+        service.quit_event.wait()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """RPC client with concurrent in-flight calls (the rpc.Client role).
 
-A copy of the JAX package's ``rpc/client.py`` without its metrics,
-tracing and journal stamps. The controller needs the concurrency: its
+A copy of the JAX package's ``rpc/client.py``: each call is metered
+(requests, errors, bytes, seconds), traced as a span whose context rides
+``Request.trace_ctx``, and stamped with the hybrid logical clock
+(obs/journal.py) both ways. The controller needs the concurrency: its
 main thread blocks in ``Operations.Run`` for the whole game while the
 ticker thread issues ``RetrieveCurrentData``/``Pause`` on the same
 connection (gol/distributor.go:159 + :45). Calls are multiplexed by id; a
@@ -16,6 +18,12 @@ import socket
 import threading
 import time
 
+from ..obs import flight as _flight
+from ..obs import instruments as _ins
+from ..obs import journal as _journal
+from ..obs import metrics as _metrics
+from ..obs import tracing as _tracing
+from ..utils import locksan as _locksan
 from . import integrity as _integrity
 from .protocol import Methods, Request, recv_frame_sized, send_frame
 
@@ -65,16 +73,16 @@ class RpcClient:
         self._retry_at = 0.0  # monotonic gate for the next dial attempt
         # guards transport swaps and the backoff state; never held across
         # a dial, so close() and other threads' calls stay prompt
-        self._conn_lock = threading.Lock()
+        self._conn_lock = _locksan.lock("RpcClient._conn_lock")
         self._dialing = False
         self._user_closed = False
         self._ids = itertools.count()
         self._pending: dict[int, dict] = {}
-        self._pending_lock = threading.Lock()
+        self._pending_lock = _locksan.lock("RpcClient._pending_lock")
         # ONE write lock for the client's lifetime: a sender that took it
         # just before a reconnect swapped the socket must still exclude
         # senders on the new one, or their frames would interleave
-        self._write_lock = threading.Lock()
+        self._write_lock = _locksan.lock("RpcClient._write_lock")
         self._install(self._dial())
 
     def _dial(self) -> socket.socket:
@@ -101,11 +109,12 @@ class RpcClient:
         # pending call, not silently kill this thread and hang them
         try:
             while True:
-                msg, _ = recv_frame_sized(sock)
+                msg, nbytes = recv_frame_sized(sock)
                 with self._pending_lock:
                     slot = self._pending.pop(msg["id"], None)
                 if slot is not None:
                     slot["reply"] = msg
+                    slot["reply_bytes"] = nbytes
                     slot["event"].set()
         except Exception:  # noqa: BLE001
             closed.set()
@@ -154,6 +163,8 @@ class RpcClient:
                     f"reconnect backing off {self._retry_at - now:.1f}s"
                 )
             self._dialing = True
+            _ins.RPC_RETRIES_TOTAL.inc()
+            _flight.record("rpc.reconnect", f"{self._addr[0]}:{self._addr[1]}")
             self._drop(old_sock)
             with self._pending_lock:
                 # anything still pending rode the dead connection: fail it
@@ -181,10 +192,64 @@ class RpcClient:
             self._backoff = 0.0
             self._retry_at = 0.0
 
-    def call(self, method: str, request: Request, timeout: float | None = None):
+    def call(
+        self,
+        method: str,
+        request: Request,
+        timeout: float | None = None,
+        trace_parent: dict | None = None,
+    ):
         """Blocking call, safe from any thread. ``timeout`` bounds the wait
         for the REPLY (None: forever — Run blocks for the whole game); on
-        expiry the pending slot is dropped and RpcError raised."""
+        expiry the pending slot is dropped and RpcError raised, so a wedged
+        server cannot hang a poller (obs/status.py).
+
+        ``trace_parent`` explicitly parents this call's span for work
+        handed to pool threads (where the caller's thread-local span stack
+        is invisible — the workers-backend scatter); by default the span
+        parents on the calling thread's current span."""
+        if not _metrics.enabled() and not _tracing.enabled():
+            return self._call(method, request, timeout)
+        span = _tracing.start_span(
+            _tracing.SPAN_RPC_CLIENT, parent_ctx=trace_parent, method=method
+        )
+        if span is not None and isinstance(request, Request):
+            request.trace_ctx = span.ctx()
+        _flight.record("rpc.send", method)
+        if _metrics.enabled():
+            _ins.RPC_CLIENT_REQUESTS_TOTAL.labels(method).inc()
+        t0 = time.monotonic()
+        err_kind = None
+        try:
+            result = self._call(method, request, timeout)
+            _flight.record("rpc.recv", method, ok=True)
+            if span is not None:
+                peer = getattr(result, "trace_ctx", None)
+                if isinstance(peer, dict):
+                    span.args["server_span_id"] = peer.get("span_id")
+            return result
+        except RpcError as e:
+            err_kind = e.kind or type(e).__name__
+            _flight.record("rpc.recv", method, ok=False, error_kind=err_kind)
+            if _metrics.enabled():
+                _ins.RPC_CLIENT_ERRORS_TOTAL.labels(method).inc()
+            raise
+        finally:
+            if _metrics.enabled():
+                _ins.RPC_CLIENT_REQUEST_SECONDS.labels(method).observe(
+                    time.monotonic() - t0
+                )
+            if err_kind is None:
+                _tracing.end_span(span)
+            else:
+                _tracing.end_span(span, error_kind=err_kind)
+
+    def _call(self, method: str, request: Request, timeout: float | None = None):
+        # every outbound request carries this process's hybrid-logical-
+        # clock stamp (obs/journal.py), so the server's events order after
+        # the ones that caused the call
+        if isinstance(request, Request):
+            request.hlc = _journal.stamp()
         sock, closed = self._transport
         if closed.is_set():
             self._maybe_reconnect()  # raises unless a fresh transport is up
@@ -207,7 +272,7 @@ class RpcClient:
                 envelope = {"id": call_id, "method": method, "request": request, "oob": 1}
                 if _integrity.enabled():
                     envelope["ck"] = 1
-                send_frame(
+                sent = send_frame(
                     sock, envelope, oob=self._peer_oob,
                     checksum=self._peer_ck and _integrity.enabled(),
                 )
@@ -219,6 +284,9 @@ class RpcClient:
             closed.set()
             self._drop(sock)
             raise RpcError(f"send failed: {e}") from e
+        if _metrics.enabled():
+            _ins.RPC_CLIENT_SENT_BYTES_TOTAL.labels(method).inc(sent)
+            _ins.WIRE_BYTES_TOTAL.labels(method, "sent").inc(sent)
         if not slot["event"].wait(timeout):
             with self._pending_lock:
                 self._pending.pop(call_id, None)
@@ -226,6 +294,9 @@ class RpcClient:
         reply = slot["reply"]
         if reply is None:
             raise RpcError("connection closed before reply")
+        if _metrics.enabled():
+            _ins.RPC_CLIENT_RECEIVED_BYTES_TOTAL.labels(method).inc(slot.get("reply_bytes", 0))
+            _ins.WIRE_BYTES_TOTAL.labels(method, "received").inc(slot.get("reply_bytes", 0))
         if reply.get("oob"):
             self._peer_oob = True
         if reply.get("ck"):
@@ -241,7 +312,9 @@ class RpcClient:
             raise err
         # 'result' is required in every non-error reply: a missing key is a
         # malformed envelope and fails loudly (None is a legitimate result)
-        return reply["result"]
+        result = reply["result"]
+        _journal.observe(getattr(result, "hlc", None))
+        return result
 
     def close(self) -> None:
         # _user_closed first: a reconnect mid-dial re-checks it under the
@@ -346,6 +419,15 @@ class RemoteBroker:
         from ..engine.engine import Snapshot
 
         return Snapshot(res.world, res.turns_completed, res.alive_count)
+
+    def status(self, timeout: float = 10.0) -> dict:
+        """Read-only metrics snapshot of the remote broker (the Status
+        verb, obs/). Empty dict from a server whose Response carries none.
+        ``timeout`` bounds the reply wait: the controller's end-of-session
+        trace export calls this, and a broker wedged after the run must
+        cost seconds, not hang the session's exit."""
+        res = self.client.call(Methods.STATUS, Request(), timeout=timeout)
+        return getattr(res, "status", None) or {}
 
     def close(self):
         self.client.close()

@@ -31,6 +31,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..obs import instruments as _ins
+from ..obs import metrics as _metrics
 from ..utils.cell import Cell
 from . import integrity as _integrity
 from .integrity import CK_WORD_SIZE
@@ -38,14 +40,17 @@ from .integrity import CK_WORD_SIZE
 
 class Methods:
     """Method-name constants of the broker's and the worker's verbs
-    (stubs/stubs.go:5-11, plus the extensions). Status is not served by
-    the port yet."""
+    (stubs/stubs.go:5-11, plus the extensions)."""
 
     BROKER_RUN = "Operations.Run"
     RETRIEVE = "Operations.RetrieveCurrentData"
     PAUSE = "Operations.Pause"
     QUIT = "Operations.Quit"
     SUPER_QUIT = "Operations.SuperQuit"
+    # read-only metrics snapshot (obs/): interrogate a running server
+    # without touching the engine or the board. A broker answers it, a
+    # worker answers WORKER_STATUS
+    STATUS = "Operations.Status"
     # multi-universe serving (rpc/broker.SessionScheduler): Run's blocking
     # contract — evolve this world for req.turns and reply with the final
     # board — but many may be in flight at once, packed into one device
@@ -54,8 +59,7 @@ class Methods:
     SESSION_RUN = "Operations.SessionRun"
     WORKER_UPDATE = "GameOfLifeOperations.Update"
     WORKER_QUIT = "GameOfLifeOperations.WorkerQuit"
-    # the broker's readmission probe asks a worker's Status; a worker that
-    # does not serve it answers "unknown method", which proves it alive
+    # a worker's Status; the broker's readmission probe asks it too
     WORKER_STATUS = "GameOfLifeOperations.Status"
     # the resident-strip data plane (-wire resident): the strip STAYS on
     # the worker across turns. StripStart seeds a strip at a turn,
@@ -299,6 +303,20 @@ def _recv_into_exact(sock, buf) -> None:
         got += n
 
 
+def _verify_crc(want: bytes, crc: int, what: str) -> None:
+    """Verify the computed body crc against the frame's crc word — the
+    checked-frame gate: on mismatch the frame is never parsed and the
+    stream never trusted again (IntegrityError is a ConnectionError).
+    Counted either way."""
+    if _metrics.enabled():
+        _ins.INTEGRITY_CHECKS_TOTAL.inc()
+    try:
+        _integrity.crc_check(crc, want, what)
+    except _integrity.IntegrityError:
+        _ins.INTEGRITY_FAILURES_TOTAL.labels("frame").inc()
+        raise
+
+
 def recv_frame_sized(sock):
     """``(obj, frame_bytes)``."""
     # one 12-byte first read: a checked frame's crc word rides right
@@ -329,7 +347,7 @@ def recv_frame_sized(sock):
     if not word & _FLAG_OOB:
         payload = pre + _recv_exact(sock, length - len(pre))
         if checked:
-            _integrity.crc_check(_integrity.crc_add(0, payload), want, "pickle body")
+            _verify_crc(want, _integrity.crc_add(0, payload), "pickle body")
         return loads_restricted(payload), head_len + length
     # out-of-band: every subheader quantity is validated against the
     # framed length BEFORE any allocation on its say-so
@@ -360,7 +378,7 @@ def recv_frame_sized(sock):
         buffers.append(buf)
     if checked:
         # verified BEFORE the unpickle wraps any sidecar
-        _integrity.crc_check(crc, want, f"body + {nbufs} sidecar(s)")
+        _verify_crc(want, crc, f"body + {nbufs} sidecar(s)")
     return loads_restricted(payload, buffers), head_len + length
 
 

@@ -29,10 +29,11 @@ of ``ops/fused.fused_strip_steps``) and the tile batches. Nothing catches
 a kernel failure to step the strip with numpy instead.
 
 Run it with ``python -m gol_distributed_final_tpu_torch.rpc.worker -port
-P [-device cuda|cpu] [-integrity on|off]``. The observability flags and
-the ``Status`` verb are not ported yet: the flags are refused by name, and
-a broker's readmission probe takes the "unknown method" reply to Status as
-proof of life.
+P [-device cuda|cpu] [-integrity on|off]`` and the observability flags
+``-metrics -timeline -trace -journal -profile`` (obs/cli.py). It answers
+``Status`` (``Methods.WORKER_STATUS``) with its registry, spans, journal
+tail and profile, and meters its dead-band skips; its resident strip's W
+launches are timed on the card under ``fused.strip`` (obs/device.py).
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import cli as _obs_cli
+from ..obs import instruments as _ins
+from ..obs import journal as _journal
 from . import faults as _faults
 from . import integrity as _integrity
 from .protocol import Methods, Request, Response
@@ -223,6 +227,7 @@ def _strip_batch_skip(padded, k: int, h: int, a_lo: int, a_hi: int, attest):
     by step j, strictly outside both the strip rows [K, K+h) and that
     step's attestation bands (which start at row j)."""
     H, w = padded.shape
+    _ins.STRIP_ROWS_SKIPPED_TOTAL.inc((H - (a_hi - a_lo)) * k)
     zero = np.zeros((1, w), np.uint8)
     active = np.array(padded[a_lo:a_hi], np.uint8)
 
@@ -813,6 +818,10 @@ class WorkerService:
             self._strip_clean_turn = turn
         # reply with the turn captured under the lock: a concurrent
         # StripStep must not make this acknowledgment claim the stepped turn
+        _journal.record(
+            "run.start", "worker", turn=turn, index=int(req.worker),
+            rows=int(strip.shape[0]),
+        )
         return Response(worker=req.worker, turns_completed=turn)
 
     def strip_step(self, req: Request) -> Response:
@@ -876,6 +885,13 @@ class WorkerService:
                 self._strip_dirty = dirty.copy()
             self._strip_turn += k
             turn_done = self._strip_turn
+        # journal outside the strip lock (one record a K-turn batch): this
+        # worker's half of the chunk the broker is about to commit
+        _journal.record(
+            "chunk.commit", "worker", k=k, turn=turn_done,
+            alive=int(counts[-1]) if counts else 0,
+            route="attested" if check else "plain",
+        )
         return Response(
             worker=req.worker,
             turns_completed=turn_done,
@@ -1026,6 +1042,22 @@ class WorkerService:
                 work_slice=strip,
             )
 
+    def status(self, req: Request) -> Response:
+        """Read-only registry snapshot (obs/), the broker verb's worker
+        twin. The only request fields read are the incremental windows'
+        ``*_since`` seqs (getattr: absent means the full rings)."""
+        from ..obs.report import status_payload
+
+        since = getattr(req, "timeline_since", 0)
+        jsince = getattr(req, "journal_since", 0)
+        psince = getattr(req, "profile_since", 0)
+        return Response(status=status_payload(
+            role="worker",
+            timeline_since=since if isinstance(since, int) else 0,
+            journal_since=jsince if isinstance(jsince, int) else 0,
+            profile_since=psince if isinstance(psince, int) else 0,
+        ))
+
     def worker_quit(self, req: Request) -> Response:
         # reply first, then shut the listener (worker/worker.go:82-86): a
         # non-daemon timer outlives this handler so the reply flushes
@@ -1052,13 +1084,9 @@ def serve(
     server.register(Methods.STRIP_START, service.strip_start)
     server.register(Methods.STRIP_STEP, service.strip_step)
     server.register(Methods.STRIP_FETCH, service.strip_fetch)
+    server.register(Methods.WORKER_STATUS, service.status)
     server.serve_background()
     return server, service
-
-
-#: the reference worker's flags this slice does not carry, each refused by
-#: name
-_NOT_PORTED = ("-metrics", "-timeline", "-trace", "-journal", "-profile")
 
 
 def main(argv=None) -> None:
@@ -1080,13 +1108,9 @@ def main(argv=None) -> None:
         help="where fused strip batches run: cuda (default; fails without "
              "a card) or cpu",
     )
-    args, rest = parser.parse_known_args(argv)
-    for token in rest:
-        flag = token.split("=", 1)[0]
-        if flag in _NOT_PORTED:
-            parser.error(f"{flag} is not ported yet")
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    _obs_cli.add_obs_flags(parser, "worker")
+    args = parser.parse_args(argv)
+    _obs_cli.enable_obs(parser, args, "worker")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -1094,7 +1118,8 @@ def main(argv=None) -> None:
     _integrity.set_enabled(args.integrity == "on")
     server, service = serve(args.port, args.host, device=device)
     print(f"worker listening on :{server.port}", flush=True)
-    service.quit_event.wait()
+    with _obs_cli.ObsLifetime():
+        service.quit_event.wait()
 
 
 if __name__ == "__main__":

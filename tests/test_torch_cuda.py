@@ -1167,3 +1167,83 @@ def test_mesh_planes_serve_golden_sessions_on_the_card(cuda_device, tmp_path):
         engine_config=EngineConfig(step_n_fn=make_engine_step(mesh)))
     assert ((tmp_path / "64x64x100.pgm").read_bytes()
             == (REPO_ROOT / "check" / "images" / "64x64x100.pgm").read_bytes())
+
+
+def _obs_off():
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+
+    obs_metrics.enable(False)
+    obs_metrics.registry().reset()
+    obs_device.reset_dispatch()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site_call", ["whole_board", "batch_board", "tiled", "byte_board",
+                                       "byte_tiled", "strip_steps"])
+def test_each_wrapper_times_its_launches_by_events(cuda_device, site_call):
+    """With metrics on, every launch of a wrapper is one event pair under
+    its site, resolved without a synchronisation of the card: the site's
+    count is the wrapper's launches and its device time is positive; the
+    rates stay under the card's ceilings."""
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+    from gol_distributed_final_tpu_torch.ops import strip_steps
+
+    calls = {
+        "whole_board": (whole_board, "pallas.vmem_bit",
+                        lambda: whole_board.step_n(_words((16, 512), 1, cuda_device), 64)),
+        "batch_board": (batch_board, "pallas.vmem_bit_batch",
+                        lambda: batch_board.step_n(_words((8, 4, 128), 2, cuda_device), 16)),
+        "tiled": (tiled, "pallas.tiled",
+                  lambda: tiled.step_n(_words((128, 4096), 3, cuda_device), 20)),
+        "byte_board": (byte_board, "pallas.vmem_byte",
+                       lambda: byte_board.step_n(_bytes((64, 64), 4, cuda_device), 8)),
+        "byte_tiled": (byte_tiled, "pallas.fused_byte",
+                       lambda: byte_tiled.step_n(_bytes((512, 512), 5, cuda_device), 40)),
+        "strip_steps": (strip_steps, "fused.strip",
+                        lambda: strip_steps.strip_steps(_bytes((1040, 4096), 6, cuda_device),
+                                                        8, 1024, attest=True)),
+    }
+    module, site, fn = calls[site_call]
+    _obs_off()
+    try:
+        obs_metrics.enable()
+        module.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        stats = obs_device.dispatch_stats()
+        assert set(stats) == {site}
+        assert stats[site]["calls"] == module.launches > 0
+        assert stats[site]["wall_s"] > 0
+        assert stats[site]["flops"] / stats[site]["wall_s"] <= 1.673e13
+        assert stats[site]["bytes_accessed"] / stats[site]["wall_s"] <= 3.35e12
+        assert obs_device.pending_launches() == 0
+    finally:
+        _obs_off()
+
+
+@pytest.mark.cuda
+def test_metrics_off_creates_no_event_on_the_card(cuda_device, monkeypatch):
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+
+    made = []
+    real = torch.cuda.Event
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: made.append(1) or real(*a, **k))
+    _obs_off()
+    whole_board.step_n(_words((16, 512), 7, cuda_device), 64)
+    byte_tiled.step_n(_bytes((512, 512), 8, cuda_device), 16)
+    torch.cuda.synchronize()
+    assert made == [] and obs_device.dispatch_stats() == {}
+
+
+@pytest.mark.cuda
+def test_sample_hbm_reads_the_card(cuda_device):
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+
+    obs_device.reset_hbm()
+    keep = torch.empty(1 << 20, dtype=torch.uint8, device=cuda_device)
+    got = obs_device.sample_hbm()["0"]
+    assert 0 < got["bytes_in_use"] <= got["peak_bytes_in_use"] <= got["bytes_limit"]
+    assert got["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    del keep

@@ -495,10 +495,14 @@ def test_checked_frames_round_trip_and_refuse_a_flipped_bit(oob):
 
 
 def test_unported_status_verb_is_an_unknown_method(port_broker):
+    """Status was an unknown method before this port had obs/; now the
+    broker answers it with the JAX package's payload schema (its registry
+    off: the broker runs without -metrics)."""
     client = RpcClient(port_broker)
     try:
-        with pytest.raises(RpcError, match="unknown method"):
-            client.call("Operations.Status", protocol.Request(), timeout=TIMEOUT)
+        res = client.call("Operations.Status", protocol.Request(), timeout=TIMEOUT)
+        assert res.status["schema"] == "gol-status/1"
+        assert res.status["role"] == "broker" and res.status["metrics_enabled"] is False
         with pytest.raises(RpcError, match="must be a Request"):
             client.call(protocol.Methods.RETRIEVE, None, timeout=TIMEOUT)
     finally:
@@ -511,11 +515,14 @@ def test_unported_status_verb_is_an_unknown_method(port_broker):
     ["-metrics"], ["-timeline", "0.5"], ["-trace"],
     ["-journal"], ["-profile"], ["-canary"],
 ])
-def test_broker_cli_refuses_what_is_not_ported(flags, capsys, monkeypatch):
-    """The observability flags and the canary are refused by name. The
-    workers backend's flags are ported: with them the port broker does
-    what the reference broker does, serving the same configuration or
-    exiting 2 with the same message."""
+def test_broker_cli_refuses_what_is_not_ported(flags, capsys, monkeypatch, tmp_path):
+    """The canary is refused by name. The workers backend's flags and the
+    observability flags are ported: with them the port broker does what
+    the reference broker does, serving the same configuration or exiting
+    2 with the same message."""
+    from torch_obs_state import reset_both
+
+    monkeypatch.chdir(tmp_path)  # -journal and -profile write under out/
     if flags[0] not in _NOW_PORTED:
         with pytest.raises(SystemExit) as exc:
             port_broker_mod.main([*flags, "-device", "cpu", "-port", "0"])
@@ -542,12 +549,18 @@ def test_broker_cli_refuses_what_is_not_ported(flags, capsys, monkeypatch):
         except SystemExit as exc:
             err = capsys.readouterr().err
             outcomes.append((exc.code, err[err.index("error: "):].strip()))
+        finally:
+            reset_both()
     assert outcomes[0] == outcomes[1]
 
 
-#: the first five cases above: refused before this port had the workers
-#: backend, held against the reference broker since
-_NOW_PORTED = {"-backend", "-workers", "-wire", "-halo-depth", "-auto-checkpoint"}
+#: the first ten cases above: refused before this port had the workers
+#: backend and the observability flags, held against the reference broker
+#: since
+_NOW_PORTED = {
+    "-backend", "-workers", "-wire", "-halo-depth", "-auto-checkpoint",
+    "-metrics", "-timeline", "-trace", "-journal", "-profile",
+}
 
 
 @pytest.mark.parametrize("case", [

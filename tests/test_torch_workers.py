@@ -363,13 +363,20 @@ def test_update_verb_equals_the_reference():
 
 
 def test_worker_serves_every_verb_but_status():
+    """Every verb of the reference worker, Status included since this port
+    has obs/."""
     server, service = port_worker.serve(0, device="cpu")
     try:
         names = set(server._methods)
     finally:
         server.stop()
     assert names == {Methods.WORKER_UPDATE, Methods.WORKER_QUIT, Methods.STRIP_START,
-                     Methods.STRIP_STEP, Methods.STRIP_FETCH}
+                     Methods.STRIP_STEP, Methods.STRIP_FETCH, Methods.WORKER_STATUS}
+    ref_server, _ = jax_worker.serve(0)
+    try:
+        assert names == set(ref_server._methods)
+    finally:
+        ref_server.stop()
     assert service.device.type == "cpu"
 
 
@@ -394,9 +401,38 @@ def test_worker_cli_errors_equal_the_reference(argv, capsys):
 
 
 @pytest.mark.parametrize("flag", ["-metrics", "-timeline", "-trace", "-journal", "-profile"])
-def test_worker_cli_refuses_what_is_not_ported(flag, capsys):
-    assert _cli_error(port_worker.main, [flag, "-device", "cpu"], capsys) == (
-        2, f"{flag} is not ported yet")
+def test_worker_cli_refuses_what_is_not_ported(flag, capsys, monkeypatch, tmp_path):
+    """The observability flags were refused before this port had obs/;
+    now the port worker takes each as the reference worker does: it
+    serves, and the flag's layer is on."""
+    import importlib
+    import threading
+
+    from torch_obs_state import reset_both
+
+    monkeypatch.chdir(tmp_path)  # -journal and -profile write under out/
+    enabled = []
+    for mod, extra, root in ((port_worker, ["-device", "cpu"], "gol_distributed_final_tpu_torch"),
+                             (jax_worker, [], "gol_distributed_final_tpu")):
+        def fake_serve(*args, **kwargs):
+            service = type("Stopped", (), {"quit_event": threading.Event()})()
+            service.quit_event.set()
+            return type("Bound", (), {"port": 0})(), service
+
+        monkeypatch.setattr(mod, "serve", fake_serve)
+        try:
+            mod.main([flag, "-port", "0", *extra])
+            obs = {name: importlib.import_module(f"{root}.obs.{name}")
+                   for name in ("metrics", "tracing", "timeline", "journal", "profiler")}
+            enabled.append({
+                "metrics": obs["metrics"].enabled(),
+                "trace": obs["tracing"].enabled(),
+                "timeline": obs["timeline"].enabled(),
+            })
+        finally:
+            reset_both()
+    assert enabled[0] == enabled[1]
+    assert "error" not in capsys.readouterr().err
 
 
 def test_worker_cli_needs_a_card_by_default(monkeypatch, capsys):
