@@ -47,7 +47,8 @@ CUDA-event count equal to its wrapper's launch counter, its device time a
 launch against the kernel's own, its rates under the card's ceilings; a
 broker with every server flag serving a ``-server`` session and 256
 SessionRuns, its Status read by ``obs.status`` with the roofline classes;
-``-trace-device``; and the flags' host cost), and
+``-trace-device``; and the flags' host cost), drives the operator tools
+against the port's roles on the card (phase 24, ``--tools`` below), and
 times the kernels with CUDA events and the profiler's device time,
 sparse against dense included, and the workers' fused strip batch against
 their numpy loop (the table that sets ``FUSED_STRIP_MIN_CELLS``). The kernels compile the
@@ -99,6 +100,22 @@ mean StripStep handler time as one JSON line, for the same comparison.
     python3 chip_smoke.py --observability
 
 builds the kernels and runs phase 23 alone.
+
+    python3 chip_smoke.py --tools
+
+builds the kernels and runs phase 24 alone: the operator tools against
+the port's roles on the card. The canary's session verb (128^2, K2) and
+run verb (512^2, K1), 20 probes each, bit-exact; a broker started with
+``-canary 1 -timeline 0.5 -metrics`` probing itself; loadgen's 1000
+SessionRuns of 128^2 x 100 turns from 30 zipf tenants, Poisson at 200/s
+and in bursts of 32, the tenant ledger equal to the session counters and
+every board equal to a numpy oracle; four workers on the card serving a
+resident-wire 4096^2 x 200 Run (W) equal to the device backend's; the
+fleet collector over three brokers and the four workers, read by doctor
+(no paging finding) and watch; history over the brokers' journals, flame
+over the loadgen run's profile, regress over two bench rounds; a strip
+corrupted in place found by the canary and its SLO rule; and the port's
+analyzer and README lints over the checkout.
 
 Game of Life is integer-exact: every comparison is equality (tolerance 0).
 """
@@ -1281,43 +1298,426 @@ def observability(dev, board512, golden_counts, card_tag, open_window, close_win
     return found
 
 
-def observability_only() -> int:
-    """``--observability``: build the kernels and run phase 23 alone."""
-    import numpy as np  # noqa: F401
+#: the verdicts the JAX package's obs/regress.py gives BENCH_r04.json against
+#: BENCH_r05.json (tests/test_torch_obs_tools.py holds the two packages'
+#: verdicts equal on every pair of rounds)
+REGRESS_R04_R05 = {
+    "c2_128_pallas_bitboard": "removed", "c3_512_engine_driven": "removed",
+    "c4_4096_tiled_bitboard": "removed", "c5_16384_sparse_bigboard": "faster",
+    "c5_65536_sparse_bigboard": "jitter", "c6_4096_mesh_tax": "new",
+    "c6_4096_mesh_tax_wide8": "new", "c6_512_mesh_tax_wide8": "new",
+}
+
+
+def life_batch(boards, turns: int):
+    """The numpy oracle over a stack of {0,255} boards ``[n, h, w]`` on the
+    torus: each cell's 3x3 sum (itself included) from two separable passes;
+    alive next turn when it is 3, or 4 with the cell alive."""
+    import numpy as np
+
+    b = (np.asarray(boards) != 0).astype(np.uint8)
+    for _ in range(turns):
+        rows = b + np.roll(b, 1, 2) + np.roll(b, -1, 2)
+        box = rows + np.roll(rows, 1, 1) + np.roll(rows, -1, 1)
+        b = ((box == 3) | ((box == 4) & (b == 1))).astype(np.uint8)
+    return b * np.uint8(255)
+
+
+def quantile(values, q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+#: phase 24's loadgen runs: SessionRuns per arrival mode
+LOADGEN_SESSIONS = 1000
+
+
+def tools(dev, card_tag, open_window, close_window) -> dict:
+    """Phase 24: the operator tools against the port's roles on ``dev``
+    (module docstring). Returns the numbers it printed."""
+    import numpy as np
+
+    from gol_distributed_final_tpu_torch.obs import (
+        accounting, doctor, fleet, flame, history, journal, metrics, profiler, regress, slo,
+        timeline,
+    )
+    from gol_distributed_final_tpu_torch.obs.canary import (
+        CanaryProber, _oracle_evolve, canary_board,
+    )
+    from gol_distributed_final_tpu_torch.obs.loadgen import LoadConfig, LoadGenerator
+    from gol_distributed_final_tpu_torch.obs.status import fetch_status, scalar_value, series_map
+    from gol_distributed_final_tpu_torch.obs.watch import Watcher
+    from gol_distributed_final_tpu_torch.rpc import broker, faults, integrity
+    from gol_distributed_final_tpu_torch.rpc import worker as rpc_worker
+    from gol_distributed_final_tpu_torch.rpc.client import RemoteBroker, RpcClient
+    from gol_distributed_final_tpu_torch.rpc.protocol import Methods, Request
+
+    out_dir = REPO / "out" / "chip_smoke_tools"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    jdir, pdir = out_dir / "journal", out_dir / "profile"
+    device = str(dev)
+    sessions = LOADGEN_SESSIONS
+    t_phase = time.monotonic()
+    found: dict = {}
+    obs_reset()
+    metrics.enable()
+    journal.enable(out_dir=jdir, role="broker")
+    server_a, service_a = broker.serve(port=0, session_capacity=256, device=dev)
+    addr_a = f"127.0.0.1:{server_a.port}"
+    procs, stops = [], []
+    try:
+        # 1. the canary's two verbs against a broker on the card: SessionRun
+        # (with a tagged mid-flight retrieve) at 128^2 batches onto K2, Run
+        # at 512^2 runs K1; every probe bit-exact against the numpy oracle
+        for verb, size, kernel in (("session", 128, "batch_board"), ("run", 512, "whole_board")):
+            prober = CanaryProber(addr_a, size=size, turns=16, verb=verb, seed=SEED % 1000)
+            open_window()
+            try:
+                probes = [prober.probe_once() for _ in range(20)]
+            finally:
+                prober.stop()
+            got = close_window(f"phase 24 canary {verb}", [kernel])
+            bad = [p for p in probes if p["result"] != "ok"]
+            check(not bad, f"phase 24 canary {verb}: {bad[:2]}")
+            lat = [p["latency_s"] for p in probes]
+            found[f"canary {verb}"] = lat
+            print(f"phase 24 canary: {len(probes)} {verb} probes at {size}^2 x 16 turns, each "
+                  f"bit-exact against the oracle, {got[kernel]} {kernel} launches; latency "
+                  f"p50 {1e3 * quantile(lat, 0.5):.3f} ms, max {1e3 * max(lat):.3f} ms "
+                  f"{card_tag}")
+        probes_a = series_map(metrics.registry().snapshot(), "gol_canary_probes_total")
+        check(sorted((k, v["value"]) for k, v in probes_a.items() if v["value"])
+              == [(("ok",), 40.0)], f"phase 24 canary: gol_canary_probes_total {probes_a}")
+
+        # 2. a broker probing itself: -canary 1 -timeline 0.5 -metrics
+        proc_b = Proc(["-m", "gol_distributed_final_tpu_torch.rpc.broker", "-port", "0",
+                       "-device", device, "-canary", "1", "-timeline", "0.5", "-metrics",
+                       "-journal", str(jdir)])
+        procs.append(proc_b)
+        addr_b = f"127.0.0.1:{proc_b.port('broker listening on :')}"
+
+        def ok_probes():
+            payload = fetch_status(addr_b, timeout=30)
+            rule = {a["rule"]: a for a in payload.get("alerts") or []}.get("canary-failure")
+            check(rule is not None and rule["state"] == "ok",
+                  f"phase 24 -canary broker: canary-failure {rule}")
+            probes = series_map(payload["metrics"], "gol_canary_probes_total")
+            return (probes.get(("ok",)) or {}).get("value") or 0, probes
+
+        # the first probe loads the kernels in that process; then a few
+        # periods, and the count must have grown
+        deadline = time.monotonic() + 120
+        while ok_probes()[0] < 2:
+            check(time.monotonic() < deadline, "phase 24 -canary broker: no probe in 120 s")
+            time.sleep(0.5)
+        oks = [ok_probes()[0]]
+        time.sleep(3.0)
+        got_b = ok_probes()
+        oks.append(got_b[0])
+        probes_b = got_b[1]
+        failed = {k: v.get("value") for k, v in probes_b.items() if k != ("ok",)}
+        check(oks[0] >= 2 and oks[1] > oks[0] and not any(failed.values()),
+              f"phase 24 -canary broker: ok probes {oks}, others {failed}")
+        print(f"phase 24 -canary broker: -canary 1 -timeline 0.5 -metrics probed itself, "
+              f"gol_canary_probes_total{{ok}} {int(oks[0])} then {int(oks[1])} 3 s "
+              f"later, no other result; the canary-failure rule ok {card_tag}")
+
+        # 3. loadgen at the sessions bench shape: SessionRuns of 128^2 x 100
+        # turns from 30 tenants drawn zipf, Poisson at 200/s, then bursts of
+        # 32; the ledger reconciles exactly with the session counters and
+        # every completed board equals the oracle's for its seed. The
+        # profiler samples this process (the broker's driver thread among
+        # its threads) for the flame graph below.
+        prof = profiler.enable(period_ms=10.0, out_dir=str(pdir), tag="loadgen")
+        ledger = accounting.ledger()
+        finals: dict = {}
+        want = None
+        runs = {}
+        for arrival in ("poisson", "burst"):
+            cfg = LoadConfig(rate=200.0, sessions=sessions, arrival=arrival, burst=32,
+                             tenants=30, tenant_dist="zipf", size=128, turns=100,
+                             seed=SEED % 1000, timeout=600.0)
+            before = dict(ledger.window().get("totals") or {})
+            finals.clear()
+            gen = LoadGenerator(addr_a, cfg,
+                                on_reply=lambda i, res: finals.__setitem__(i, res.world))
+            open_window()
+            t0 = time.monotonic()
+            summary = gen.run()
+            wall = time.monotonic() - t0
+            got = close_window(f"phase 24 loadgen {arrival}", ["batch_board"])
+            check(summary["completed"] + summary["rejected_total"] + summary["errors"]
+                  == summary["issued"] == sessions and not summary["errors"],
+                  f"phase 24 loadgen {arrival}: {summary}")
+            snap = metrics.registry().snapshot()
+            totals = ledger.window().get("totals") or {}
+            turns_metric = scalar_value(snap, "gol_session_turns_total")
+            admitted = scalar_value(snap, "gol_sessions_admitted_total")
+            check(totals.get("turns") == int(turns_metric)
+                  and totals.get("sessions") == int(admitted),
+                  f"phase 24 loadgen {arrival}: the ledger {totals} against the counters "
+                  f"(turns {turns_metric}, admitted {admitted})")
+            check(totals["sessions"] - before.get("sessions", 0) == summary["completed"]
+                  and totals["turns"] - before.get("turns", 0) == 100 * summary["completed"],
+                  f"phase 24 loadgen {arrival}: the ledger moved to {totals} from {before}")
+            if want is None:  # both runs send the same seeded boards
+                want = life_batch(np.stack([gen.board_for(i) for i in range(sessions)]),
+                                  cfg.turns)
+            wrong = [i for i, world in finals.items() if not np.array_equal(world, want[i])]
+            check(len(finals) == summary["completed"] and not wrong,
+                  f"phase 24 loadgen {arrival}: boards {wrong[:5]} differ from the oracle")
+            a2f, e2e = summary["admit_to_first_turn"], summary["session_e2e"]
+            runs[arrival] = dict(summary, wall=wall, batch_board=got["batch_board"])
+            print(f"phase 24 loadgen {arrival}: {sessions} SessionRuns of 128^2 x 100 at "
+                  f"200/s, 30 tenants zipf: issued {summary['issued']}, completed "
+                  f"{summary['completed']}, rejected {summary['rejected_total']} "
+                  f"{summary['rejected']}, every board equal to the oracle; admit to first "
+                  f"turn p50 {a2f.get('p50_us', 0) / 1e3:.3f} ms, p99 "
+                  f"{a2f.get('p99_us', 0) / 1e3:.3f} ms (a session's whole wall p50 "
+                  f"{e2e.get('p50_us', 0) / 1e3:.3f} ms, p99 {e2e.get('p99_us', 0) / 1e3:.3f} "
+                  f"ms); {summary['sessions_per_s']} "
+                  f"sessions/s over {wall:.3f} s; the ledger equals the counters (turns "
+                  f"{totals['turns']}, sessions {totals['sessions']}); "
+                  f"{got['batch_board']} batch_board launches {card_tag}")
+        prof.stop()
+        collapsed = prof.write_artifacts(str(pdir), "loadgen")[0]
+        profiler.disable()
+        found["loadgen"] = runs
+
+        # 4. four workers on the card and a workers broker, a resident-wire
+        # 4096^2 x 200 Run (W on every strip batch) equal to broker A's own
+        wservers = [rpc_worker.serve(0, device=dev) for _ in range(4)]
+        stops += [s.stop for s, _ in wservers]
+        waddrs = [f"127.0.0.1:{s.port}" for s, _ in wservers]
+        server_c, service_c = broker.serve(port=0, backend="workers", worker_addresses=waddrs,
+                                           wire="resident", halo_depth=8, device=dev)
+        stops.append(service_c.shutdown)
+        addr_c = f"127.0.0.1:{server_c.port}"
+        soup = np.where(np.random.default_rng(SEED).random((4096, 4096)) < 0.3,
+                        255, 0).astype(np.uint8)
+        worlds = {}
+        for addr in (addr_c, addr_a):
+            client = RpcClient(addr)
+            try:
+                open_window()
+                t0 = time.monotonic()
+                res = client.call(Methods.BROKER_RUN, Request(
+                    world=soup, turns=200, threads=4, image_width=4096, image_height=4096),
+                    timeout=600)
+                wall = time.monotonic() - t0
+                got = close_window(f"phase 24 run at {addr}",
+                                   ["strip_steps"] if addr == addr_c else [])
+            finally:
+                client.close()
+            check(res.turns_completed == 200, f"phase 24 run at {addr}: {res.turns_completed}")
+            worlds[addr] = (np.asarray(res.world), wall, got)
+        check(np.array_equal(worlds[addr_c][0], worlds[addr_a][0]),
+              "phase 24 workers: the 4096^2 x 200 board differs from the device backend's")
+        print(f"phase 24 workers: 4096^2 x 200 over four workers on the card, resident wire, "
+              f"depth 8: {worlds[addr_c][2]['strip_steps']} strip_steps launches, "
+              f"{worlds[addr_c][1]:.3f} s, the board equal to the device backend's "
+              f"({worlds[addr_a][1]:.3f} s) {card_tag}")
+
+        # 5. the fleet over the three brokers and the four workers the
+        # workers broker's roster names; doctor and watch read its Status
+        collector = fleet.FleetCollector([addr_a, addr_b, addr_c], interval=0.5, timeout=30.0)
+        for _ in range(2):
+            collector.sweep()
+        fleet_server = fleet.serve(collector, port=0)
+        stops.append(fleet_server.stop)
+        fleet_addr = f"127.0.0.1:{fleet_server.port}"
+        t0 = time.monotonic()
+        payload = fetch_status(fleet_addr, timeout=30)
+        poll_s = time.monotonic() - t0
+        targets = payload["fleet"]["targets"]
+        check(len(targets) == 7 and sum(t["worker"] for t in targets) == 4
+              and all(t["state"] == "ok" for t in targets),
+              f"phase 24 fleet: targets {[(t['address'], t['state']) for t in targets]}")
+        # the merge is exact: the sum over every target's own Status (the
+        # in-process roles share this process's registry, so each counts it)
+        scraped = list(payload["fleet"]["broker_status"].values()) + [
+            fetch_status(a, worker=True, timeout=30) for a in waddrs]
+        want_turns = sum(scalar_value(p.get("metrics") or {}, "gol_engine_turns_total") or 0
+                         for p in scraped)
+        merged_turns = scalar_value(payload["metrics"], "gol_engine_turns_total")
+        check(want_turns and merged_turns == want_turns,
+              f"phase 24 fleet: merged gol_engine_turns_total {merged_turns} != {want_turns}")
+        statuses = doctor.collect(fleet_addr, [], timeout=30.0)
+        findings = doctor.diagnose(statuses)
+        pages = [f for f in findings if f["severity"] == "page"]
+        check(findings and not pages, f"phase 24 doctor: {pages or 'no finding'}")
+        frame, frame_ok = Watcher(fleet_addr, [], timeout=30.0).frame()
+        panels = ("FLEET", "SESSIONS (multi-universe)", "WORKERS (roster health)") + (
+            ("ROOFLINE (achieved per site)",) if dev.type == "cuda" else ())
+        missing = [p for p in panels if p not in frame]
+        check(frame_ok and not missing, f"phase 24 watch: panels {missing} missing")
+        found["fleet poll s"] = poll_s
+        print(f"phase 24 fleet: {len(targets)} targets ok (3 brokers, 4 workers), merged "
+              f"gol_engine_turns_total {int(merged_turns)} = the targets' sum; its Status "
+              f"polled in {poll_s:.4f} s; doctor: {len(findings)} findings, none paging "
+              f"(top: {findings[0]['title']}); watch renders {', '.join(panels)} {card_tag}")
+
+        # 6. the journals, the profile and the bench rounds
+        RemoteBroker(addr_b).super_quit()
+        proc_b.proc.wait(timeout=120)
+        journal.disable()
+        hist = history.build_history("chip_smoke", out_dir=str(jdir))
+        admits = [e for e in hist["events"]
+                  if e.get("kind") == "session.admit" and e.get("pid") == os.getpid()]
+        admitted = scalar_value(metrics.registry().snapshot(), "gol_sessions_admitted_total")
+        check(len(hist["nodes"]) >= 2 and len(admits) == int(admitted)
+              and not hist["problems"],
+              f"phase 24 history: {len(admits)} admits of {admitted}, nodes {hist['nodes']}, "
+              f"problems {hist['problems'][:3]}")
+        print(f"phase 24 history: {len(hist['segments'])} journal segments of "
+              f"{len(hist['nodes'])} processes merged, {hist['events_total']} events; a "
+              f"session.admit for each of the {int(admitted)} sessions admitted here {card_tag}")
+        rows = flame.hot_rows(flame.load_collapsed(collapsed), top=10 ** 6)
+        frames = [r for r in rows if "gol_distributed_final_tpu_torch/engine/sessions.py"
+                  in r["frame"]]
+        check(frames, f"phase 24 flame: no frame of engine/sessions.py in {collapsed.name}")
+        print(f"phase 24 flame: {collapsed.name} folds {len(rows)} frames; "
+              f"engine/sessions.py's {len(frames)}, hottest {frames[0]['frame']} "
+              f"(cum {100 * frames[0]['cum_share']:.1f}%) {card_tag}")
+        verdicts = regress.compare(regress.load_bench(REPO / "BENCH_r04.json"),
+                                   regress.load_bench(REPO / "BENCH_r05.json"))
+        got_verdicts = {name: v["verdict"] for name, v in verdicts.items()}
+        code = subprocess.run([sys.executable, "-m", "gol_distributed_final_tpu_torch.obs."
+                               "regress", "BENCH_r04.json", "BENCH_r05.json"], cwd=REPO,
+                              env=dict(os.environ, PYTHONPATH=str(REPO)),
+                              capture_output=True, text=True, timeout=120).returncode
+        check(code == 0 and got_verdicts == REGRESS_R04_R05,
+              f"phase 24 regress: exit {code}, {got_verdicts}")
+        print(f"phase 24 regress: BENCH_r04.json -> BENCH_r05.json exit 0, "
+              + ", ".join(f"{k} {v}" for k, v in got_verdicts.items()) + f" {card_tag}")
+
+        # 7. a wrong board served: a worker's strip corrupted in place with
+        # integrity off; the Run-verb canary reports it corrupt and the
+        # canary-failure rule fires on the next tick
+        board = canary_board(16, 0, 1)
+        oracle, _ = _oracle_evolve(board, 16)
+
+        def flip_matters(i: int) -> bool:
+            flipped = board.copy()
+            flipped.reshape(-1)[i] ^= 0xFF
+            return not np.array_equal(_oracle_evolve(flipped, 16)[0], oracle)
+
+        idx = next(i for i in range(board.size) if flip_matters(i))
+        wserver, _ = rpc_worker.serve(0, device=dev)
+        stops.append(wserver.stop)
+        server_d, service_d = broker.serve(port=0, backend="workers",
+                                           worker_addresses=[f"127.0.0.1:{wserver.port}"],
+                                           wire="resident", device=dev)
+        stops.append(service_d.shutdown)
+        integrity.set_enabled(False)
+        faults.configure(f"worker.strip_corrupt:corrupt:1:{idx}")
+        tl = timeline.enable(period=60.0, start_thread=False, rules=[])
+        prober = CanaryProber(f"127.0.0.1:{server_d.port}", size=16, turns=16, verb="run")
+        try:
+            tl.sample_once()
+            out = prober.probe_once()
+            tl.sample_once()
+            rule = next(r for r in slo.default_rules() if r.name == "canary-failure")
+            firing, value, detail = rule.evaluate(tl)
+        finally:
+            prober.stop()
+            timeline.disable()
+            faults.configure(None)
+            integrity.set_enabled(True)
+        check(out["result"] == "corrupt" and firing,
+              f"phase 24 corrupt: {out}, rule firing {firing} ({detail})")
+        print(f"phase 24 corrupt: a strip byte flipped in place (flat index {idx}) with "
+              f"-integrity off; the Run-verb canary reported corrupt ({out['detail']}) and "
+              f"canary-failure fired (value {value}) {card_tag}")
+
+        # 8. the port's analyzer over the port's tree and the README lints
+        for module in ("gol_distributed_final_tpu_torch.analysis",
+                       "gol_distributed_final_tpu_torch.obs.lint"):
+            proc = subprocess.run([sys.executable, "-m", module], cwd=REPO,
+                                  env=dict(os.environ, PYTHONPATH=str(REPO)),
+                                  capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0, f"phase 24 {module}: {proc.stdout[-2000:]}")
+            print(f"phase 24 {module}: exit 0, {proc.stdout.strip().splitlines()[-1]} {card_tag}")
+        print(f"phase 24: {time.monotonic() - t_phase:.1f} s in all {card_tag}")
+    finally:
+        for stop in reversed(stops):
+            stop()
+        for proc in procs:
+            proc.stop()
+        service_a.shutdown()
+        profiler.disable()
+        journal.disable()
+        obs_reset()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return found
+
+
+def phase_alone(run, names) -> int:
+    """Build the kernels and run one phase alone (``--observability``,
+    ``--tools``): ``run(card_tag, open_window, close_window)`` with the
+    launches of the kernel modules ``names`` counted in its windows, as the
+    main run counts them."""
+    import importlib
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from gol_distributed_final_tpu_torch.__main__ import main as controller_main
-    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
-    from gol_distributed_final_tpu_torch.ops import _build, byte_tiled, whole_board
+    from gol_distributed_final_tpu_torch.ops import _build
 
     card = nvidia_smi("name,power.limit")
     print(card)
     _build.build()
-    with open(REPO / "check" / "alive" / "512x512.csv") as f:
-        golden_counts = {int(r["completed_turns"]): int(r["alive_cells"])
-                         for r in csv.DictReader(f)}
-    mods = {"whole_board": whole_board, "byte_tiled": byte_tiled}
-    got: dict = {}
+    mods = {n: importlib.import_module(f"gol_distributed_final_tpu_torch.ops.{n}")
+            for n in names}
 
     def open_window():
         for m in mods.values():
             m.reset_counts()
 
     def close_window(label, expect):
-        got.update({n: m.launches for n, m in mods.items()})
+        got = {n: m.launches for n, m in mods.items()}
         for n in expect:
             check(got[n] > 0, f"{label}: the {n} kernel never launched")
-        return dict(got)
+        check(not any(m.plain_calls for m in mods.values()),
+              f"{label}: a plain version ran on the card")
+        return got
 
-    observability(torch.device("cuda"), read_pgm(REPO / "images" / "512x512.pgm"),
-                  golden_counts, f"[{card}]", open_window, close_window, controller_main)
+    run(f"[{card}]", open_window, close_window)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def observability_only() -> int:
+    """``--observability``: build the kernels and run phase 23 alone."""
+
+    def run(card_tag, open_window, close_window):
+        import torch
+
+        from gol_distributed_final_tpu_torch.__main__ import main as controller_main
+        from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+
+        with open(REPO / "check" / "alive" / "512x512.csv") as f:
+            golden_counts = {int(r["completed_turns"]): int(r["alive_cells"])
+                             for r in csv.DictReader(f)}
+        observability(torch.device("cuda"), read_pgm(REPO / "images" / "512x512.pgm"),
+                      golden_counts, card_tag, open_window, close_window, controller_main)
+
+    return phase_alone(run, ("whole_board", "byte_tiled"))
+
+
+def tools_only() -> int:
+    """``--tools``: build the kernels and run phase 24 alone."""
+
+    def run(card_tag, open_window, close_window):
+        import torch
+
+        tools(torch.device("cuda"), card_tag, open_window, close_window)
+
+    return phase_alone(run, ("whole_board", "batch_board", "tiled", "strip_steps"))
 
 
 def kernel_times(tree: str) -> int:
@@ -3327,6 +3727,11 @@ def main() -> int:
     observability(dev, board512, golden_counts, card_tag, open_window, close_window,
                   controller_main)
 
+    # 24. the operator tools against the port's roles on the card: the
+    # canary's two verbs, loadgen, the fleet, doctor, watch, history,
+    # flame, regress, an injected wrong board and the static analysis
+    tools(dev, card_tag, open_window, close_window)
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -3948,6 +4353,8 @@ if __name__ == "__main__":
         sys.exit(pod_layouts())
     if sys.argv[1:2] == ["--observability"]:
         sys.exit(observability_only())
+    if sys.argv[1:2] == ["--tools"]:
+        sys.exit(tools_only())
     if sys.argv[1:2] == ["--sparse-times"]:
         sys.exit(sparse_times(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else sys.argv[2]))
     sys.exit(main())

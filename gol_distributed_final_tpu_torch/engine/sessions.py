@@ -128,6 +128,17 @@ class SessionTable:
     the batch: None is the CUDA card (raises without one), ``"cpu"`` runs
     the kernels' plain torch versions."""
 
+    # the batch tensor and the session lists move together under _lock:
+    # a snapshot must never pair a new turn with a stale count, and a
+    # session must be findable in exactly one list at any instant
+    # (machine-enforced: analysis/locks.py)
+    _GUARDED_BY = {
+        "_state": "_lock",
+        "_active": "_lock",
+        "_pending": "_lock",
+        "_next_sid": "_lock",
+    }
+
     def __init__(
         self,
         rule: LifeRule = CONWAY,
@@ -228,6 +239,10 @@ class SessionTable:
             with self._lock:
                 self._state = self._plane.append(self._state, new)
                 self._active.extend(s for s, _ in pending)
+                # gol: allow(atomicity): the grabbed prefix is stable by
+                # the concurrency contract — admit only APPENDS and
+                # advance is the single driver thread, so entries
+                # [0, len(pending)) are exactly the ones encoded above
                 del self._pending[: len(pending)]
         with self._lock:
             active = list(self._active)
@@ -325,8 +340,10 @@ class SessionTable:
             keep = [i for i in range(len(active)) if i not in fin]
             with self._lock:
                 self._state = self._plane.take(state, keep) if keep else None
-                # only this driver thread replaces _active; admits since
-                # the snapshot above sit in _pending until the next advance
+                # gol: allow(atomicity): only this single driver thread
+                # ever REPLACES _active; the earlier snapshot can only
+                # trail it by appends-via-_pending, which stay pending
+                # until the next advance — the compacted list is exact
                 self._active = [active[i] for i in keep]
                 left = len(self._active) + len(self._pending)
                 _ins.SESSIONS_ACTIVE.set(left)
@@ -349,7 +366,10 @@ class SessionTable:
         for s, ev in events:
             try:
                 s.on_event(ev)
-            except Exception:  # noqa: BLE001 — an observer must never stall the batch
+            # gol: allow(hygiene): an observer callback must never stall
+            # the batch, and this runs per event in the serving hot loop —
+            # too hot for per-failure logging
+            except Exception:
                 pass
         # completion LAST: a waiter woken by done must find every event —
         # FinalTurnComplete included — already delivered

@@ -48,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import re
 import sys
 import threading
 import time
@@ -492,18 +493,48 @@ def render_roofline(rows: List[dict], ceilings: Ceilings) -> str:
 
 # -- BENCH round rendering ----------------------------------------------------
 
-#: what the bench-round mode answers until obs/regress.py is here
-BENCH_MODE_NOT_PORTED = (
-    "perf: the bench-round mode is not ported yet (it needs obs/regress.py)"
-)
-
+# kernel-case geometry parses from the stable case-name convention
+# (c2_128_..., c5_65536_...); non-kernel cases (wire, loadgen) have no
+# board size in their name and are skipped by the model path
+_CASE_SIZE_RE = re.compile(r"^c\d+_(\d+)_")
 
 
 def rows_from_bench(path, ceilings: Ceilings, bench: Optional[dict] = None) -> List[dict]:
-    """Roofline rows for one BENCH round. It reads the round through
-    ``obs/regress.py``, which this package does not have yet, so it
-    raises; ``main`` refuses the mode with exit 2 before calling it."""
-    raise NotImplementedError(BENCH_MODE_NOT_PORTED)
+    """Roofline rows for one BENCH round: per kernel case, the embedded
+    roofline fields when the round carries them (bench.py embeds them
+    from this PR on), else the analytic model from the case-name
+    geometry + per-turn fit (the only path a salvaged tail supports).
+    ``bench`` skips the load when the caller already holds the loaded
+    round (the CLI loads once for provenance and reuses it here)."""
+    from .regress import load_bench
+
+    if bench is None:
+        bench = load_bench(path)
+    rows = []
+    for name, case in sorted(bench["cases"].items()):
+        per_turn_us = case.get("per_turn_us")
+        if not per_turn_us or per_turn_us <= 0:
+            # a non-positive fit is a broken measurement (the round-2 c5
+            # negative-throughput class): excluded, never classified
+            continue
+        if case.get("bound_class") and case.get("achieved_flops") is not None:
+            row = {
+                "achieved_flops": case["achieved_flops"],
+                "achieved_bytes_per_s": case.get("achieved_bytes_per_s", 0.0),
+                "flops_utilization": case.get("flops_utilization", 0.0),
+                "memory_utilization": case.get("memory_utilization", 0.0),
+                "bound_class": case["bound_class"],
+            }
+        else:
+            m = _CASE_SIZE_RE.match(name)
+            if not m:
+                continue
+            size = int(m.group(1))
+            row = classify_case(size, size, per_turn_us * 1e-6, ceilings)
+        row["case"] = name
+        row["per_turn_us"] = per_turn_us
+        rows.append(row)
+    return rows
 
 
 def server_bound_classes(snap: dict) -> Dict[str, str]:
@@ -649,41 +680,58 @@ def main(argv=None) -> int:
 
     is_file = args.target.endswith(".json") or pathlib.Path(args.target).is_file()
     if is_file:
-        print(BENCH_MODE_NOT_PORTED, file=sys.stderr)
-        return 2
-    from .status import StatusUnavailable, fetch_status
+        from .regress import BenchLoadError, load_bench
 
-    try:
-        payload = fetch_status(args.target, timeout=args.timeout)
-    except StatusUnavailable as exc:
-        print(f"perf: no status — {exc}", file=sys.stderr)
-        return 1
-    except Exception as exc:
-        print(f"perf: poll failed — {exc}", file=sys.stderr)
-        return 1
-    ceilings = calibrate(args.device_kind)
-    rows = rows_from_status(payload, ceilings)
-    if not args.device_kind and any(
-        r.get("class_source") == "local-ceilings" for r in rows
-    ):
-        print(
-            "warning: the server published no bound class for some "
-            "sites (version skew) — those classes are computed "
-            "against the LOCAL device's ceilings, which is only "
-            "honest if the server runs the same device kind (pass "
-            "--device-kind otherwise)", file=sys.stderr,
-        )
-    decomp = decomposition_summary(payload.get("metrics") or {})
-    if decomp and not args.json:
-        print("WHERE TIME GOES (per component):")
-        for component, segs in sorted(decomp.items()):
-            parts = [
-                f"{seg} {e['sum_s']:.3f}s ({100 * e['share']:.0f}%)"
-                for seg, e in sorted(segs.items())
-                if isinstance(e, dict)
-            ]
-            print(f"  {component:<10} " + "  ".join(parts))
-        print()
+        try:
+            bench = load_bench(args.target)
+        except (OSError, BenchLoadError) as exc:
+            print(f"perf: {exc}", file=sys.stderr)
+            return 2
+        prov = bench.get("provenance") or {}
+        kind = args.device_kind or prov.get("device_kind") or prov.get("platform")
+        if kind is None:
+            print(
+                "warning: round carries no provenance (truncated tail?) "
+                "and no --device-kind was given — classifying against "
+                "the LOCAL device's ceilings, which is only honest if "
+                "this round was measured here", file=sys.stderr,
+            )
+        ceilings = calibrate(kind)
+        rows = rows_from_bench(args.target, ceilings, bench=bench)
+    else:
+        from .status import StatusUnavailable, fetch_status
+
+        try:
+            payload = fetch_status(args.target, timeout=args.timeout)
+        except StatusUnavailable as exc:
+            print(f"perf: no status — {exc}", file=sys.stderr)
+            return 1
+        except Exception as exc:
+            print(f"perf: poll failed — {exc}", file=sys.stderr)
+            return 1
+        ceilings = calibrate(args.device_kind)
+        rows = rows_from_status(payload, ceilings)
+        if not args.device_kind and any(
+            r.get("class_source") == "local-ceilings" for r in rows
+        ):
+            print(
+                "warning: the server published no bound class for some "
+                "sites (version skew) — those classes are computed "
+                "against the LOCAL device's ceilings, which is only "
+                "honest if the server runs the same device kind (pass "
+                "--device-kind otherwise)", file=sys.stderr,
+            )
+        decomp = decomposition_summary(payload.get("metrics") or {})
+        if decomp and not args.json:
+            print("WHERE TIME GOES (per component):")
+            for component, segs in sorted(decomp.items()):
+                parts = [
+                    f"{seg} {e['sum_s']:.3f}s ({100 * e['share']:.0f}%)"
+                    for seg, e in sorted(segs.items())
+                    if isinstance(e, dict)
+                ]
+                print(f"  {component:<10} " + "  ".join(parts))
+            print()
     if not rows:
         print("perf: nothing to classify (no kernel sites/cases with "
               "dispatch data)", file=sys.stderr)

@@ -281,9 +281,9 @@ def fused_strip_steps(padded, k: int, strip_rows: int, *, attest: bool = False, 
     plain version."""
     k, h = int(k), int(strip_rows)
     block = torch.from_numpy(np.ascontiguousarray(padded, np.uint8)).to(resolve_device(device))
-    res = strip_steps.strip_steps(block, k, h, attest=attest)
+    out = strip_steps.strip_steps(block, k, h, attest=attest)
     _meter_single(k)
     bands = []
     if attest:
-        bands = strip_steps.split_bands(res.bands.cpu().numpy(), k, block.shape[1])
-    return res.strip.cpu().numpy(), [int(c) for c in res.counts.cpu().tolist()], bands
+        bands = strip_steps.split_bands(out.bands.cpu().numpy(), k, block.shape[1])
+    return out.strip.cpu().numpy(), [int(c) for c in out.counts.cpu().tolist()], bands

@@ -34,8 +34,9 @@ a crashed run: the first fresh Run continues from the checkpoint's board,
 turn and rule. The observability flags (``-metrics -timeline -trace
 -journal -profile``, obs/cli.py) and the ``Status`` verb are the JAX
 package's, and so are the meters, spans, journal and flight records of
-both backends and the session scheduler's tenant ledger. Not ported yet,
-and refused with an error naming them: ``-canary`` and ``-canary-verb``.
+both backends and the session scheduler's tenant ledger. ``-canary
+[SECS] [-canary-verb session|run]`` runs the blackbox prober
+(obs/canary.py) against the broker's own port.
 """
 
 from __future__ import annotations
@@ -2532,6 +2533,18 @@ class SessionScheduler:
     _FINISHED_CAP = 1024
     _FINISHED_BYTES_CAP = 64 << 20  # 64 MiB of retained final boards
 
+    # scheduler state moves under ONE lock, entered either directly or
+    # through the _work Condition wrapping it (analysis/locks.py
+    # accepts both context managers as the same guard)
+    _GUARDED_BY = {
+        "_table": ("_lock", "_work"),
+        "_tags": ("_lock", "_work"),
+        "_finished": ("_lock", "_work"),
+        "_finished_bytes": ("_lock", "_work"),
+        "_stop": ("_lock", "_work"),
+        "_thread": ("_lock", "_work"),
+    }
+
     def __init__(self, capacity: int = 256, max_chunk: int = 4096, device=None):
         if capacity < 1:
             raise ValueError(f"session capacity must be >= 1, got {capacity}")
@@ -2620,7 +2633,16 @@ class SessionScheduler:
                     if sess.error is None and sess.result is not None:
                         # healthy completions only: a failed or cancelled
                         # session stays a loud retrieve error
+                        # gol: allow(atomicity): `sess` IS stale (admitted
+                        # under the earlier critical section), but the
+                        # check-then-act is re-validated HERE: the write
+                        # is gated on _tags still mapping tag -> sess
+                        # under this same lock, so a racing re-admission
+                        # of the tag can never be clobbered
                         self._finished[tag] = sess
+                        # gol: allow(atomicity): same re-validation — the
+                        # byte count moves with the entry the line above
+                        # just committed under this lock
                         self._finished_bytes += sess.result.nbytes
                         while self._finished and (
                             len(self._finished) > self._FINISHED_CAP
@@ -2959,11 +2981,6 @@ def serve(
     return server, service
 
 
-#: the reference broker's flags this package does not carry yet (the
-#: canary prober, obs/canary.py), each refused by name
-_NOT_PORTED = ("-canary", "-canary-verb")
-
-
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="GoL broker / engine server", allow_abbrev=False
@@ -3079,13 +3096,25 @@ def main(argv=None) -> None:
              "backend holds no board on a device",
     )
     _obs_cli.add_obs_flags(parser, "broker")
-    args, rest = parser.parse_known_args(argv)
-    for token in rest:
-        flag = token.split("=", 1)[0]
-        if flag in _NOT_PORTED:
-            parser.error(f"{flag} is not ported yet")
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    parser.add_argument(
+        "-canary", nargs="?", const=5.0, default=None, type=float,
+        metavar="SECS",
+        help="run the blackbox canary prober (obs/canary.py) in-process "
+             "against this broker's own port at this cadence (default "
+             "5 s): a known-oracle universe through the full RPC + "
+             "session path every period, bit-exact or metered as a "
+             "failure (pair with -timeline so the 'canary-failure' SLO "
+             "rule pages); implies -metrics",
+    )
+    parser.add_argument(
+        "-canary-verb", dest="canary_verb", choices=("session", "run"),
+        default="session",
+        help="-canary probe path: SessionRun + tagged retrieve (default; "
+             "safe beside live traffic) or the classic blocking Run — "
+             "exercises the backend data plane itself (workers scatter / "
+             "resident strips), but collides with real single-board Runs",
+    )
+    args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
     )
@@ -3164,6 +3193,8 @@ def main(argv=None) -> None:
                 args.resume, gen, turn,
             )
         resume = (board, turn, rule)
+    if args.canary is not None and args.canary <= 0:
+        parser.error(f"-canary SECS must be > 0, got {args.canary}")
     device = args.device
     if args.backend != "workers":
         try:
@@ -3186,8 +3217,28 @@ def main(argv=None) -> None:
         device=device,
     )
     print(f"broker listening on :{server.port} (backend={args.backend})", flush=True)
+    canary = None
+    if args.canary is not None:
+        # after serve(): the prober dials the BOUND port over a real
+        # socket — the full client path, not an in-process shortcut.
+        # Dial the bound interface: a broker on -host 10.0.0.5 does not
+        # listen on loopback, and a canary refused every period would
+        # page 'canary-failure' on a healthy path forever
+        from ..obs import metrics
+        from ..obs.canary import CanaryProber
+
+        metrics.enable()  # the probe counters must record
+        probe_host = "127.0.0.1" if args.host in ("0.0.0.0", "::") else args.host
+        canary = CanaryProber(
+            f"{probe_host}:{server.port}", period=args.canary, verb=args.canary_verb,
+        )
+        canary.start()
     with _obs_cli.ObsLifetime():
-        service.quit_event.wait()
+        try:
+            service.quit_event.wait()
+        finally:
+            if canary is not None:
+                canary.stop()
 
 
 if __name__ == "__main__":

@@ -272,6 +272,12 @@ class RpcClient:
                 envelope = {"id": call_id, "method": method, "request": request, "oob": 1}
                 if _integrity.enabled():
                     envelope["ck"] = 1
+                # gol: allow(blocking-under-lock): deliberate — ONE
+                # writer at a time per stream is the framing contract
+                # (header+payload must not interleave), so the send
+                # happens under the lifetime write lock by design; a
+                # sender stuck in sendall is woken by close()/reconnect
+                # via socket.shutdown (see _maybe_reconnect and close)
                 sent = send_frame(
                     sock, envelope, oob=self._peer_oob,
                     checksum=self._peer_ck and _integrity.enabled(),
@@ -310,8 +316,10 @@ class RpcClient:
             )
             err.is_reply = True
             raise err
-        # 'result' is required in every non-error reply: a missing key is a
-        # malformed envelope and fails loudly (None is a legitimate result)
+        # gol: allow(skew-safety): 'result' is a REQUIRED key of every
+        # non-error reply in every protocol version — a missing key is a
+        # malformed envelope that must fail loudly, not default to None
+        # (None is a legitimate result value)
         result = reply["result"]
         _journal.observe(getattr(result, "hlc", None))
         return result

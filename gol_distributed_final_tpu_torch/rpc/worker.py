@@ -744,6 +744,19 @@ class WorkerService:
     strips, ``GOL_WORKER_FUSED=off`` and tiles stay in host memory, as in
     the reference."""
 
+    # the resident-strip session state moves as one unit under its lock
+    # (machine-enforced: analysis/locks.py flags any access outside
+    # 'with self._strip_lock')
+    _GUARDED_BY = {
+        "_strip": "_strip_lock",
+        "_resident": "_strip_lock",
+        "_strip_turn": "_strip_lock",
+        "_strip_index": "_strip_lock",
+        "_strip_dirty": "_strip_lock",
+        "_strip_clean_turn": "_strip_lock",
+        "_strip_is_tile": "_strip_lock",
+    }
+
     def __init__(self, server: RpcServer, device=None):
         self._server = server
         self.device = device
@@ -902,7 +915,7 @@ class WorkerService:
             service_seconds=time.monotonic() - t0,
         )
 
-    def _step_resident(self, halos: np.ndarray, k: int, check: bool):
+    def _step_resident(self, halos: np.ndarray, k: int, check: bool):  # gol: holds(_strip_lock)
         """A batch of a device session (strip lock held): W steps the
         strip and yields the dirty grid and the strip digests' sums; the
         host folds the edges' and bands' digests."""
@@ -935,7 +948,7 @@ class WorkerService:
             }
         return edges, counts, dirty, digests
 
-    def _step_numpy(self, halo_blocks, halos, k: int, check: bool):
+    def _step_numpy(self, halo_blocks, halos, k: int, check: bool):  # gol: holds(_strip_lock)
         """A batch of a numpy session (strip lock held), as the
         reference's StripStep runs it."""
         # chaos site (rpc/faults.py "corrupt" action): flips a byte of
@@ -1061,6 +1074,9 @@ class WorkerService:
     def worker_quit(self, req: Request) -> Response:
         # reply first, then shut the listener (worker/worker.go:82-86): a
         # non-daemon timer outlives this handler so the reply flushes
+        # gol: allow(hygiene): deliberately NON-daemon — the timer must
+        # outlive this handler so the quit reply flushes before the
+        # process exits; it fires once, 50 ms later, then the thread ends
         threading.Timer(0.05, self._shutdown).start()
         return Response()
 

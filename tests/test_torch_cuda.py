@@ -1247,3 +1247,33 @@ def test_sample_hbm_reads_the_card(cuda_device):
     assert 0 < got["bytes_in_use"] <= got["peak_bytes_in_use"] <= got["bytes_limit"]
     assert got["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
     del keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("verb, size, module", [
+    ("session", 128, batch_board), ("run", 512, whole_board),
+])
+def test_canary_probe_on_a_card_broker(cuda_device, verb, size, module):
+    """The canary's two verbs against a broker on the card: SessionRun
+    batches onto K2, Run onto K1; each probe bit-exact against the numpy
+    oracle and metered ok."""
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+    from gol_distributed_final_tpu_torch.obs.canary import CanaryProber
+    from gol_distributed_final_tpu_torch.obs.status import series_map
+    from gol_distributed_final_tpu_torch.rpc import broker
+
+    server, service = broker.serve(port=0, device="cuda")
+    prober = CanaryProber(f"127.0.0.1:{server.port}", size=size, turns=16, verb=verb)
+    try:
+        obs_metrics.registry().reset()
+        obs_metrics.enable()
+        module.reset_counts()
+        results = [prober.probe_once()["result"] for _ in range(3)]
+        assert results == ["ok"] * 3
+        assert module.launches > 0 and module.plain_calls == 0
+        probes = series_map(obs_metrics.registry().snapshot(), "gol_canary_probes_total")
+        assert probes[("ok",)]["value"] == 3
+    finally:
+        prober.stop()
+        service.shutdown()
+        _obs_off()

@@ -237,6 +237,22 @@ def test_workers_broker_and_workers_import_no_jax(tmp_path):
         REPO_ROOT / "check" / "images" / "64x64x100.pgm").read_bytes()
 
 
+@pytest.mark.parametrize("module, args, says, loads", [
+    ("gol_distributed_final_tpu_torch.analysis", [], "analysis ok",
+     "gol_distributed_final_tpu_torch.analysis.lockorder"),
+    ("gol_distributed_final_tpu_torch.obs.regress",
+     [str(REPO_ROOT / "BENCH_r04.json"), str(REPO_ROOT / "BENCH_r05.json")], "bench diff",
+     "gol_distributed_final_tpu_torch.obs"),
+    ("gol_distributed_final_tpu_torch.obs.canary", ["--selfcheck", "-device", "cpu"],
+     "canary selfcheck ok", "gol_distributed_final_tpu_torch.rpc.broker"),
+])
+def test_operator_tools_import_no_jax(module, args, says, loads, tmp_path):
+    """The static analysis, the bench diff and the canary's loopback probe,
+    each in a process of its own: none loads jax or the JAX package."""
+    out, modules = _probe(module, args, tmp_path)
+    assert says in out and loads in modules
+
+
 def _port_sources():
     files = sorted(PORT.rglob("*.py"))
     assert PORT / "rpc" / "broker.py" in files and PORT / "rpc" / "protocol.py" in files
@@ -244,7 +260,11 @@ def _port_sources():
                 "viz/loop.py", "viz/bigview.py", "utils/visualise.py", "rpc/worker.py",
                 "rpc/faults.py", "ops/strip_steps.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/halo.py", "parallel/bit_halo.py",
-                "parallel/multihost.py", "pod.py", "utils/cpumesh.py"):
+                "parallel/multihost.py", "pod.py", "utils/cpumesh.py",
+                *(f"obs/{m}.py" for m in ("canary", "loadgen", "doctor", "watch", "fleet",
+                                          "history", "regress", "flame", "lint")),
+                *(f"analysis/{m}.py" for m in ("__init__", "__main__", "core", "skew", "locks",
+                                               "lockorder", "hygiene", "lints"))):
         assert PORT / new in files
     return files + [REPO_ROOT / "chip_smoke.py"]
 

@@ -7,7 +7,6 @@ roofline classifier, and what metrics off leaves behind.
 
 import json
 import os
-import pathlib
 
 import numpy as np
 import pytest
@@ -388,11 +387,6 @@ def test_refresh_metrics_equals_the_reference():
                 if f["name"].startswith(("gol_kernel_achieved", "gol_kernel_bound"))}
 
     assert gauges(port_metrics) == gauges(jax_metrics)
-
-
-def test_perf_bench_mode_is_refused_until_regress_is_ported(capsys):
-    assert port_perf.main([str(pathlib.Path(__file__).parent.parent / "BENCH_r01.json")]) == 2
-    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_perf_selfcheck_classifies_the_cpu_sites(capsys):

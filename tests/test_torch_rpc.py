@@ -514,21 +514,17 @@ def test_unported_status_verb_is_an_unknown_method(port_broker):
     ["-halo-depth", "2"], ["-auto-checkpoint", "1"],
     ["-metrics"], ["-timeline", "0.5"], ["-trace"],
     ["-journal"], ["-profile"], ["-canary"],
+    ["-canary", "0.5", "-canary-verb", "run"], ["-canary", "0"],
 ])
 def test_broker_cli_refuses_what_is_not_ported(flags, capsys, monkeypatch, tmp_path):
-    """The canary is refused by name. The workers backend's flags and the
-    observability flags are ported: with them the port broker does what
-    the reference broker does, serving the same configuration or exiting
-    2 with the same message."""
+    """Every flag the port once refused is ported: the workers backend's,
+    the observability flags and the canary's. With them the port broker
+    does what the reference broker does, serving the same configuration
+    or exiting 2 with the same message."""
     from torch_obs_state import reset_both
 
+    assert flags[0] in _NOW_PORTED
     monkeypatch.chdir(tmp_path)  # -journal and -profile write under out/
-    if flags[0] not in _NOW_PORTED:
-        with pytest.raises(SystemExit) as exc:
-            port_broker_mod.main([*flags, "-device", "cpu", "-port", "0"])
-        assert exc.value.code == 2
-        assert "not ported yet" in capsys.readouterr().err
-        return
     from gol_distributed_final_tpu.rpc import broker as jax_broker
 
     outcomes = []
@@ -554,12 +550,12 @@ def test_broker_cli_refuses_what_is_not_ported(flags, capsys, monkeypatch, tmp_p
     assert outcomes[0] == outcomes[1]
 
 
-#: the first ten cases above: refused before this port had the workers
-#: backend and the observability flags, held against the reference broker
+#: the cases above: refused before this port had the workers backend, the
+#: observability flags and the canary, held against the reference broker
 #: since
 _NOW_PORTED = {
     "-backend", "-workers", "-wire", "-halo-depth", "-auto-checkpoint",
-    "-metrics", "-timeline", "-trace", "-journal", "-profile",
+    "-metrics", "-timeline", "-trace", "-journal", "-profile", "-canary",
 }
 
 
