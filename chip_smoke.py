@@ -48,7 +48,10 @@ launch against the kernel's own, its rates under the card's ceilings; a
 broker with every server flag serving a ``-server`` session and 256
 SessionRuns, its Status read by ``obs.status`` with the roofline classes;
 ``-trace-device``; and the flags' host cost), drives the operator tools
-against the port's roles on the card (phase 24, ``--tools`` below), and
+against the port's roles on the card (phase 24, ``--tools`` below), drives
+the per-turn alive history (phase 25, ``--alive`` below) and a session
+soak (phase 26, ``--soak`` below), each counted in a window of its own
+out of the main path's counts, and
 times the kernels with CUDA events and the profiler's device time,
 sparse against dense included, and the workers' fused strip batch against
 their numpy loop (the table that sets ``FUSED_STRIP_MIN_CELLS``). The kernels compile the
@@ -117,6 +120,28 @@ over the loadgen run's profile, regress over two bench rounds; a strip
 corrupted in place found by the canary and its SLO rule; and the port's
 analyzer and README lints over the checkout.
 
+    python3 chip_smoke.py --alive
+
+builds the kernels and runs phase 25 alone: K1's history mode (the alive
+count after every turn in one launch) against its plain version on the
+card, ``alive_history`` past K1's gate (1024^2, one tiled launch a turn),
+every turn 1..10000 of the three check/alive goldens through
+``alive_history`` (64^2 and 512^2 in one history launch each, 16^2 on the
+byte stencil), the JAX package's control-plane soak on the card, and one
+10000-turn history launch at 512^2 and 64^2 by CUDA events against phase
+5's 10000 one-turn launches; it prints the history kernel's row as a
+``{"history": ...}`` JSON line.
+
+    python3 chip_smoke.py --soak [SECONDS]
+
+builds the kernels and runs phase 26 alone: the JAX package's one-minute
+on-card session soak (a 4096^2 R-pentomino ``big_session`` under the
+2-second ticker, a mid-run snapshot, a pause, a checkpoint every 50,000
+turns, then 'q', resumed from its last checkpoint to the same PGM) on its
+timeline scaled to SECONDS (default 30, as the full smoke runs it; 60 is
+that test's minute). Both phases share tests/torch_soak.py with the card's
+tests.
+
 Game of Life is integer-exact: every comparison is equality (tolerance 0).
 """
 
@@ -144,6 +169,9 @@ REPO = pathlib.Path(__file__).resolve().parent
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_CLOCK_PER_SM = 64  # CUDA C++ Programming Guide, cc 9.0 table
+#: phase 26's wall: the JAX package's one-minute soak timeline, halved so
+#: that the full smoke stays well inside its time limit
+SOAK_SECONDS = 30.0
 
 
 def check(cond, msg: str) -> None:
@@ -1720,6 +1748,224 @@ def tools_only() -> int:
     return phase_alone(run, ("whole_board", "batch_board", "tiled", "strip_steps"))
 
 
+def card_int32_rate() -> tuple[float, int, float]:
+    """``(rate, SMs, MHz)``: the card's int32 rate for the bound, ops a
+    clock an SM x SMs x the maximum SM clock nvidia-smi reports."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6, sms, max_sm_mhz
+
+
+def soak_helpers():
+    """tests/torch_soak.py, the session soaks the card's tests share
+    (jax-free)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_soak
+
+    return torch_soak
+
+
+def alive(dev, card_tag, open_window, close_window) -> dict:
+    """Phase 25: the per-turn alive history. K1's history mode against its
+    plain version on the card; then, counted in a window of its own, the
+    three goldens through ``alive_history`` (64^2 and 512^2 in one history
+    launch each, 16^2 on the byte stencil) and the control-plane soak on
+    the card; then one 10000-turn history launch at 512^2 (and 64^2) by
+    CUDA events against the 10000 one-turn launches of phase 5 (wall).
+    Returns the history kernel's row of the kernels table."""
+    import numpy as np
+    import torch
+
+    from gol_distributed_final_tpu_torch.engine import Engine, EngineConfig
+    from gol_distributed_final_tpu_torch.io.pgm import read_pgm
+    from gol_distributed_final_tpu_torch.models import (
+        CONWAY, DAY_AND_NIGHT, HIGHLIFE, SEEDS, LifeRule,
+    )
+    from gol_distributed_final_tpu_torch.ops import bitpack, stencil, whole_board
+    from gol_distributed_final_tpu_torch.params import Params
+
+    rng = np.random.default_rng(SEED + 25)
+    rules = (CONWAY, HIGHLIFE, SEEDS, DAY_AND_NIGHT, LifeRule.from_rulestring("B36/S125"))
+    # 64^2, 96x128 and 512^2 in both packings, a packed axis wider than a
+    # block has threads, and a board at the gate (two copies = the opt-in
+    # limit)
+    gate = (227, 128)
+    check(whole_board.smem_bytes(gate) == whole_board.smem_limit(dev),
+          f"{gate} words fill the block's opt-in shared memory")
+    shapes = [((2, 64), 0), ((64, 2), 1), ((3, 128), 0), ((96, 4), 1), ((16, 512), 0),
+              ((512, 16), 1), ((1500, 4), 0), ((4, 1500), 1), (gate, 0), (gate, 1)]
+    err = 0
+    cases = 0
+    for shape, word_axis in shapes:
+        packed = torch.from_numpy(
+            rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+        for rule in rules:
+            for n in (1, 300):
+                got = whole_board.history(packed, n, word_axis, rule.birth_mask,
+                                          rule.survive_mask)
+                want = whole_board.history_plain(packed, n, word_axis, rule.birth_mask,
+                                                 rule.survive_mask)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                check(e == 0, f"history {shape} word_axis={word_axis} {rule.name} n={n}: "
+                              f"max abs err {e}")
+                err = max(err, e)
+                cases += 1
+    soup = np.where(rng.random((1024, 1024)) < 0.3, 255, 0).astype(np.uint8)
+    p1024 = bitpack.pack(soup, 0, dev)
+    check(not whole_board.fits(tuple(p1024.shape), dev), "1024^2 is past K1's gate")
+    past = bitpack.alive_history(p1024, 200)
+    e = int(np.abs(past.astype(np.int64)
+                   - whole_board.history_plain(p1024, 200).cpu().numpy()).max())
+    check(e == 0, f"alive_history past the gate (1024^2 x 200): max abs err {e}")
+    print(f"phase 25 parity: the history kernel equals its plain version in {cases} cases "
+          f"(64^2, 96x128, 512^2 in both packings, a 1500-word packed axis, a board at the "
+          f"gate {gate}; 4 rules and B36/S125; n in 1/300), max abs err {err}; alive_history "
+          f"past the gate (1024^2 x 200, one tiled launch a turn) equals it too {card_tag}")
+
+    open_window()
+    golden = {}
+    for size in (16, 64, 512):
+        with open(REPO / "check" / "alive" / f"{size}x{size}.csv") as f:
+            counts = {int(r["completed_turns"]): int(r["alive_cells"]) for r in csv.DictReader(f)}
+        golden[size] = np.array([counts[t] for t in range(1, 10_001)], np.int32)
+    boards = {size: read_pgm(REPO / "images" / f"{size}x{size}.pgm") for size in (16, 64, 512)}
+    sweeps = {}
+    for size in (64, 512):
+        before = whole_board.history_launches
+        t0 = time.monotonic()
+        got = bitpack.alive_history(bitpack.pack(boards[size], 0, dev), 10_000)
+        sweeps[size] = time.monotonic() - t0
+        check(whole_board.history_launches - before == 1,
+              f"{size}^2 x 10000: {whole_board.history_launches - before} history launches")
+        bad = np.nonzero(got != golden[size])[0]
+        check(bad.size == 0, f"{size}^2 history differs from check/alive at turns {bad[:5] + 1}")
+    t0 = time.monotonic()
+    got = stencil.alive_history(torch.from_numpy(boards[16].copy()).to(dev), 10_000)
+    sweeps[16] = time.monotonic() - t0
+    bad = np.nonzero(got != golden[16])[0]
+    check(bad.size == 0, f"16^2 history differs from check/alive at turns {bad[:5] + 1}")
+    print(f"phase 25 goldens: every turn 1..10000 of check/alive through alive_history: 64^2 "
+          f"and 512^2 in one history launch each (wall {sweeps[64]:.3f} s and "
+          f"{sweeps[512]:.3f} s with the read-back), 16^2 on the byte stencil in torch ops on "
+          f"the card ({sweeps[16]:.3f} s) {card_tag}")
+
+    helpers = soak_helpers()
+    soak = helpers.control_plane_soak(REPO / "out" / "chip_smoke" / "soak25", dev,
+                                      turns=helpers.CARD_TURNS)
+    check(soak["done"] < helpers.CARD_TURNS, "phase 25: the soak's session was not ended by 'q'")
+    ticks = soak["ticks"]
+    print(f"phase 25 control-plane soak: the JAX package's seeded p/s key stream on a 64^2 "
+          f"run() on the card: {len(ticks)} AliveCellsCount ticks (turns "
+          f"{ticks[0].completed_turns}..{ticks[-1].completed_turns}) each equal to the history "
+          f"at its turn, the final board equal to the state at turns_completed "
+          f"{soak['done']} (of a budget of {helpers.CARD_TURNS}, ended by 'q') {card_tag}")
+    got = close_window("phase 25", ["whole_board"])
+    history_launches = whole_board.history_launches
+    check(history_launches == 3, f"phase 25: {history_launches} history launches, want 3")
+    check(whole_board.history_plain_calls == 0, "phase 25: the history's plain version ran")
+    print(f"phase 25 launches: {history_launches} history launches (64^2, 512^2, the soak's "
+          f"oracle) and {got['whole_board']} step launches of K1 (the soak's session), out of "
+          f"the main path's counts {card_tag}")
+
+    # one 10000-turn history launch against phase 5's 10000 one-turn launches
+    p512 = bitpack.pack(boards[512], 0, dev)
+    p64 = bitpack.pack(boards[64], 0, dev)
+    ms512 = cuda_ms(lambda: whole_board.history(p512, 10_000), reps=5)
+    ms64 = cuda_ms(lambda: whole_board.history(p64, 10_000), reps=5)
+    plain_ms = cuda_ms(lambda: whole_board.history_plain(p512, 10_000), reps=1, warmup=0)
+    seen = {}
+
+    def record(engine, state, turn):
+        seen[turn] = engine.retrieve(include_world=False).alive_count
+
+    engine = Engine(EngineConfig(max_chunk=1, chunk_hook=record, device=dev))
+    t0 = time.monotonic()
+    engine.run(Params(turns=10_000, image_width=512, image_height=512), boards[512])
+    per_turn_wall = time.monotonic() - t0
+    check(all(seen[t] == golden[512][t - 1] for t in range(1, 10_001)),
+          "phase 5's one-turn reading differs from check/alive")
+    rate = card_int32_rate()[0]
+
+    def bound(words, turns):
+        ops, nbytes = whole_board.history_cost(
+            words, turns, CONWAY.birth_mask, CONWAY.survive_mask, 4 * turns)
+        t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+    b512, by512 = bound(p512.numel(), 10_000)
+    b64, _ = bound(p64.numel(), 10_000)
+    print(f"timing history: one 10000-turn history launch {ms512:.4f} ms at 512^2 "
+          f"({ms512 * 1e3 / 10_000:.4f} us/turn; bound {b512:.5f} ms ({by512}), "
+          f"{ms512 / b512:.3g}x) and {ms64:.4f} ms at 64^2 (bound {b64:.5f} ms, "
+          f"{ms64 / b64:.3g}x), by CUDA events; phase 5's 10000 one-turn launches with a "
+          f"count read each take {per_turn_wall:.3f} s of wall ({per_turn_wall * 1e3 / ms512:.1f}x "
+          f"the one launch); the plain version {plain_ms:.1f} ms {card_tag}")
+    return {
+        "name": "whole_board_history",
+        "route": "cuda",
+        "source": "gol_distributed_final_tpu_torch/csrc/whole_board.cu",
+        "replaces": "gol_distributed_final_tpu/ops/bitpack.py:363",
+        "launches": history_launches,
+        "max_abs_err": err,
+        "ms": ms512,
+        "plain_ms": plain_ms,
+        "bound_ms": b512,
+        "bound_by": by512,
+        "library_ms": None,
+    }
+
+
+def session_soak_phase(dev, seconds: float, card_tag, open_window, close_window) -> None:
+    """Phase 26: the on-card session soak (tests/torch_soak.py), the JAX
+    package's one-minute timeline scaled to ``seconds``: a 4096^2
+    R-pentomino ``big_session`` under the 2-second ticker with a mid-run
+    snapshot, a pause and a checkpoint every 50,000 turns, ended by 'q',
+    then resumed from its last checkpoint to the same PGM."""
+    from gol_distributed_final_tpu_torch.ops import tiled
+
+    out_dir = REPO / "out" / "chip_smoke" / "soak26"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    open_window()
+    seen = soak_helpers().session_soak(out_dir, dev, size=4096, seconds=seconds)
+    got = close_window("phase 26", ["tiled"])
+    check(tiled.plain_calls == 0, "phase 26: the tiled kernel's plain version ran")
+    print(f"phase 26 session soak: 4096^2 R-pentomino big_session for the JAX soak's timeline "
+          f"scaled to {seconds:g} s: {seen['turns']} turns in {seen['wall']:.2f} s of wall, "
+          f"{seen['ticks']} monotone ticks, one pause, the mid-run snapshot, the last "
+          f"checkpoint at turn {seen['checkpoint_turn']}, resumed from it "
+          f"({seen['turns'] - seen['checkpoint_turn']} turns) to the same PGM byte for byte, "
+          f"{seen['alive']} alive at the end; {got['tiled']} tiled launches (out of "
+          f"the main path's counts); big_session steps a BitPlane, auto_plane gives 4096^2 "
+          f"{seen['auto_plane']} {card_tag}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def alive_only() -> int:
+    """``--alive``: build the kernels and run phase 25 alone."""
+
+    def run(card_tag, open_window, close_window):
+        import torch
+
+        row = alive(torch.device("cuda"), card_tag, open_window, close_window)
+        print(json.dumps({"history": row}))
+
+    return phase_alone(run, ("whole_board", "tiled"))
+
+
+def soak_only(seconds: float) -> int:
+    """``--soak [SECONDS]``: build the kernels and run phase 26 alone."""
+
+    def run(card_tag, open_window, close_window):
+        import torch
+
+        session_soak_phase(torch.device("cuda"), seconds, card_tag, open_window, close_window)
+
+    return phase_alone(run, ("whole_board", "tiled"))
+
+
 def kernel_times(tree: str) -> int:
     """Time the kernels of the port in ``tree`` (a checkout's root) at the
     smoke's shapes, and print them as one JSON line: the parent-and-change
@@ -1940,9 +2186,7 @@ def main() -> int:
     card_tag = f"[{card}]"
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"CUDA {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    int32_rate = INT32_OPS_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
+    int32_rate, sms, max_sm_mhz = card_int32_rate()
     print(f"int32 rate for the bound: {INT32_OPS_PER_CLOCK_PER_SM} ops/clock/SM x "
           f"{sms} SMs x {max_sm_mhz:.0f} MHz = {int32_rate:.4g} ops/s; "
           f"memory {HBM_BYTES_PER_S:.3g} B/s")
@@ -3732,6 +3976,19 @@ def main() -> int:
     # flame, regress, an injected wrong board and the static analysis
     tools(dev, card_tag, open_window, close_window)
 
+    # 25 and 26: the per-turn alive history and the session soak, each in a
+    # window of its own whose launches stay out of the main path's counts
+    def side_window_close(label, expect):
+        got = {name: module.launches for name, module in counted.items()}
+        for name in expect:
+            check(got[name] > 0, f"{label}: the {name} kernel never launched")
+        check(not any(module.plain_calls for module in counted.values()),
+              f"{label}: a plain version ran on the card")
+        return got
+
+    history_row = alive(dev, card_tag, open_window, side_window_close)
+    session_soak_phase(dev, SOAK_SECONDS, card_tag, open_window, side_window_close)
+
     for name in counted:
         check(launches[name] > 0, f"{name} kernel never launched on the main path")
         check(plain[name] == 0, f"{name} plain version ran {plain[name]} times on the card")
@@ -4331,6 +4588,7 @@ def main() -> int:
           "block with its bands, dirty grid and digest sums (20b's batch, device time); "
           "library_ms "
           "null: no single PyTorch call computes a life-like turn")
+    print(json.dumps({"history": history_row}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4355,6 +4613,10 @@ if __name__ == "__main__":
         sys.exit(observability_only())
     if sys.argv[1:2] == ["--tools"]:
         sys.exit(tools_only())
+    if sys.argv[1:2] == ["--alive"]:
+        sys.exit(alive_only())
+    if sys.argv[1:2] == ["--soak"]:
+        sys.exit(soak_only(float(sys.argv[2]) if len(sys.argv) > 2 else SOAK_SECONDS))
     if sys.argv[1:2] == ["--sparse-times"]:
         sys.exit(sparse_times(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else sys.argv[2]))
     sys.exit(main())

@@ -144,9 +144,11 @@ __device__ __forceinline__ uint32_t gol_finish(const Rule& rule, GolLineSum a, G
 // and `p` may point into the same board: they are only read. The words
 // before the last read the next line at a fixed step, so the loop holds no
 // select and, where `step` is a constant, its unrolled loads take
-// immediate offsets.
-template <class Rule>
-__device__ __forceinline__ void gol_walk(const uint32_t* __restrict__ m,
+// immediate offsets. With COUNT the walk also returns the popcount of the
+// words it wrote (K1's history mode); without it, 0, and the walk is the
+// same instructions as before.
+template <bool COUNT = false, class Rule>
+__device__ __forceinline__ int gol_walk(const uint32_t* __restrict__ m,
                                          const uint32_t* __restrict__ c,
                                          const uint32_t* __restrict__ p,
                                          uint32_t* __restrict__ out,
@@ -159,10 +161,13 @@ __device__ __forceinline__ void gol_walk(const uint32_t* __restrict__ m,
     const uint32_t* wc = c + off;
     const uint32_t* wp = p + off;
     uint32_t* wo = out + off;
+    int pop = 0;
     for (int s = 1; s < len; ++s) {
         const uint32_t next_mid = wc[step];
         const GolLineSum n = gol_line_sum(wm[step], next_mid, wp[step]);
-        *wo = gol_finish(rule, a, b, n, mid);
+        const uint32_t word = gol_finish(rule, a, b, n, mid);
+        *wo = word;
+        if constexpr (COUNT) pop += __popc(word);
         a = b;
         b = n;
         mid = next_mid;
@@ -172,5 +177,8 @@ __device__ __forceinline__ void gol_walk(const uint32_t* __restrict__ m,
         wo += step;
     }
     const GolLineSum n = gol_line_sum(m[last_next_off], c[last_next_off], p[last_next_off]);
-    *wo = gol_finish(rule, a, b, n, mid);
+    const uint32_t word = gol_finish(rule, a, b, n, mid);
+    *wo = word;
+    if constexpr (COUNT) pop += __popc(word);
+    return pop;
 }

@@ -1,6 +1,7 @@
 // The whole-board bitboard kernel: n turns of any B/S rule on packed boards,
 // each held in one thread block's shared memory, plus each board's row
-// popcounts, in one launch. The grid runs over a batch of B independent
+// popcounts, or its alive count after every turn (history mode, below), in
+// one launch. The grid runs over a batch of B independent
 // boards (universes); a single board is the batch of one.
 //
 // Replaces two Pallas kernels of the JAX package:
@@ -46,6 +47,20 @@
 // on the H100 chose the quarter (shorter runs, for a block of the SM's full
 // share, were slower at 1000 x 128^2 and at one 512^2 board, and no faster
 // at 256 x 128^2); PERF.md's kernel table has the times (chip_smoke.py).
+//
+// History mode (the port of ops/bitpack.py:363 alive_history, an XLA
+// lax.scan of bit_step plus a popcount in the JAX package): the same launch
+// also writes int32 turn_counts[b][t], board b's alive count after turn
+// t + 1, for t < n, keeping the board on chip for all n turns. The block
+// zeroes its counts before its first barrier; then each thread adds up
+// __popc of the words its walk writes, a warp reduces that
+// (__reduce_add_sync), and lane 0 adds the warp's sum into the turn's count
+// with one atomicAdd to device memory, which nothing waits on. So the turn
+// keeps its one __syncthreads and the mode needs no shared memory of its
+// own: a board under the gate is under it in both modes. A board under the
+// gate holds under a million cells, so int32 sums cannot overflow. The mode
+// is a template parameter chosen by a non-null turn_counts: in the launches
+// without it the counts fold away at compile time.
 //
 // The gate, per board: both copies must fit the block's opt-in shared
 // memory (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 B on an H100),
@@ -103,17 +118,21 @@ __device__ __forceinline__ Run make_run(int item, int rows, int cols, int run_le
     return w;
 }
 
-template <int WORD_AXIS, class Rule>
+template <int WORD_AXIS, class Rule, bool HISTORY>
 __global__ void __launch_bounds__(kMaxThreads)
 whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                   int32_t* __restrict__ row_counts, int rows, int cols, int n,
-                   int run_len, int runs, Rule rule) {
+                   int32_t* __restrict__ row_counts, int32_t* __restrict__ turn_counts,
+                   int rows, int cols, int n, int run_len, int runs, Rule rule) {
     extern __shared__ uint32_t smem[];
     const int total = rows * cols;
     // this block's board: the batch strides are whole boards and row vectors
     in += static_cast<size_t>(blockIdx.x) * total;
     out += static_cast<size_t>(blockIdx.x) * total;
     if (row_counts != nullptr) row_counts += static_cast<size_t>(blockIdx.x) * rows;
+    if constexpr (HISTORY) {
+        turn_counts += static_cast<size_t>(blockIdx.x) * n;
+        for (int t = threadIdx.x; t < n; t += blockDim.x) turn_counts[t] = 0;
+    }
     uint32_t* cur = smem;
     uint32_t* nxt = smem + total;
     for (int i = threadIdx.x; i < total; i += blockDim.x) cur[i] = in[i];
@@ -124,17 +143,25 @@ whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     const Run own = make_run<WORD_AXIS>(tid, rows, cols, run_len, runs);
     __syncthreads();
 
+    const int lane = threadIdx.x & 31;
     for (int t = 0; t < n; ++t) {
+        int pop = 0;
         if (tid < items) {
-            gol_walk(cur + own.m, cur + own.c, cur + own.p, nxt + own.c, own.prev_off,
-                     own.off, ostride, own.len, own.last_next_off, rule);
+            pop += gol_walk<HISTORY>(cur + own.m, cur + own.c, cur + own.p, nxt + own.c,
+                                     own.prev_off, own.off, ostride, own.len,
+                                     own.last_next_off, rule);
         }
         // more runs than threads only where a board's packed axis is wider
         // than the largest block (> 1024 words)
         for (int item = tid + blockDim.x; item < items; item += blockDim.x) {
             const Run w = make_run<WORD_AXIS>(item, rows, cols, run_len, runs);
-            gol_walk(cur + w.m, cur + w.c, cur + w.p, nxt + w.c, w.prev_off, w.off,
-                     ostride, w.len, w.last_next_off, rule);
+            pop += gol_walk<HISTORY>(cur + w.m, cur + w.c, cur + w.p, nxt + w.c, w.prev_off,
+                                     w.off, ostride, w.len, w.last_next_off, rule);
+        }
+        if constexpr (HISTORY) {
+            // blocks are whole warps, so every lane takes part
+            pop = __reduce_add_sync(0xffffffffu, pop);
+            if (lane == 0 && pop != 0) atomicAdd(turn_counts + t, pop);
         }
         __syncthreads();
         uint32_t* tmp = cur;
@@ -145,7 +172,6 @@ whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     for (int i = threadIdx.x; i < total; i += blockDim.x) out[i] = cur[i];
     if (row_counts == nullptr) return;
     // one warp per row: strided __popc, then a shuffle reduction
-    const int lane = threadIdx.x & 31;
     const int warps = blockDim.x >> 5;
     for (int r = threadIdx.x >> 5; r < rows; r += warps) {
         int sum = 0;
@@ -201,9 +227,9 @@ Plan plan(int P, int Q, int batch, int sms, int sm_threads, int sm_smem, size_t 
     return {run_len, runs, threads};
 }
 
-template <int WORD_AXIS, class Rule>
-int launch(const void* in, void* out, void* row_counts, int batch, int rows, int cols,
-           int n, Rule rule, cudaStream_t stream) {
+template <int WORD_AXIS, bool HISTORY, class Rule>
+int launch(const void* in, void* out, void* row_counts, void* turn_counts, int batch,
+           int rows, int cols, int n, Rule rule, cudaStream_t stream) {
     static std::atomic<bool> opted[kMaxDevices];
     const size_t smem = 2 * static_cast<size_t>(rows) * cols * sizeof(uint32_t);
     int sms = 0, sm_threads = 0, sm_smem = 0;
@@ -212,11 +238,12 @@ int launch(const void* in, void* out, void* row_counts, int batch, int rows, int
     const int P = WORD_AXIS == 0 ? rows : cols;
     const int Q = WORD_AXIS == 0 ? cols : rows;
     const Plan p = plan(P, Q, batch, sms, sm_threads, sm_smem, smem);
-    err = smem_opt_in_once(whole_board_kernel<WORD_AXIS, Rule>, opted);
+    err = smem_opt_in_once(whole_board_kernel<WORD_AXIS, Rule, HISTORY>, opted);
     if (err != cudaSuccess) return static_cast<int>(err);
-    whole_board_kernel<WORD_AXIS, Rule><<<batch, p.threads, smem, stream>>>(
+    whole_board_kernel<WORD_AXIS, Rule, HISTORY><<<batch, p.threads, smem, stream>>>(
         static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-        static_cast<int32_t*>(row_counts), rows, cols, n, p.run_len, p.runs, rule);
+        static_cast<int32_t*>(row_counts), static_cast<int32_t*>(turn_counts), rows, cols,
+        n, p.run_len, p.runs, rule);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,8 +267,25 @@ int gol_whole_board_step(const void* in, void* out, void* row_counts, int batch,
                          unsigned live_only, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
-        if (word_axis == 0) return launch<0>(in, out, row_counts, batch, rows, cols, n, rule, s);
-        return launch<1>(in, out, row_counts, batch, rows, cols, n, rule, s);
+        if (word_axis == 0) {
+            return launch<0, false>(in, out, row_counts, nullptr, batch, rows, cols, n, rule, s);
+        }
+        return launch<1, false>(in, out, row_counts, nullptr, batch, rows, cols, n, rule, s);
+    });
+}
+
+// The history mode: n turns of each of the `batch` boards of `in` into
+// `out`, and each board's alive count after every turn 1..n into
+// int32[batch, n] `turn_counts`. Returns as gol_whole_board_step.
+int gol_whole_board_history(const void* in, void* out, void* turn_counts, int batch,
+                            int rows, int cols, int word_axis, int n, unsigned common,
+                            unsigned dead_only, unsigned live_only, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
+        if (word_axis == 0) {
+            return launch<0, true>(in, out, nullptr, turn_counts, batch, rows, cols, n, rule, s);
+        }
+        return launch<1, true>(in, out, nullptr, turn_counts, batch, rows, cols, n, rule, s);
     });
 }
 

@@ -9,6 +9,7 @@ neighbour count ``n``). The masks are what every step in ``ops/`` takes;
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 
 
@@ -47,6 +48,35 @@ class LifeRule:
         birth = "".join(str(i) for i in range(9) if self.birth_mask >> i & 1)
         survive = "".join(str(i) for i in range(9) if self.survive_mask >> i & 1)
         return f"B{birth}/S{survive}"
+
+    # ops.stencil is imported in the methods: importing the models loads
+    # no torch op module
+
+    def step(self, board):
+        """One turn of the byte stencil under this rule, on the board's
+        device."""
+        from ..ops import stencil
+
+        return stencil.step(
+            board, birth_mask=self.birth_mask, survive_mask=self.survive_mask
+        )
+
+    def step_n(self, board, n: int):
+        """``n`` turns of the byte stencil under this rule."""
+        from ..ops import stencil
+
+        return stencil.step_n(
+            board, n, birth_mask=self.birth_mask, survive_mask=self.survive_mask
+        )
+
+    def step_fn(self):
+        """A plain ``board -> board`` function with the masks baked in:
+        ``stencil.step`` under this rule."""
+        from ..ops import stencil
+
+        return functools.partial(
+            stencil.step, birth_mask=self.birth_mask, survive_mask=self.survive_mask
+        )
 
 
 CONWAY = LifeRule.from_rulestring("B3/S23", name="conway")

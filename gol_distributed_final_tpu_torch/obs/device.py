@@ -60,6 +60,8 @@ reference call it replaces:
     fused.strip             W, ops/strip_steps.py
     halo.bit / halo.byte    a mesh block's step (parallel/)
     bitpack.xla_step        the torch-op bitboard (ops/bitpack.py)
+    bitpack.alive_history   K1's history mode, ops/whole_board.py::history
+                            (the JAX function is an XLA scan with no site)
 
 The sparse kernel (ops/sparse_tiles.py) has no site, as the JAX package
 meters that plane by its tiles only.

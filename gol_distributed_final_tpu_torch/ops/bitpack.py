@@ -338,6 +338,46 @@ def alive_count_packed_batch(packed: torch.Tensor) -> np.ndarray:
     return pc.sum(axis=1, dtype=np.int64)
 
 
+def turn_counts(step, packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The alive count of a bitboard after each of n ``step(packed)``
+    turns, as ``int32[n]`` on its device: the popcounts sum in int64 on the
+    device and nothing is read back."""
+    counts = []
+    for _ in range(int(n)):
+        packed = step(packed)
+        counts.append(popcount(packed).sum())
+    if not counts:
+        return torch.zeros(0, dtype=torch.int32, device=packed.device)
+    return torch.stack(counts).to(torch.int32)
+
+
+def alive_history(
+    packed: torch.Tensor,
+    n: int,
+    word_axis: int = 0,
+    birth_mask: int = CONWAY_BIRTH_MASK,
+    survive_mask: int = CONWAY_SURVIVE_MASK,
+) -> np.ndarray:
+    """The alive count after each of turns 1..n as ``np.int32[n]``, with
+    one read-back: the JAX package's function of this name (a ``lax.scan``
+    of ``bit_step`` and a popcount). Under the whole-board gate it is one
+    launch of that kernel's history mode (ops/whole_board.py::history).
+    Past it, one tiled launch a turn (ops/tiled.py), each turn's popcount
+    summed in int64 into a tensor on the board's device. A CPU board takes
+    the plain versions of both by the same gate."""
+    from . import tiled, whole_board
+
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"turn count must be >= 0, got {n}")
+    if whole_board.fits(tuple(packed.shape), packed.device):
+        counts = whole_board.history(packed, n, word_axis, birth_mask, survive_mask)
+    else:
+        counts = turn_counts(
+            lambda p: tiled.step_n(p, 1, word_axis, birth_mask, survive_mask), packed, n)
+    return counts.cpu().numpy()
+
+
 def ops_per_word(birth_mask: int, survive_mask: int) -> int:
     """The int32 instructions ``bit_step``'s chain comes to on a Hopper SM
     for one word and one turn under this rule, each step merged as far as

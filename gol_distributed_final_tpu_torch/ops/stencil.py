@@ -125,3 +125,26 @@ def step_n_batch(
     if boards.dim() != 3:
         raise ValueError(f"batch boards must be [B, H, W], got {tuple(boards.shape)}")
     return step_n(boards, n, birth_mask=birth_mask, survive_mask=survive_mask)
+
+
+def alive_history(
+    board: torch.Tensor,
+    n: int,
+    *,
+    birth_mask: int = CONWAY_BIRTH_MASK,
+    survive_mask: int = CONWAY_SURVIVE_MASK,
+) -> np.ndarray:
+    """The alive count after each of turns 1..n as ``np.int32[n]`` on the
+    byte stencil, counted on the board's device and read back once: the
+    sibling of ``bitpack.alive_history`` for boards whose packed axis does
+    not divide by 32 (the 16x16 fixture family). The JAX package runs it
+    through XLA, and such boards are far too small to need a kernel.
+    Padding the torus out to a packable size would change the evolution."""
+    board = as_board(board)
+    counts = []
+    for _ in range(int(n)):
+        board = step(board, birth_mask=birth_mask, survive_mask=survive_mask)
+        counts.append((board != 0).sum())
+    if not counts:
+        return np.zeros(0, np.int32)
+    return torch.stack(counts).to(torch.int32).cpu().numpy()

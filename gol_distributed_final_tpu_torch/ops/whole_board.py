@@ -22,6 +22,13 @@ tiled kernel (ops/tiled.py); the planes route, this module only refuses.
 ``step_n`` takes the plain version (``bit_step_n`` plus ``row_popcounts``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
 raises.
+
+``history`` is the kernel's history mode: the alive count after every
+turn 1..n in one launch that keeps the board on chip (the port of the
+JAX package's ``ops/bitpack.py:363`` ``alive_history``, an XLA scan). It
+is routed the same way, with its plain version ``history_plain``, and
+counted apart (``history_launches``) under its own telemetry site, so
+the step launches' counts do not move.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import torch
 
 from ..obs import device as _device
 from . import _build
-from .bitpack import bit_launch_cost, bit_step_n, row_popcounts, rule_masks
+from .bitpack import (
+    bit_launch_cost, bit_step, bit_step_n, row_popcounts, rule_masks, turn_counts,
+)
 from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 
 #: cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100: the gate a CPU
@@ -44,9 +53,21 @@ H100_SMEM_OPTIN = 232_448
 launches = 0
 plain_calls = 0
 
+#: history-mode launches made by ``history``, and its plain versions
+history_launches = 0
+history_plain_calls = 0
+
+#: the telemetry site of the history launches: the JAX function they replace
+HISTORY_SITE = "bitpack.alive_history"
+
 _SIGNATURES = {
     "gol_max_smem_optin": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
     "gol_whole_board_step": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+    ],
+    "gol_whole_board_history": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
@@ -85,8 +106,8 @@ def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask, site) ->
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
-    launches = plain_calls = 0
+    global launches, plain_calls, history_launches, history_plain_calls
+    launches = plain_calls = history_launches = history_plain_calls = 0
 
 
 def smem_bytes(shape: tuple[int, int]) -> int:
@@ -184,3 +205,67 @@ def step_n(
            n, word_axis, birth_mask, survive_mask, site)
     launches += 1
     return (out, counts) if counted else out
+
+
+def history_plain(packed, n, word_axis=0, birth_mask=CONWAY_BIRTH_MASK,
+                  survive_mask=CONWAY_SURVIVE_MASK) -> torch.Tensor:
+    """The plain version of the history mode: ``bit_step`` and a popcount
+    a turn, the alive counts after turns 1..n as ``int32[n]`` on the
+    board's device."""
+    return turn_counts(
+        lambda p: bit_step(p, word_axis, birth_mask=birth_mask, survive_mask=survive_mask),
+        packed, n)
+
+
+def history(
+    packed: torch.Tensor,
+    n: int,
+    word_axis: int = 0,
+    birth_mask: int = CONWAY_BIRTH_MASK,
+    survive_mask: int = CONWAY_SURVIVE_MASK,
+) -> torch.Tensor:
+    """The alive count of an int32 bitboard ``[rows, cols]`` after each of
+    turns 1..n, as ``int32[n]`` on the board's device: one launch of the
+    kernel's history mode on the card (none for n = 0), the plain version
+    on the CPU. The input is never written."""
+    global history_launches, history_plain_calls
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"turn count must be >= 0, got {n}")
+    cost = history_cost(packed.numel(), n, birth_mask, survive_mask, 4 * n)
+    if packed.device.type == "cpu":
+        history_plain_calls += 1
+        started = _device.begin(packed.device)
+        counts = history_plain(packed, n, word_axis, birth_mask, survive_mask)
+        if started is not None:
+            _device.end(HISTORY_SITE, packed.device, started, *cost)
+        return counts
+    check_launchable(packed, 2, word_axis, "whole-board history kernel")
+    counts = torch.empty(n, dtype=torch.int32, device=packed.device)
+    if n == 0:
+        return counts
+    out = torch.empty_like(packed)
+    rows, cols = packed.shape
+    common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream()
+        started = _device.begin(packed.device, stream)
+        err = _lib().gol_whole_board_history(
+            packed.data_ptr(), out.data_ptr(), counts.data_ptr(), 1, rows, cols,
+            word_axis, n, common, dead_only, live_only, stream.cuda_stream,
+        )
+        _build.check(err, "whole-board history kernel launch")
+        if started is not None:
+            _device.end(HISTORY_SITE, packed.device, started, *cost)
+    history_launches += 1
+    return counts
+
+
+def history_cost(words: int, turns: int, birth_mask: int, survive_mask: int,
+                 extra_bytes: int = 0) -> tuple[float, float]:
+    """``(int32 operations, bytes)`` of the history mode's roofline bound:
+    ``bit_launch_cost``'s turns plus one ``__popc`` and one add a word a
+    turn, the board read once and written once plus ``extra_bytes`` (the
+    counts)."""
+    ops, nbytes = bit_launch_cost(words, turns, birth_mask, survive_mask, extra_bytes)
+    return ops + 2.0 * words * turns, nbytes

@@ -256,8 +256,15 @@ class RpcServer:
             )
 
     def stop(self) -> None:
-        """Close the listener (broker/broker.go:322, listener.Close)."""
+        """Close the listener (broker/broker.go:322, listener.Close). On
+        Linux a close alone leaves a thread blocked in ``accept`` holding
+        the listener, which then takes one more connection: the shutdown
+        wakes it first."""
         self._stopped.set()
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # never listened, or already shut
         try:
             self._sock.close()
         except OSError:

@@ -1277,3 +1277,124 @@ def test_canary_probe_on_a_card_broker(cuda_device, verb, size, module):
         prober.stop()
         service.shutdown()
         _obs_off()
+
+
+# -- the history mode (K1's alive count after every turn, one launch) ---------
+
+#: a packed board at K1's gate: 227 x 128 words = 232,448 B in two copies
+GATE_SHAPE = (227, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,word_axis", [
+    ((2, 64), 0), ((64, 2), 1), ((3, 128), 0), ((96, 4), 1), ((16, 512), 0), ((512, 16), 1),
+    ((1500, 4), 0), ((4, 1500), 1), (GATE_SHAPE, 0), (GATE_SHAPE, 1),
+])
+def test_history_kernel_matches_plain(cuda_device, shape, word_axis):
+    """64^2, 96x128 and 512^2 in both packings, a packed axis of more words
+    than a block has threads, and a board at the gate: every rule, one
+    history launch a call, equal to ``history_plain``; the step launches'
+    count does not move."""
+    assert whole_board.smem_bytes(GATE_SHAPE) == whole_board.smem_limit(cuda_device)
+    packed = _words(shape, word_axis, cuda_device)
+    before, steps = whole_board.history_launches, whole_board.launches
+    for rule in ALL_RULES:
+        for n in (1, 300):
+            got = whole_board.history(packed, n, word_axis, rule.birth_mask, rule.survive_mask)
+            want = whole_board.history_plain(packed, n, word_axis, rule.birth_mask,
+                                             rule.survive_mask)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), (rule.name, n)
+    assert whole_board.history_launches == before + 2 * len(ALL_RULES)
+    assert whole_board.launches == steps
+
+
+@pytest.mark.cuda
+def test_history_kernel_over_a_batch(cuda_device):
+    """The history mode's C entry point over a batch, one block a
+    universe: ``[B, n]`` counts, each row a universe's plain history."""
+    import ctypes
+
+    packed = _words((5, 4, 128), 9, cuda_device)
+    n = 50
+    out = torch.empty_like(packed)
+    counts = torch.full((5, n), -1, dtype=torch.int32, device=cuda_device)
+    common, dead_only, live_only = bitpack.rule_masks(life.HIGHLIFE.birth_mask,
+                                                      life.HIGHLIFE.survive_mask)
+    err = whole_board._lib().gol_whole_board_history(
+        packed.data_ptr(), out.data_ptr(), counts.data_ptr(), 5, 4, 128, 0, n,
+        common, dead_only, live_only, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    torch.cuda.synchronize()
+    for b in range(5):
+        want = whole_board.history_plain(packed[b], n, 0, life.HIGHLIFE.birth_mask,
+                                         life.HIGHLIFE.survive_mask)
+        assert torch.equal(counts[b], want)
+        assert torch.equal(out[b], bitpack.bit_step_n(packed[b], n, 0, life.HIGHLIFE.birth_mask,
+                                                      life.HIGHLIFE.survive_mask))
+
+
+@pytest.mark.cuda
+def test_alive_history_past_the_gate_equals_plain(cuda_device):
+    """1024^2 is past K1's gate: one tiled launch a turn, the counts
+    summed on the card and read back once, equal to the plain history."""
+    rng = np.random.default_rng(14)
+    board = np.where(rng.random((1024, 1024)) < 0.3, 255, 0).astype(np.uint8)
+    packed = bitpack.pack(board, 0, cuda_device)
+    assert not whole_board.fits(tuple(packed.shape), cuda_device)
+    before = (tiled.launches, whole_board.history_launches)
+    got = bitpack.alive_history(packed, 200)
+    assert (tiled.launches - before[0], whole_board.history_launches - before[1]) == (200, 0)
+    want = whole_board.history_plain(packed, 200).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [16, 64, 512])
+def test_golden_sweep_through_alive_history(cuda_device, size):
+    """Every turn 1..10000 of check/alive: 64^2 and 512^2 in ONE history
+    launch each, 16^2 on the byte stencil in torch ops on the card."""
+    from gol_distributed_final_tpu_torch.ops import stencil
+
+    with open(REPO_ROOT / "check" / "alive" / f"{size}x{size}.csv") as f:
+        golden = {int(r["completed_turns"]): int(r["alive_cells"]) for r in csv.DictReader(f)}
+    want = np.array([golden[t] for t in range(1, 10_001)], np.int32)
+    board = read_pgm(REPO_ROOT / "images" / f"{size}x{size}.pgm")
+    before = whole_board.history_launches
+    if size % 32:
+        got = stencil.alive_history(torch.from_numpy(board.copy()).to(cuda_device), 10_000)
+        assert whole_board.history_launches == before
+    else:
+        got = bitpack.alive_history(bitpack.pack(board, 0, cuda_device), 10_000)
+        assert whole_board.history_launches == before + 1
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_control_plane_soak_on_the_card(cuda_device, tmp_path):
+    """The JAX package's control-plane soak on the card (tests/
+    torch_soak.py): the session on K1, the oracle one history launch."""
+    from torch_soak import CARD_TURNS, control_plane_soak
+
+    before = whole_board.history_launches
+    seen = control_plane_soak(tmp_path / "out", "cuda", turns=CARD_TURNS)
+    assert whole_board.history_launches == before + 1
+    assert 0 < seen["done"] < CARD_TURNS, "'q' ends the card's session"
+
+
+@pytest.mark.cuda
+def test_session_soak_one_minute(cuda_device, tmp_path):
+    """The counterpart of tests_tpu/test_session_soak_tpu.py: a one-minute
+    4096^2 ``big_session`` of the R-pentomino under the 2-second ticker, a
+    mid-run 's', a 'p'/'p' pause and a checkpoint every 50,000 turns, ended
+    by 'q', with that test's timeline, sizes and assertions; then the run
+    resumed from its last checkpoint writes the same PGM. The engine keeps
+    its own chunk schedule (the JAX test's pinned 4096-turn chunks avoided
+    Mosaic recompiles; the port compiles nothing at run time)."""
+    from torch_soak import session_soak
+
+    seen = session_soak(tmp_path, "cuda", size=4096, seconds=60.0, checkpoint_every=50_000)
+    print(f"session soak: {seen}")
+    # big_session steps a BitPlane (the tiled kernel at 4096^2); the
+    # engine's own route for this board would be the sparse plane
+    assert seen["auto_plane"] == "SparseBitPlane"

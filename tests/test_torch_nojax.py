@@ -264,9 +264,13 @@ def _port_sources():
                 *(f"obs/{m}.py" for m in ("canary", "loadgen", "doctor", "watch", "fleet",
                                           "history", "regress", "flame", "lint")),
                 *(f"analysis/{m}.py" for m in ("__init__", "__main__", "core", "skew", "locks",
-                                               "lockorder", "hygiene", "lints"))):
+                                               "lockorder", "hygiene", "lints")),
+                "ops/whole_board.py", "ops/bitpack.py", "ops/stencil.py", "models/life.py"):
         assert PORT / new in files
-    return files + [REPO_ROOT / "chip_smoke.py"]
+    # what the card's host runs beside the package: the smoke, the card's
+    # tests and the soaks they share with the CPU tests
+    return files + [REPO_ROOT / "chip_smoke.py", REPO_ROOT / "tests" / "test_torch_cuda.py",
+                    REPO_ROOT / "tests" / "torch_soak.py"]
 
 
 def test_native_sources_name_no_jax_or_the_jax_package():

@@ -816,3 +816,19 @@ def test_broker_cli_ckpt_keep_falls_back_past_a_corrupt_newest(tmp_path):
         proc.stop()
     assert result.turns_completed == 100
     assert (tmp_path / "out" / "64x64x100.pgm").read_bytes() == GOLDEN_64_100.read_bytes()
+
+
+def test_a_stopped_server_ends_its_accept_thread_and_refuses_connections():
+    """``RpcServer.stop`` wakes the thread blocked in ``accept``: after it
+    the thread ends and the port takes no connection, so no stopped
+    broker or worker lingers in the process that ran it."""
+    from gol_distributed_final_tpu_torch.rpc.server import RpcServer
+
+    server = RpcServer("127.0.0.1", 0)
+    server.serve_background()
+    port = server._sock.getsockname()[1]
+    server.stop()
+    server._accept_thread.join(timeout=10)
+    assert not server._accept_thread.is_alive()
+    with pytest.raises(OSError):
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()
