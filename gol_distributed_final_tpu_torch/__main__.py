@@ -245,7 +245,7 @@ def main(argv=None) -> int:
             # the remote path (like the reference's distributed mode) cannot
             run(params, events, keypresses, broker=broker, rule=rule, device=device,
                 resume_from=resume, emit_flips=not args.noVis and broker is None,
-                report=args.report)
+                report=args.report, trace_export=args.trace)
     except BaseException as exc:
         if args.profile is not None:
             from .obs import profiler as _profiler

@@ -263,6 +263,29 @@ class _Ticker:
                 self.paused = False
 
 
+def _export_trace(params, out_dir, broker) -> None:
+    """Write the session's Chrome trace: this process's spans and whatever
+    the broker's Status verb ships back (its own, and a workers-backend
+    broker's workers'). A failed export must not fail the session."""
+    try:
+        spans = _tracing.tracer().snapshot()
+        status_fn = getattr(broker, "status", None)
+        if callable(status_fn):
+            payload = status_fn()
+            spans.extend(payload.get("trace_spans") or [])
+        # -timeline: counter tracks on the same timeline as the spans
+        from ..obs import timeline as _timeline
+
+        sampler = _timeline.sampler()
+        counters = sampler.chrome_counter_samples() if sampler else ()
+        path = _tracing.write_chrome_trace(
+            _tracing.trace_path(params, out_dir), spans, counters
+        )
+        print(f"chrome trace written to {path}")
+    except Exception as exc:
+        print(f"trace export failed: {exc}")
+
+
 def run(
     params,
     events: "queue.Queue | None" = None,
@@ -278,6 +301,7 @@ def run(
     device=None,
     resume_from=None,
     report: bool = False,
+    trace_export: bool = False,
 ) -> RunResult:
     """Run a full Game of Life session (gol.Run + distributor, gol/gol.go:12).
 
@@ -306,8 +330,15 @@ def run(
     the device inventory) to ``out_dir/report_<W>x<H>x<Turns>.json`` at
     ``FinalTurnComplete`` — the ``-report`` CLI flag. The registry must be
     enabled (``obs.metrics.enable()``; the flag does it) for the report to
-    carry timings; a report failure is printed, never fatal. With tracing
-    on (``-trace``) the session's Chrome trace is written beside it.
+    carry timings; a report failure is printed, never fatal.
+
+    ``trace_export`` writes the session's Chrome trace to
+    ``out_dir/trace_<W>x<H>x<Turns>.json`` at its end: this process's
+    spans and those a remote broker's ``Status`` ships back (the ``-trace``
+    CLI flag sets it and turns the tracer on). Recording needs only the
+    tracer on (``obs.tracing.enable()``): without ``trace_export`` the
+    session neither calls ``Status`` nor writes a file, and its spans stay
+    in the ring for whoever reads it.
     """
     initial_turn = 0
     ckpt_rule = None
@@ -393,32 +424,13 @@ def run(
         )
         # join the ticker BEFORE the closing sequence so no stray
         # AliveCellsCount can interleave after StateChange{Quitting}
+        stop_span = _tracing.start_span(_tracing.SPAN_CONTROLLER_TICKER_STOP)
         ticker.stop()
-        _emit(events, FinalTurnComplete(result.turns_completed, result.alive))
-        if _tracing.enabled():
-            # close the session span FIRST so it lands in the export, then
-            # write the Chrome trace: local spans and whatever the broker's
-            # Status verb ships back (its own, and a workers-backend
-            # broker's workers'). A failed export must not fail the session
-            _tracing.end_span(session_span)
-            session_span = None
-            try:
-                spans = _tracing.tracer().snapshot()
-                status_fn = getattr(broker, "status", None)
-                if callable(status_fn):
-                    payload = status_fn()
-                    spans.extend(payload.get("trace_spans") or [])
-                # -timeline: counter tracks on the same timeline as the spans
-                from ..obs import timeline as _timeline
-
-                sampler = _timeline.sampler()
-                counters = sampler.chrome_counter_samples() if sampler else ()
-                path = _tracing.write_chrome_trace(
-                    _tracing.trace_path(params, out_dir), spans, counters
-                )
-                print(f"chrome trace written to {path}")
-            except Exception as exc:
-                print(f"trace export failed: {exc}")
+        _tracing.end_span(stop_span)
+        cells_span = _tracing.start_span(_tracing.SPAN_CONTROLLER_FINAL_CELLS)
+        alive = result.alive
+        _tracing.end_span(cells_span)
+        _emit(events, FinalTurnComplete(result.turns_completed, alive))
         if report:
             # the run's attribution artifact; a failed dump must not fail
             # the session it describes
@@ -439,6 +451,11 @@ def run(
             events, ImageOutputComplete(result.turns_completed, params.output_filename)
         )
         _emit(events, StateChange(result.turns_completed, Quitting))
+        if trace_export and _tracing.enabled():
+            # close the session span FIRST so it lands in the export
+            _tracing.end_span(session_span)
+            session_span = None
+            _export_trace(params, out_dir, broker)
         return result
     finally:
         # None when already closed for the export above; ends the error

@@ -30,6 +30,15 @@ journal's run, chunk, early-exit and checkpoint records, the flight
 recorder's crash dump and a timeline tick. The dispatch wall of a growth
 chunk is the synchronised wall above, and the kernels' event pairs
 (obs/device.py) are folded in after each synchronisation the loop makes.
+With attribution on, a chunk's ``device_compute`` segment is device time:
+a timing event before its launches paired with the fence after them.
+
+The host phases of a run are spans (obs/tracing.py): ``engine.encode``
+(the host board to the device state), ``engine.chunk`` (a chunk's
+enqueue), ``engine.sync`` (the host blocked on the card: a growth chunk's
+synchronisation, a pipeline fence, the queued chunks before the final
+decode) and ``engine.decode`` (the device state back to the host board at
+the run's end).
 """
 
 from __future__ import annotations
@@ -62,6 +71,17 @@ from ..utils.cell import Cell
 # outputs are live on the device and a retrieve observes a state at most
 # ~depth dispatch-targets old
 _PIPELINE_DEPTH = 3
+
+
+def _cards(state) -> list:
+    """The CUDA devices that hold a plane's ``state``: a tensor, or a
+    state holding its board in ``packed`` (ops/sparse.py::SparseState),
+    whose blocks may sit on several cards (a mesh state); empty off the
+    card."""
+    board = getattr(state, "packed", state)
+    if not board.is_cuda:
+        return []
+    return getattr(board, "cuda_devices", [board.device])
 
 
 class _CrashRecords:
@@ -313,7 +333,9 @@ class Engine:
                 self._plane = self._choose_plane(
                     world.shape, step_n_fn, plane, emit_flips
                 )
+                encode_span = _tracing.start_span(_tracing.SPAN_ENGINE_ENCODE)
                 self._state = self._plane.encode(world)
+                _tracing.end_span(encode_span)
                 self._world_host = world
                 self._host_dirty = False
             self._turn = initial_turn
@@ -399,9 +421,18 @@ class Engine:
                                 n = params.turns - self._turn
 
                     growing = not emit_flips and not growth_done
+                    attribution = _metrics.enabled() and _perf.attribution_enabled()
+                    # on the card, the chunk's device time opens here and
+                    # closes at the fence below (obs/device.py)
+                    starts = None
+                    if attribution:
+                        cards = _cards(state)
+                        if cards:
+                            starts = _device.chunk_begin(cards)
                     t0 = time.monotonic()
-                    # per-chunk span (one flag check when -trace is off), and
-                    # the same name as a profiler range under -trace-device
+                    # per-chunk span (one flag check when -trace is off): the
+                    # enqueue, the wait being engine.sync's; the same name as
+                    # a profiler range under -trace-device
                     chunk_span = (
                         _tracing.start_span(_tracing.SPAN_ENGINE_CHUNK, turns=n)
                         if _tracing.enabled() else None
@@ -417,44 +448,49 @@ class Engine:
                             new_state, chunk_counts = active_plane.step_n_counted(state, n)
                         else:
                             new_state = active_plane.step_n(state, n)
-                    # a plane's state is a tensor or holds its board in
-                    # ``packed`` (ops/sparse.py::SparseState)
-                    board = getattr(new_state, "packed", new_state)
-                    if board.is_cuda:
-                        # a mesh state's blocks may sit on several cards
-                        cards = getattr(board, "cuda_devices", [board.device])
+                    if chunk_span is not None:
+                        _tracing.end_span(chunk_span, sync=growing)
+                    cards = _cards(new_state)
+                    if cards:
+                        fences = None
+                        if not growing or starts is not None:
+                            fences = []
+                            for card in cards:
+                                fences.append(torch.cuda.Event(enable_timing=starts is not None))
+                                fences[-1].record(torch.cuda.current_stream(card))
+                        if starts is not None:
+                            _device.chunk_end(starts, fences)
                         if growing:
                             # the wall below drives the doubling: it must
                             # cover the card's work, not the launch
+                            sync_span = _tracing.start_span(_tracing.SPAN_ENGINE_SYNC)
                             for card in cards:
                                 torch.cuda.synchronize(card)
+                            _tracing.end_span(sync_span)
                         else:
-                            fences = []
-                            for card in cards:
-                                fences.append(torch.cuda.Event())
-                                fences[-1].record(torch.cuda.current_stream(card))
                             inflight.append(fences)
                             if len(inflight) > _PIPELINE_DEPTH:
+                                sync_span = _tracing.start_span(_tracing.SPAN_ENGINE_SYNC)
                                 for fence in inflight.popleft():
                                     fence.synchronize()
+                                _tracing.end_span(sync_span)
                         if _metrics.enabled():
-                            # the launches the card has finished by now
+                            # the launches and chunks the card has finished
                             _device.resolve()
-                    if chunk_span is not None:
-                        _tracing.end_span(chunk_span, sync=growing)
                     elapsed = time.monotonic() - t0
-                    attribution = _metrics.enabled() and _perf.attribution_enabled()
                     if attribution:
                         # dispatch-wall decomposition (obs/perf.py): planning
                         # and lock time before the dispatch against the
                         # dispatch itself; the demux segment closes after the
-                        # commit below
+                        # commit below. On the card the dispatch is the
+                        # chunk's device time, folded in by resolve()
                         _ins.TURN_SEGMENT_SECONDS.labels("engine", "host_prep").observe(
                             max(0.0, t0 - t_iter0 - park_dt)
                         )
-                        _ins.TURN_SEGMENT_SECONDS.labels("engine", "device_compute").observe(
-                            elapsed
-                        )
+                        if not cards:
+                            _ins.TURN_SEGMENT_SECONDS.labels(
+                                "engine", "device_compute"
+                            ).observe(elapsed)
                     if _metrics.enabled() and not early:
                         # the chunk's wall spread over its turns, so the step
                         # histogram's count is the turn count; an early-exit
@@ -540,10 +576,23 @@ class Engine:
                         _tracing.end_span(ckpt_span, ok=err is None)
                         _ins.ENGINE_CHECKPOINT_SECONDS.observe(time.monotonic() - t_ckpt)
 
+                if inflight and self.config.final_world:
+                    # the decode below would wait for the queued chunks
+                    # anyway: wait here, so that the wait is engine.sync's
+                    # and engine.decode times the copy and the unpack
+                    sync_span = _tracing.start_span(_tracing.SPAN_ENGINE_SYNC)
+                    for fence in inflight[-1]:
+                        fence.synchronize()
+                    _tracing.end_span(sync_span)
                 with self._lock:
                     turns_done = self._turn
                     if self.config.final_world:
+                        decode_span = _tracing.start_span(_tracing.SPAN_ENGINE_DECODE)
                         self._sync_host()
+                        _tracing.end_span(decode_span)
+                        if _metrics.enabled():
+                            # the decode waited for the last chunks
+                            _device.resolve()
                         return RunResult(
                             turns_done, self._world_host, checkpoint_error=ckpt_error
                         )

@@ -21,6 +21,8 @@ import pathlib
 
 import numpy as np
 
+from ..obs import tracing as _tracing
+
 
 class PgmError(Exception):
     """Raised on malformed or mismatching PGM input (gol/io.go panics)."""
@@ -186,16 +188,24 @@ def read_board(params, images_dir="images") -> np.ndarray:
     """Load ``images/<W>x<H>.pgm`` per the filename convention
     (gol/distributor.go:144, gol/io.go:95)."""
     path = pathlib.Path(images_dir) / f"{params.input_filename}.pgm"
-    return read_pgm(
-        path,
-        expect_width=params.image_width,
-        expect_height=params.image_height,
-    )
+    span = _tracing.start_span(_tracing.SPAN_IO_PGM_READ)
+    try:
+        return read_pgm(
+            path,
+            expect_width=params.image_width,
+            expect_height=params.image_height,
+        )
+    finally:
+        _tracing.end_span(span)
 
 
 def write_board(board, filename: str, out_dir="out") -> pathlib.Path:
     """Write the board to ``out/<filename>.pgm`` (gol/io.go:42-48)."""
     path = pathlib.Path(out_dir) / f"{filename}.pgm"
-    write_pgm(path, board)
+    span = _tracing.start_span(_tracing.SPAN_IO_PGM_WRITE)
+    try:
+        write_pgm(path, board)
+    finally:
+        _tracing.end_span(span)
     print(f"File {filename} output done!")
     return path

@@ -28,6 +28,12 @@ this module answers what happens on the card:
   {device}``, ``..._peak_bytes``, ``..._bytes_limit``, the limit being the
   card's total memory, read once) plus a process-local high-water mark
   (``hbm_peak_observed``) that the RunReport publishes.
+* **How long did a chunk take on the card?** With attribution on
+  (obs/perf.py), the engine opens a chunk with ``chunk_begin`` (a
+  timing event a card, before its launches) and closes it with
+  ``chunk_end`` on the fence it records anyway after them.
+  ``gol_turn_segment_seconds{engine,device_compute}`` is that pair's
+  device time, folded in by ``resolve`` like a launch's.
 
 **Nothing here synchronises the card.** ``end`` appends the event pair to
 a bounded per-site list; ``resolve`` folds in (``elapsed_time``) only
@@ -99,6 +105,9 @@ _RESOLVE_LOCK = threading.Lock()
 # takes two from here instead of creating them (list append and pop are
 # atomic, so the wrappers' threads share the lists without the lock)
 _FREE_EVENTS: Dict[int, list] = {}
+# the engine's chunks (chunk_begin/chunk_end): [(start, stop) a card] in
+# launch order, under _DISPATCH_LOCK
+_CHUNKS: deque = deque()
 
 
 def _event(index: int):
@@ -186,16 +195,50 @@ def _note_many(site: str, folded: list) -> None:
         stats[3] += len(folded)
 
 
+def chunk_begin(devices) -> list:
+    """Start events, one a CUDA device of ``devices``, recorded on each
+    device's current stream before a chunk's launches."""
+    starts = []
+    for device in devices:
+        starts.append(torch.cuda.Event(enable_timing=True))
+        starts[-1].record(torch.cuda.current_stream(device))
+    return starts
+
+
+def chunk_end(starts: list, stops: list) -> None:
+    """Queue an engine chunk's pairs: ``stops`` are timing events recorded,
+    in ``starts``' device order, after its launches. ``resolve`` observes
+    the slowest device's time as the engine's ``device_compute`` once every
+    stop has completed; nothing waits for it."""
+    with _DISPATCH_LOCK:
+        _CHUNKS.append(list(zip(starts, stops)))
+
+
+def _resolve_chunks() -> None:
+    """Fold in the completed engine chunks, oldest first, stopping at the
+    first incomplete one; its caller holds ``_RESOLVE_LOCK``."""
+    folded = []
+    with _DISPATCH_LOCK:
+        while _CHUNKS and all(stop.query() for _, stop in _CHUNKS[0]):
+            folded.append(_CHUNKS.popleft())
+    for pairs in folded:
+        seconds = max(start.elapsed_time(stop) for start, stop in pairs) / 1e3
+        _ins.TURN_SEGMENT_SECONDS.labels("engine", "device_compute").observe(seconds)
+
+
 def resolve(site: Optional[str] = None) -> int:
     """Fold in every queued launch (of ``site``, or of every site) whose
     end event has completed, oldest first, stopping at a site's first
     incomplete one: ``query()`` only, never a wait. A stream runs in
     order, so once a site's newest end event has completed, every older
     pair on its stream has too and is folded without a query of its own.
+    The completed engine chunks (``chunk_end``) are folded in first.
     Returns the launches folded in. The engine calls it after the
     synchronisations it makes, and ``dispatch_stats`` (a Status poll, a
     report) before it reads."""
     done = 0
+    with _RESOLVE_LOCK:
+        _resolve_chunks()
     with _RESOLVE_LOCK, _DISPATCH_LOCK:
         sites = [site] if site is not None else list(_PENDING)
     for name in sites:
@@ -263,6 +306,7 @@ def reset_dispatch() -> None:
         _DISPATCH_STATS.clear()
         _PENDING.clear()
         _FREE_EVENTS.clear()
+        _CHUNKS.clear()
 
 
 # -- kernel builds ------------------------------------------------------------

@@ -71,6 +71,9 @@ def status_payload(
         payload["critical_path"] = cp
     if tracing.enabled():
         payload["trace_spans"] = tracing.tracer().snapshot()
+        # the spans the ring evicted: a reader of trace_spans can tell a
+        # whole window from one whose start is gone
+        payload["trace_dropped"] = tracing.tracer().dropped
     if flight.enabled():
         payload["flight"] = flight.recorder().snapshot()
     sampler = timeline.sampler()

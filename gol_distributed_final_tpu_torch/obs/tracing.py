@@ -21,6 +21,15 @@ SPANS with explicit start/end:
 * **Bounded.** Finished spans land in a ring (``deque(maxlen=...)``), so
   a million-turn run keeps the most recent window instead of growing
   without bound — the same posture as the flight recorder (obs/flight.py).
+  ``enable(capacity=...)`` sizes it, and ``Tracer.dropped`` counts the
+  spans it evicted, so a reader can tell a complete window from a cut one.
+* **On the profiler's clock.** A span's ``start_ns``/``end_ns`` are
+  ``time.time_ns()``: ns since the epoch, the clock of ``torch.profiler``'s
+  device records, so host spans and device kernels share one timeline.
+  ``ts_us``/``dur_us`` (the Chrome export's fields) derive from them.
+* **Collections are spans.** While the tracer is on, a ``gc.callbacks``
+  hook records each collection's pause as ``runtime.gc`` under the
+  collecting thread's innermost span; with it off no hook is registered.
 * **Perfetto-loadable.** ``write_chrome_trace`` renders any collection of
   span records (from any number of processes — the Status verb ships them
   across) as Chrome trace-event JSON: ``ph: "X"`` complete events with
@@ -39,9 +48,11 @@ host spans and the profiler's device tracks line up by name.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pathlib
+import random
 import threading
 import time
 from collections import deque
@@ -75,13 +86,45 @@ SPAN_ENGINE_PARK = span_name("engine.park")
 SPAN_ENGINE_CHECKPOINT = span_name("engine.checkpoint")
 SPAN_BROKER_TURN = span_name("broker.turn")
 SPAN_HALO_DISPATCH = span_name("halo.dispatch")
-SPAN_BENCH_STAGE = span_name("bench.stage")
+SPAN_IO_PGM_READ = span_name("io.pgm.read")
+SPAN_IO_PGM_WRITE = span_name("io.pgm.write")
+SPAN_CONTROLLER_FINAL_CELLS = span_name("controller.final_cells")
+SPAN_CONTROLLER_TICKER_STOP = span_name("controller.ticker_stop")
+SPAN_RPC_ENCODE = span_name("rpc.encode")
+SPAN_RPC_DECODE = span_name("rpc.decode")
+SPAN_ENGINE_ENCODE = span_name("engine.encode")
+SPAN_ENGINE_SYNC = span_name("engine.sync")
+SPAN_ENGINE_DECODE = span_name("engine.decode")
+SPAN_RUNTIME_GC = span_name("runtime.gc")
+
+#: the ring's size unless ``enable(capacity=...)`` says otherwise
+DEFAULT_CAPACITY = 4096
+
+#: the span clock: ns since the epoch, as ``torch.profiler``'s records
+now_ns = time.time_ns
+
+
+class _Process:
+    """What a span record needs of its process, read without a system call
+    a span: the pid, and a generator of ids seeded once from
+    ``os.urandom``; both are taken again in a forked child."""
+
+    def __init__(self):
+        self.refresh()
+
+    def refresh(self) -> None:
+        self.pid = os.getpid()
+        self.ids = random.Random(os.urandom(16))
+
+
+_PROCESS = _Process()
+os.register_at_fork(after_in_child=_PROCESS.refresh)
 
 
 def _new_id() -> str:
-    """A 64-bit random id as 16 hex chars (os.urandom: no seeding, safe
-    across fork, unique enough for per-run traces)."""
-    return os.urandom(8).hex()
+    """A 64-bit random id as 16 hex chars, unique enough for per-run
+    traces across processes (each seeds its own generator)."""
+    return f"{_PROCESS.ids.getrandbits(64):016x}"
 
 
 class Span:
@@ -90,7 +133,7 @@ class Span:
 
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id", "sampled",
-        "t0_wall", "t0_mono", "tid", "args",
+        "start_ns", "tid", "args",
     )
 
     def __init__(self, name, trace_id, span_id, parent_id, sampled, args):
@@ -99,8 +142,7 @@ class Span:
         self.span_id = span_id
         self.parent_id = parent_id
         self.sampled = sampled
-        self.t0_wall = time.time()
-        self.t0_mono = time.monotonic()  # durations come from monotonic
+        self.start_ns = now_ns()
         self.tid = threading.get_ident()
         self.args = args
 
@@ -122,15 +164,25 @@ class Tracer:
     pool thread), else the calling thread's innermost open span, else
     starts a new trace (root) — applying ``sample_rate`` once per trace,
     at the root; the decision propagates in the context.
+
+    ``dropped`` counts the finished spans the ring evicted since the last
+    ``reset``.
     """
 
-    def __init__(self, enabled: bool = False, capacity: int = 4096):
+    def __init__(self, enabled: bool = False, capacity: int = DEFAULT_CAPACITY):
         self.enabled = enabled
         self.sample_rate = 1.0
         self.process_name = ""  # role label for the Chrome process track
+        self.dropped = 0
         self._lock = threading.Lock()
         self._spans: deque = deque(maxlen=capacity)
         self._tls = threading.local()
+        # collections finished since the last commit: the gc hook appends
+        # (list.append is atomic) and never takes the lock, which the
+        # collecting thread may already hold; the ring's users drain it
+        self._gc_done: list = []
+        self._gc_t0 = 0
+        self._gc_hook = None
 
     # -- recording --------------------------------------------------------
 
@@ -139,6 +191,25 @@ class Tracer:
         if stack is None:
             stack = self._tls.stack = []
         return stack
+
+    def _lineage(self, parent_ctx: Optional[dict], stack: Optional[list]):
+        """``(trace_id, parent_id, sampled)`` of a new span: an explicit
+        ``parent_ctx``, else the innermost span of ``stack``, else a new
+        trace root (the one place sampling is decided)."""
+        if parent_ctx is None and stack:
+            parent = stack[-1]
+            return parent.trace_id, parent.span_id, parent.sampled
+        if parent_ctx:
+            return (
+                str(parent_ctx.get("trace_id") or _new_id()),
+                str(parent_ctx.get("span_id") or ""),
+                bool(parent_ctx.get("sampled", True)),
+            )
+        sampled = (
+            self.sample_rate >= 1.0
+            or int.from_bytes(os.urandom(2), "big") / 65536.0 < self.sample_rate
+        )
+        return _new_id(), "", sampled
 
     def start_span(
         self, name: str, parent_ctx: Optional[dict] = None, **args
@@ -149,22 +220,7 @@ class Tracer:
         if not self.enabled:
             return None
         stack = self._stack()
-        if parent_ctx is None and stack:
-            parent = stack[-1]
-            trace_id, parent_id, sampled = (
-                parent.trace_id, parent.span_id, parent.sampled,
-            )
-        elif parent_ctx:
-            trace_id = str(parent_ctx.get("trace_id") or _new_id())
-            parent_id = str(parent_ctx.get("span_id") or "")
-            sampled = bool(parent_ctx.get("sampled", True))
-        else:  # a new trace root: the one place sampling is decided
-            trace_id, parent_id = _new_id(), ""
-            sampled = (
-                self.sample_rate >= 1.0
-                or int.from_bytes(os.urandom(2), "big") / 65536.0
-                < self.sample_rate
-            )
+        trace_id, parent_id, sampled = self._lineage(parent_ctx, stack)
         span = Span(name, trace_id, _new_id(), parent_id, sampled, args)
         stack.append(span)
         if sampled:
@@ -177,6 +233,7 @@ class Tracer:
         None) and commit it to the ring if its trace is sampled."""
         if span is None:
             return
+        end_ns = now_ns()
         stack = getattr(self._tls, "stack", None)
         if stack and span in stack:
             # remove through the top so a missed inner end can't leave the
@@ -185,25 +242,59 @@ class Tracer:
                 pass
         if not span.sampled:
             return
-        dur_us = int((time.monotonic() - span.t0_mono) * 1e6)
         if more_args:
             span.args.update(more_args)
-        record = {
-            "name": span.name,
-            "trace_id": span.trace_id,
-            "span_id": span.span_id,
-            "parent_id": span.parent_id,
-            "pid": os.getpid(),
-            "tid": span.tid,
-            "role": self.process_name,
-            "ts_us": int(span.t0_wall * 1e6),
-            "dur_us": dur_us,
-            "args": span.args,
-        }
+        record = self._record(
+            span.name, span.trace_id, span.span_id, span.parent_id, span.tid,
+            span.start_ns, end_ns, span.args,
+        )
         with self._lock:
-            self._spans.append(record)
+            self._commit(record)
         _flight.record("span.close", span.name, trace_id=span.trace_id,
-                       span_id=span.span_id, dur_us=dur_us)
+                       span_id=span.span_id, dur_us=(end_ns - span.start_ns) // 1000)
+
+    def add_span(
+        self, name: str, start_ns: int, end_ns: int,
+        parent_ctx: Optional[dict] = None, **args,
+    ) -> None:
+        """Commit a span that has already ended, timed by the caller on
+        ``now_ns``: for work whose parent is known only once it is done
+        (a frame decoded before its call's context can be read). Parents
+        on ``parent_ctx``, else starts a trace; never on the thread's
+        stack. A no-op when the tracer is off."""
+        if not self.enabled:
+            return
+        trace_id, parent_id, sampled = self._lineage(parent_ctx, None)
+        if not sampled:
+            return
+        record = self._record(
+            name, trace_id, _new_id(), parent_id, threading.get_ident(),
+            start_ns, end_ns, args,
+        )
+        with self._lock:
+            self._commit(record)
+
+    def _record(self, name, trace_id, span_id, parent_id, tid, start_ns, end_ns,
+                args) -> tuple:
+        """A finished span as the ring holds it: a flat tuple of strings and
+        numbers, its arguments' keys and values in turn, which the garbage
+        collector stops tracking, so a full ring does not lengthen every
+        full collection of the process it measures. ``snapshot`` makes the
+        record dicts."""
+        return (name, trace_id, span_id, parent_id, _PROCESS.pid, tid, self.process_name,
+                start_ns, end_ns, *(x for item in args.items() for x in item))
+
+    def _commit(self, record: tuple) -> None:
+        """Append one record, and every collection finished since the
+        last commit, to the ring, counting what it evicts. The caller
+        holds ``_lock``."""
+        self._drain_gc()
+        self._append(record)
+
+    def _append(self, record: tuple) -> None:
+        if len(self._spans) == self._spans.maxlen:
+            self.dropped += 1
+        self._spans.append(record)
 
     @contextlib.contextmanager
     def span(self, name: str, parent_ctx: Optional[dict] = None, **args):
@@ -212,6 +303,56 @@ class Tracer:
             yield s
         finally:
             self.end_span(s)
+
+    # -- collections ------------------------------------------------------
+
+    def hook_gc(self, on: bool) -> None:
+        """Register (``on``) or remove this tracer's ``gc.callbacks`` hook."""
+        if on and self._gc_hook is None:
+            self._gc_hook = self._gc_callback
+            gc.callbacks.append(self._gc_hook)
+        elif not on and self._gc_hook is not None:
+            try:
+                gc.callbacks.remove(self._gc_hook)
+            except ValueError:  # pragma: no cover - an external clear
+                pass
+            self._gc_hook = None
+            self._gc_t0 = 0
+
+    def _gc_callback(self, phase: str, info: dict) -> None:
+        """A collection's start and stop. Runs inside the collection, on
+        whichever thread allocated: it takes no lock and touches neither
+        the ring nor the flight recorder, only a clock, the thread's stack
+        and an atomic list append."""
+        if phase == "start":
+            self._gc_t0 = now_ns()
+            return
+        start, self._gc_t0 = self._gc_t0, 0
+        if not start:
+            return
+        stack = getattr(self._tls, "stack", None)
+        self._gc_done.append((
+            start, now_ns(), stack[-1] if stack else None, threading.get_ident(),
+            info.get("generation"), info.get("collected"),
+        ))
+
+    def _drain_gc(self) -> None:
+        """Commit the finished collections, each under the span that was
+        innermost on its thread. The caller holds ``_lock``; a collection
+        set off in here only appends to the list this loop drains."""
+        done = self._gc_done
+        while done:
+            start, end, parent, tid, generation, collected = done.pop(0)
+            if parent is None:
+                trace_id, parent_id = _new_id(), ""
+            elif parent.sampled:
+                trace_id, parent_id = parent.trace_id, parent.span_id
+            else:
+                continue
+            self._append(self._record(
+                SPAN_RUNTIME_GC, trace_id, _new_id(), parent_id, tid, start, end,
+                {"generation": generation, "collected": collected},
+            ))
 
     # -- context ----------------------------------------------------------
 
@@ -226,17 +367,49 @@ class Tracer:
 
     # -- inspection -------------------------------------------------------
 
+    def set_capacity(self, capacity: int) -> None:
+        """A new, empty ring of ``capacity`` spans."""
+        if capacity < 1:
+            raise ValueError(f"span ring capacity must be >= 1, got {capacity}")
+        with self._lock:
+            self._spans = deque(maxlen=capacity)
+            self._gc_done.clear()
+            self.dropped = 0
+
     def snapshot(self, clear: bool = False) -> List[dict]:
         """Finished span records, oldest first (the Status payload form)."""
         with self._lock:
-            out = list(self._spans)
+            self._drain_gc()
+            held = list(self._spans)
             if clear:
                 self._spans.clear()
-        return out
+        return [_as_dict(r) for r in held]
 
     def reset(self) -> None:
         with self._lock:
             self._spans.clear()
+            self._gc_done.clear()
+            self.dropped = 0
+
+
+def _as_dict(r: tuple) -> dict:
+    """A ring entry (``Tracer._record``) as the record dict every reader
+    takes: ``ts_us``/``dur_us`` derive from ``start_ns``/``end_ns``."""
+    name, trace_id, span_id, parent_id, pid, tid, role, start_ns, end_ns = r[:9]
+    return {
+        "name": name,
+        "trace_id": trace_id,
+        "span_id": span_id,
+        "parent_id": parent_id,
+        "pid": pid,
+        "tid": tid,
+        "role": role,
+        "start_ns": start_ns,
+        "end_ns": end_ns,
+        "ts_us": start_ns // 1000,
+        "dur_us": (end_ns - start_ns) // 1000,
+        "args": dict(zip(r[9::2], r[10::2])),
+    }
 
 
 # -- the process-global default tracer ---------------------------------------
@@ -248,9 +421,16 @@ def tracer() -> Tracer:
     return _DEFAULT
 
 
-def enable(on: bool = True, sample_rate: float = 1.0) -> None:
+def enable(on: bool = True, sample_rate: float = 1.0,
+           capacity: Optional[int] = None) -> None:
+    """Turn span recording on or off; ``capacity`` gives the ring a new,
+    empty size. The ``runtime.gc`` hook is registered exactly while the
+    tracer is on."""
+    if capacity is not None:
+        _DEFAULT.set_capacity(capacity)
     _DEFAULT.sample_rate = sample_rate
     _DEFAULT.enabled = on
+    _DEFAULT.hook_gc(on)
 
 
 def enabled() -> bool:
@@ -270,6 +450,11 @@ def end_span(span, **more_args) -> None:
     _DEFAULT.end_span(span, **more_args)
 
 
+def add_span(name: str, start_ns: int, end_ns: int,
+             parent_ctx: Optional[dict] = None, **args) -> None:
+    _DEFAULT.add_span(name, start_ns, end_ns, parent_ctx=parent_ctx, **args)
+
+
 def span(name: str, parent_ctx: Optional[dict] = None, **args):
     return _DEFAULT.span(name, parent_ctx=parent_ctx, **args)
 
@@ -284,8 +469,8 @@ def current_ctx() -> Optional[dict]:
 def to_chrome_trace(spans: Iterable[dict], counters: Iterable[dict] = ()) -> dict:
     """Render span records (from any number of processes) as a Chrome
     trace-event JSON object Perfetto accepts: one ``ph: "X"`` complete
-    event per span (``ts``/``dur`` in microseconds — ``ts`` is wall-clock
-    so processes align; ``dur`` came from each process's monotonic clock),
+    event per span (``ts``/``dur`` in microseconds, both from the span's
+    ``time.time_ns()`` ends, so processes and the device trace align),
     plus ``process_name`` metadata so every process is a named track.
 
     Tracks are keyed by (role, pid), not pid alone: two processes on

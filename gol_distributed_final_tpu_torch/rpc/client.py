@@ -107,12 +107,21 @@ class RpcClient:
     def _read_loop(self, sock: socket.socket, closed: threading.Event) -> None:
         # broad catch: a rejected or corrupt reply frame must fail every
         # pending call, not silently kill this thread and hang them
+        began: list = []  # where a frame's body began, with the tracer on
         try:
             while True:
-                msg, nbytes = recv_frame_sized(sock)
+                began.clear()
+                msg, nbytes = recv_frame_sized(sock, began)
                 with self._pending_lock:
                     slot = self._pending.pop(msg["id"], None)
                 if slot is not None:
+                    if began and slot.get("ctx") is not None:
+                        # under the pending call's span: this thread's
+                        # own stack knows nothing of the call
+                        _tracing.add_span(
+                            _tracing.SPAN_RPC_DECODE, began[0], _tracing.now_ns(),
+                            parent_ctx=slot["ctx"], method=slot["method"],
+                        )
                     slot["reply"] = msg
                     slot["reply_bytes"] = nbytes
                     slot["event"].set()
@@ -256,6 +265,10 @@ class RpcClient:
             sock, closed = self._transport
         call_id = next(self._ids)
         slot = {"event": threading.Event(), "reply": None}
+        if _tracing.enabled():
+            # the reply's rpc.decode span parents on this call's span
+            slot["ctx"] = _tracing.current_ctx()
+            slot["method"] = method
         with self._pending_lock:
             self._pending[call_id] = slot
         # re-check after registering: if the reader died in between, it has
@@ -272,16 +285,23 @@ class RpcClient:
                 envelope = {"id": call_id, "method": method, "request": request, "oob": 1}
                 if _integrity.enabled():
                     envelope["ck"] = 1
-                # gol: allow(blocking-under-lock): deliberate — ONE
-                # writer at a time per stream is the framing contract
-                # (header+payload must not interleave), so the send
-                # happens under the lifetime write lock by design; a
-                # sender stuck in sendall is woken by close()/reconnect
-                # via socket.shutdown (see _maybe_reconnect and close)
-                sent = send_frame(
-                    sock, envelope, oob=self._peer_oob,
-                    checksum=self._peer_ck and _integrity.enabled(),
+                encode_span = (
+                    _tracing.start_span(_tracing.SPAN_RPC_ENCODE, method=method)
+                    if _tracing.enabled() else None
                 )
+                try:
+                    # gol: allow(blocking-under-lock): deliberate — ONE
+                    # writer at a time per stream is the framing contract
+                    # (header+payload must not interleave), so the send
+                    # happens under the lifetime write lock by design; a
+                    # sender stuck in sendall is woken by close()/reconnect
+                    # via socket.shutdown (see _maybe_reconnect and close)
+                    sent = send_frame(
+                        sock, envelope, oob=self._peer_oob,
+                        checksum=self._peer_ck and _integrity.enabled(),
+                    )
+                finally:
+                    _tracing.end_span(encode_span)
         except OSError as e:
             with self._pending_lock:
                 self._pending.pop(call_id, None)

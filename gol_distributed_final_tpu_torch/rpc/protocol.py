@@ -33,6 +33,7 @@ import numpy as np
 
 from ..obs import instruments as _ins
 from ..obs import metrics as _metrics
+from ..obs import tracing as _tracing
 from ..utils.cell import Cell
 from . import integrity as _integrity
 from .integrity import CK_WORD_SIZE
@@ -317,8 +318,11 @@ def _verify_crc(want: bytes, crc: int, what: str) -> None:
         raise
 
 
-def recv_frame_sized(sock):
-    """``(obj, frame_bytes)``."""
+def recv_frame_sized(sock, body_began: Optional[list] = None):
+    """``(obj, frame_bytes)``. With the tracer on, a ``body_began`` list
+    gets the span clock's reading (obs/tracing.py's ``now_ns``) once the
+    header has arrived: where the body's receive and unpickle, the
+    ``rpc.decode`` span, begin."""
     # one 12-byte first read: a checked frame's crc word rides right
     # behind the length word; for an unchecked frame the surplus is the
     # body's first bytes, consumed below
@@ -328,6 +332,8 @@ def recv_frame_sized(sock):
         if not chunk:
             raise ConnectionError("peer closed the connection")
         head += chunk
+    if body_began is not None and _tracing.enabled():
+        body_began.append(_tracing.now_ns())
     (word,) = _HEADER.unpack(head[:_HEADER.size])
     extra = head[_HEADER.size:]
     length = word & _LEN_MASK

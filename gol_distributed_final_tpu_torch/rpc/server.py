@@ -36,6 +36,20 @@ from .protocol import (
 _TRACEBACK_LIMIT = 2000
 
 
+def _decode_span(msg, t_body: int) -> None:
+    """Commit a request's ``rpc.decode`` span, timed from its body's first
+    byte: opened before the request's ``trace_ctx`` could be read, it
+    parents on that context (the caller's span) now that it can."""
+    envelope = msg if isinstance(msg, dict) else {}
+    ctx = getattr(envelope.get("request"), "trace_ctx", None)
+    method = envelope.get("method")
+    _tracing.add_span(
+        _tracing.SPAN_RPC_DECODE, t_body, _tracing.now_ns(),
+        parent_ctx=ctx if isinstance(ctx, dict) else None,
+        method=method[:64] if isinstance(method, str) else None,
+    )
+
+
 class RpcServer:
     """Binds loopback by default: the transport is pickle-based, so exposure
     beyond the local deployment must be an explicit operator choice
@@ -82,16 +96,20 @@ class RpcServer:
         # out-of-band / checked frames; an old client never advertises and
         # keeps getting plain frames (the skew contract, rpc/protocol.py)
         peer = {"oob": False, "ck": False}
+        began: list = []  # where a frame's body began, with the tracer on
         try:
             while True:
+                began.clear()
                 try:
-                    msg, nbytes = recv_frame_sized(conn)
+                    msg, nbytes = recv_frame_sized(conn, began)
                 except Exception:
                     # disconnect (ConnectionError/OSError), forbidden global
                     # (pickle.UnpicklingError), truncated pickle (EOFError),
                     # or any other malformed frame: drop the peer — nothing
                     # on this connection can be trusted
                     return
+                if began:
+                    _decode_span(msg, began[0])
                 threading.Thread(
                     target=self._dispatch,
                     args=(conn, write_lock, msg, nbytes, peer),
@@ -225,12 +243,19 @@ class RpcServer:
                 if _integrity.enabled():
                     reply["ck"] = 1
                 with write_lock:
-                    sent = send_frame(
-                        conn, reply, oob=bool(peer and peer["oob"]),
-                        checksum=bool(
-                            peer and peer["ck"] and _integrity.enabled()
-                        ),
+                    # under the dispatch span, closed by now
+                    encode_span = None if span is None else _tracing.start_span(
+                        _tracing.SPAN_RPC_ENCODE, parent_ctx=span.ctx(), method=verb,
                     )
+                    try:
+                        sent = send_frame(
+                            conn, reply, oob=bool(peer and peer["oob"]),
+                            checksum=bool(
+                                peer and peer["ck"] and _integrity.enabled()
+                            ),
+                        )
+                    finally:
+                        _tracing.end_span(encode_span)
                 if _metrics.enabled():
                     _ins.RPC_SERVER_SENT_BYTES_TOTAL.labels(verb).inc(sent)
             except OSError:

@@ -13,6 +13,7 @@ Game of Life is integer-exact: equality, tolerance none.
 
 import csv
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -1398,3 +1399,86 @@ def test_session_soak_one_minute(cuda_device, tmp_path):
     # big_session steps a BitPlane (the tiled kernel at 4096^2); the
     # engine's own route for this board would be the sparse plane
     assert seen["auto_plane"] == "SparseBitPlane"
+
+
+#: what the profiler's device clock may stray from the host's and still
+#: count as one clock: far below a 1024-turn K1 launch (~1.6 ms at 512^2)
+CLOCK_SLACK_NS = 50_000
+
+
+@pytest.mark.cuda
+def test_spans_and_the_profilers_device_records_share_a_clock(cuda_device):
+    """Under torch.profiler, the K1 record of each synchronised growth
+    chunk of at least 1024 turns starts after its ``engine.chunk`` span
+    began and ends inside the ``engine.sync`` span that waited for it: the
+    host spans and the device trace read one clock. With metrics on, each
+    chunk's ``device_compute`` is device time: the 14 chunks of a 10000-turn
+    run observe at least their K1 records' time and at most the run's
+    wall. A trace can lose records; the run is taken again, up to four
+    times, until one holds a K1 record of such a chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+    from gol_distributed_final_tpu_torch.obs import tracing
+
+    board = np.asarray(read_pgm(REPO_ROOT / "images" / "512x512.pgm"))
+    engine = Engine(EngineConfig())
+    engine.run(Params(turns=100, image_width=512, image_height=512), board)  # warm
+    params = Params(turns=10_000, image_width=512, image_height=512)
+    tracing.enable()
+    obs_metrics.enable()
+    try:
+        for _ in range(4):
+            tracing.tracer().reset()
+            obs_metrics.registry().reset()
+            obs_device.reset_dispatch()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.run(params, board)
+                wall = time.perf_counter() - t0
+            obs_device.resolve()
+            spans = tracing.tracer().snapshot()
+            # a record a trace delivers late belongs to an earlier window
+            first = min(s["start_ns"] for s in spans)
+            k1 = [(ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                  for ev in prof.profiler.kineto_results.events()
+                  if ev.device_type() == DeviceType.CUDA and "whole_board" in ev.name()
+                  and ev.start_ns() >= first]
+            chunks = [s for s in spans if s["name"] == "engine.chunk"]
+            syncs = [s for s in spans if s["name"] == "engine.sync"]
+            matched, margins = 0, []
+            for chunk in chunks:
+                if not chunk["args"]["sync"] or chunk["args"]["turns"] < 1024:
+                    continue
+                sync = min((s for s in syncs if s["start_ns"] >= chunk["end_ns"]),
+                           key=lambda s: s["start_ns"])
+                for start, end in k1:
+                    if chunk["start_ns"] - CLOCK_SLACK_NS <= start <= sync["end_ns"]:
+                        assert start >= chunk["start_ns"] - CLOCK_SLACK_NS, (chunk, start)
+                        assert sync["start_ns"] - CLOCK_SLACK_NS <= end \
+                            <= sync["end_ns"] + CLOCK_SLACK_NS, (sync, start, end)
+                        margins.append((start - chunk["start_ns"], end - sync["start_ns"],
+                                        sync["end_ns"] - end))
+                        matched += 1
+            if matched:
+                break
+        assert matched, f"no K1 record of a growth chunk in {len(k1)} records"
+        print(f"clock check: {matched} K1 records of growth chunks; (record start - chunk "
+              f"start, record end - sync start, sync end - record end) in ns: {margins}")
+        seg = {tuple(s["labels"]): s for fam in obs_metrics.registry().snapshot()["families"]
+               if fam["name"] == "gol_turn_segment_seconds" for s in fam["series"]}
+        compute = seg[("engine", "device_compute")]
+        k1_s = sum(end - start for start, end in k1) / 1e9
+        assert compute["count"] == len(chunks) == 14
+        assert k1_s - 1e-4 <= compute["sum"] <= wall, (k1_s, compute["sum"], wall)
+        print(f"device_compute: {compute['sum']:.6f} s over {compute['count']} chunks; K1 "
+              f"records {k1_s:.6f} s; the run's wall {wall:.6f} s")
+    finally:
+        tracing.enable(False)
+        tracing.tracer().reset()
+        obs_metrics.enable(False)
+        obs_metrics.registry().reset()
+        obs_device.reset_dispatch()

@@ -109,6 +109,11 @@ def _series(report, name):
 #: spans whose presence depends on the clock: the 2 s tick's
 _CLOCK_SPANS = {"controller.tick"}
 
+#: the port's host-phase spans of an in-process session on the CPU, which
+#: the JAX package does not have (no engine.sync: the CPU runs in step)
+_HOST_PHASE_SPANS = {"io.pgm.read", "io.pgm.write", "controller.final_cells",
+                     "controller.ticker_stop", "engine.encode", "engine.decode"}
+
 
 def _span_shape(trace):
     """The set of span names and of (parent name, child name) edges in a
@@ -159,11 +164,20 @@ def test_session_with_metrics_report_trace_matches_the_reference(tmp_path, image
     assert events(port_rep) == events(ref_rep)
     assert events(port_rep)[("FinalTurnComplete",)] == 1
 
+    # the reference's spans and edges are the port's; the port's extra
+    # names are its host-phase spans on this path (a collection's span
+    # appears only where a collection ran)
     port_names, port_edges = _span_shape(port_trace)
     ref_names, ref_edges = _span_shape(ref_trace)
-    assert port_names == ref_names
-    assert port_edges == ref_edges
+    assert ref_names <= port_names
+    assert ref_edges <= port_edges
+    assert port_names - ref_names - {"runtime.gc"} == _HOST_PHASE_SPANS
     assert ("controller.session", "engine.chunk") in port_edges
+    assert {("controller.session", "io.pgm.read"), ("controller.session", "io.pgm.write"),
+            ("controller.session", "controller.final_cells"),
+            ("controller.session", "controller.ticker_stop"),
+            ("controller.session", "engine.encode"),
+            ("controller.session", "engine.decode")} <= port_edges
 
     # how many chunks the engine cut 100 turns into depends on the clock
     # (growth stops at the first chunk slower than its target, a JAX
@@ -297,6 +311,43 @@ def test_pending_pairs_wait_for_their_end_event(fake_cuda):
     fake_cuda.done = True
     assert port_device.resolve() == 1
     assert port_device.dispatch_stats()["pallas.tiled"]["wall_s"] == 4.0 / 1e3
+
+
+def test_engine_chunks_fold_device_time_once_every_card_is_done(fake_cuda):
+    """A chunk's device_compute is its slowest card's time between the
+    event before its launches and the fence after them, observed by
+    resolve() once both fences completed, oldest chunk first, and never
+    waited for."""
+    port_metrics.enable()
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+    def chunk(times):
+        fake_cuda.times = [t for t, _ in times]
+        starts = port_device.chunk_begin(cards)
+        fake_cuda.times = [t for _, t in times]
+        stops = []
+        for _ in cards:
+            stops.append(torch.cuda.Event(enable_timing=True))
+            stops[-1].record()
+        port_device.chunk_end(starts, stops)
+
+    fake_cuda.done = False
+    chunk([(0.0, 2.0), (0.0, 3.5)])
+    chunk([(4.0, 4.5), (4.0, 4.25)])
+    def device_compute():
+        snap = {"metrics": port_metrics.registry().snapshot()}
+        return _series(snap, "gol_turn_segment_seconds").get(
+            ("engine", "device_compute"), {"count": 0, "sum": 0.0})
+
+    assert port_device.resolve() == 0
+    assert device_compute()["count"] == 0
+    fake_cuda.done = True
+    port_device.resolve()
+    assert device_compute()["count"] == 2
+    assert device_compute()["sum"] == pytest.approx((3.5 + 0.5) / 1e3)
+    assert fake_cuda.synchronized == 0 and fake_cuda.syncs == []
+    port_device.resolve()  # folded once
+    assert device_compute()["count"] == 2
 
 
 def test_metrics_off_creates_no_event(fake_cuda, tmp_path, images_dir):

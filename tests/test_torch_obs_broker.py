@@ -149,7 +149,7 @@ def test_traced_port_session_is_one_trace_across_both_processes(port_broker, tmp
     broker = RemoteBroker(addr)
     try:
         port_run(Params(turns=100, image_width=64, image_height=64), broker=broker,
-                 images_dir=str(images_dir), out_dir=str(tmp_path))
+                 images_dir=str(images_dir), out_dir=str(tmp_path), trace_export=True)
     finally:
         broker.close()
     assert (tmp_path / "64x64x100.pgm").read_bytes() == \
@@ -157,12 +157,50 @@ def test_traced_port_session_is_one_trace_across_both_processes(port_broker, tmp
     trace = json.loads((tmp_path / "trace_64x64x100.json").read_text())
     spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     pids = {e["pid"] for e in spans}
-    trace_ids = {e["args"]["trace_id"] for e in spans}
     names = {e["name"] for e in spans}
     assert len(pids) == 2, pids  # the controller's and the broker's tracks
-    assert len(trace_ids) == 1, trace_ids
     assert {"controller.session", "rpc.client.call Operations.Run",
             "rpc.server.dispatch Operations.Run", "engine.chunk"} <= names
+    # the session's trace holds each host phase of both processes, each
+    # under its parent; a collection outside every span (a broker thread
+    # between requests) starts a trace of its own, and so does the export's
+    # Status call, made once the session has ended
+    session = next(e for e in spans if e["name"] == "controller.session")
+    trace_id = session["args"]["trace_id"]
+    assert {e["args"]["trace_id"] for e in spans
+            if e["name"] != "runtime.gc" and not e["name"].endswith("Operations.Status")} \
+        == {trace_id}
+    ours = [e for e in spans if e["args"]["trace_id"] == trace_id]
+    by_id = {e["args"]["span_id"]: e for e in ours}
+    roles = {e["pid"]: e for e in ours}
+    controller_pid = session["pid"]
+
+    def parent(e):
+        return by_id[e["args"]["parent_id"]]["name"]
+
+    def placed(name, want_parent, side):
+        found = [e for e in ours if e["name"] == name
+                 and (e["pid"] == controller_pid) == (side == "controller")]
+        assert found, (name, side)
+        for e in found:
+            assert parent(e) == want_parent, (name, side, parent(e))
+        return found
+
+    placed("io.pgm.read", "controller.session", "controller")
+    placed("io.pgm.write", "controller.session", "controller")
+    placed("controller.final_cells", "controller.session", "controller")
+    placed("controller.ticker_stop", "controller.session", "controller")
+    placed("rpc.encode Operations.Run", "rpc.client.call Operations.Run", "controller")
+    placed("rpc.decode Operations.Run", "rpc.client.call Operations.Run", "controller")
+    placed("rpc.decode Operations.Run", "rpc.client.call Operations.Run", "broker")
+    placed("rpc.encode Operations.Run", "rpc.server.dispatch Operations.Run", "broker")
+    placed("engine.encode", "rpc.server.dispatch Operations.Run", "broker")
+    placed("engine.decode", "rpc.server.dispatch Operations.Run", "broker")
+    placed("engine.chunk", "rpc.server.dispatch Operations.Run", "broker")
+    assert len(roles) == 2
+    for e in spans:
+        if e["name"] == "runtime.gc":
+            assert {"generation", "collected"} <= set(e["args"]), e
 
 
 def test_reference_tools_read_a_port_broker_status(port_broker):
