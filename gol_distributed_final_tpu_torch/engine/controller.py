@@ -112,7 +112,11 @@ class InProcessBroker:
 
 class _Ticker:
     """The tickerFunc equivalent (gol/distributor.go:25-129): one thread
-    multiplexing the 2 s tick, the keypress stream, and shutdown."""
+    multiplexing the 2 s tick, the keypress stream, and shutdown.
+
+    Between its work the thread waits on ``done``: until the next tick,
+    or at most ``_POLL`` where a key queue can deliver, so ``stop()`` wakes
+    it at once and a keyless session never polls."""
 
     _POLL = 0.02
 
@@ -227,7 +231,19 @@ class _Ticker:
                         AliveCellsCount(snap.turns_completed, snap.alive_count),
                     )
                 continue
-            time.sleep(self._POLL)
+            timeout = next_tick - time.monotonic()
+            if self.keypresses is not None:
+                timeout = min(self._POLL, timeout)
+            if not self.done.wait(min(timeout, threading.TIMEOUT_MAX)) and _metrics.enabled():
+                if self.keypresses is not None and not self.keypresses.empty():
+                    reason = "key"
+                elif time.monotonic() >= next_tick:
+                    reason = "tick"
+                else:
+                    reason = "poll"
+                _ins.CONTROLLER_TICKER_WAKEUPS_TOTAL.labels(reason).inc()
+        if _metrics.enabled():
+            _ins.CONTROLLER_TICKER_WAKEUPS_TOTAL.labels("stop").inc()
 
     def _handle_key(self, key):
         # gol/distributor.go:61-122

@@ -77,6 +77,12 @@ CONTROLLER_EVENTS_TOTAL = _R.counter(
     "Events emitted by the controller, by event type.",
     labelnames=("event",),
 )
+CONTROLLER_TICKER_WAKEUPS_TOTAL = _R.counter(
+    "gol_controller_ticker_wakeups_total",
+    "Ticker thread wake-ups, by reason: a tick due, a key queued, an idle "
+    "key poll, or the thread's end once done is set (one a session).",
+    labelnames=("reason",),
+)
 
 # -- RPC, both sides (rpc/client.py, rpc/server.py) -------------------------
 
