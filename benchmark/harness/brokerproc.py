@@ -18,10 +18,11 @@ CHILD = pathlib.Path(__file__).resolve().parent / "broker_child.py"
 
 class BrokerProcess:
     """Starts at once; ``address()`` waits until it listens. Its output goes
-    to ``log``; ``close()`` ends it and waits for it."""
+    to ``log``; ``close()`` ends it and waits for it. ``args`` (a
+    configuration's ``broker_args``) end the broker's command line."""
 
     def __init__(self, log: pathlib.Path, *, metrics: bool = False, device: str | None = None,
-                 fault: str | None = None):
+                 fault: str | None = None, args=()):
         argv = [sys.executable, str(CHILD)]
         if fault is not None:
             argv += ["--fault", fault]
@@ -30,6 +31,7 @@ class BrokerProcess:
             argv.append("-metrics")
         if device is not None:
             argv += ["-device", device]
+        argv += list(args)
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         self.log_path = log
         self._log = open(log, "a")

@@ -1,4 +1,5 @@
-"""The comparison that decides ``correct``.
+"""The comparison that decides ``correct`` where a configuration names no
+check of its own (``benchmark/checks/``).
 
 Every session of the window is held to the plain reference
 (``benchmark/reference.py``): its turns completed, its alive count, and
@@ -16,9 +17,14 @@ import numpy as np
 
 from benchmark import reference
 
+#: the numbers held from below; every other is held from above
+AT_LEAST = frozenset({"boards_checked"})
 
-def compare(sessions, image: np.ndarray, rulestring: str) -> dict:
-    """``{name: (value, limit, holds)}`` over ``sessions``."""
+
+def compare(sessions, ctx) -> dict:
+    """``{name: (value, limit, holds)}`` over ``sessions``, against the
+    configuration's image (``ctx.image``) and rule."""
+    image, rulestring = ctx.image, ctx.config["rule"]
     finals = {}
     unanswered = wrong_turns = wrong_alive = wrong_boards = checked = 0
     for s in sessions:

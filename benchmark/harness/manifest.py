@@ -3,9 +3,11 @@
 ``BENCHMARK.json`` at the root of the checkout lists the cells and the
 metrics. A cell's traffic parameters are ``benchmark/workloads/<cell>.json``
 (its ``driver`` names ``benchmark/traffic/<driver>.py``), its
-configuration is ``benchmark/configs/<config>.json``, and each metric but
-``setup_s`` is read by ``benchmark/metrics/<metric>.py``. A new cell or
-metric is new files and new entries; no file here changes for it.
+configuration is ``benchmark/configs/<config>.json`` (its optional
+``check`` names ``benchmark/checks/<check>.py``), and each metric but
+``setup_s`` is read by ``benchmark/metrics/<metric>.py``. A new cell,
+configuration or metric is new files and new entries; no file here changes
+for it.
 """
 
 from __future__ import annotations
@@ -89,6 +91,14 @@ def _module(kind: str, name: str):
 def driver(name: str):
     """``benchmark/traffic/<name>.py``: ``setup(ctx)`` then ``window(ctx)``."""
     return _module("traffic", name)
+
+
+def check(name: str):
+    """``benchmark/checks/<name>.py``, with the interface of
+    ``harness/check.py``: ``compare(sessions, ctx)`` gives
+    ``{name: (value, limit, holds)}``, and ``AT_LEAST`` names the numbers
+    held from below."""
+    return _module("checks", name)
 
 
 def reader(metric: str):

@@ -29,17 +29,21 @@ EXIT_NAME, EXIT_NO_CARD, EXIT_JAX = 2, 3, 4
 
 
 class Context:
-    """What a traffic driver gets: the cell, the seed, the window's length,
-    a directory of its own, the configuration's image, the broker's address,
-    and ``state`` to keep between ``setup`` and ``window``."""
+    """What a traffic driver and a configuration's check get: the cell, the
+    seed, the window's length, a directory of its own, the configuration's
+    image (None for a seeded board) and ``board`` (its ``board`` entry, None
+    for an image), the broker's address, and ``state`` to keep between
+    ``setup`` and ``window``."""
 
     def __init__(self, cell, seed: int, seconds: float, workdir: pathlib.Path, image):
         self.cell = cell
+        self.config = cell.config
         self.traffic = cell.traffic
         self.seed = seed
         self.seconds = seconds
         self.workdir = workdir
         self.image = image
+        self.board = cell.config.get("board")
         self.address = None
         self.state: dict = {}
 
@@ -84,7 +88,7 @@ def main(argv=None, *, t_start: float, device: str | None = None,
     except manifest.UnknownName as exc:
         print(f"benchmark: {exc}", file=sys.stderr)
         return EXIT_NAME
-    with _broker(args, device, fault) as (workdir, broker):
+    with _broker(args, cell, device, fault) as (workdir, broker):
         if device is None:
             # after the broker's start, so that its imports overlap this one's
             import torch
@@ -97,8 +101,9 @@ def main(argv=None, *, t_start: float, device: str | None = None,
         line, _ = _run(args, cell, t_start, device, workdir, broker)
     if line is None:
         return EXIT_JAX
+    at_least = _check(cell).AT_LEAST
     for name, c in line["checks"].items():
-        bound = "at least" if name == "boards_checked" else "at most"
+        bound = "at least" if name in at_least else "at most"
         print(f"check {name} {c['value']} ({bound} {c['limit']})", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(line))
@@ -108,18 +113,18 @@ def main(argv=None, *, t_start: float, device: str | None = None,
 def measure(args, cell, t_start: float, *, device=None, fault=None):
     """``(line, records)`` of one run of ``cell``; ``(None, None)`` if the
     run loaded JAX."""
-    with _broker(args, device, fault) as (workdir, broker):
+    with _broker(args, cell, device, fault) as (workdir, broker):
         return _run(args, cell, t_start, device, workdir, broker)
 
 
 @contextlib.contextmanager
-def _broker(args, device, fault):
+def _broker(args, cell, device, fault):
     """A directory of the run's own and the broker child, both gone after."""
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="gol-bench-"))
     broker = None
     try:
         broker = BrokerProcess(workdir / "broker.log", metrics=bool(args.trace), device=device,
-                               fault=fault)
+                               fault=fault, args=cell.config.get("broker_args", ()))
         yield workdir, broker
     finally:
         if broker is not None:
@@ -127,8 +132,33 @@ def _broker(args, device, fault):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def _image(config: dict):
+    """The configuration's image, of its ``height x width``; None where its
+    board is a seeded soup (``harness/soup.py``)."""
+    if "image" not in config:
+        if (config.get("board") or {}).get("kind") != "soup":
+            raise ValueError(f"configuration {config['name']!r} has neither an image "
+                             f"nor a soup board")
+        return None
+    image = reference.read_pgm(manifest.BENCH / config["image"])
+    if image.shape != (config["height"], config["width"]):
+        raise ValueError(f"{config['image']} is {image.shape[1]} x {image.shape[0]}, "
+                         f"configuration {config['name']!r} {config['width']} x "
+                         f"{config['height']}")
+    return image
+
+
+def _check(cell):
+    """The module that decides ``correct``: the configuration's named check
+    (``benchmark/checks/<check>.py``), else ``harness/check.py``. Its
+    ``compare(sessions, ctx)`` gives ``{name: (value, limit, holds)}``, and
+    its ``AT_LEAST`` names the numbers held from below."""
+    return manifest.check(cell.config["check"]) if "check" in cell.config else check
+
+
 def _run(args, cell, t_start, device, workdir, broker):
-    image = reference.read_pgm(manifest.BENCH / cell.config["image"])
+    image = _image(cell.config)
+    judge = _check(cell)
     drv = manifest.driver(cell.traffic["driver"])
     ctx = Context(cell, args.seed, args.seconds, workdir, image)
     raw = server = None
@@ -171,7 +201,8 @@ def _run(args, cell, t_start, device, workdir, broker):
           f"{cpu1[0] - cpu0[0]} s, the broker {cpu1[1] - cpu0[1]} s", file=sys.stderr)
     records = {
         "cell": cell.name, "rule": cell.config["rule"], "seconds": args.seconds,
-        "cells_per_board": int(image.size), "window_ns": (t0, t1), "sessions": sessions,
+        "cells_per_board": cell.config["width"] * cell.config["height"],
+        "window_ns": (t0, t1), "sessions": sessions,
         "server": server,
         "trace": devtrace.reduce(_expand(raw), t0, t1) if raw is not None else None,
     }
@@ -198,7 +229,7 @@ def _run(args, cell, t_start, device, workdir, broker):
         line["device"].update(busy_s=trace["busy_s"], window_s=trace["window_s"])
         line["breakdown"] = _breakdown(trace, sessions)
     # the reference runs now: the window is closed and the broker is gone
-    checks = check.compare(sessions, image, cell.config["rule"])
+    checks = judge.compare(sessions, ctx)
     line["correct"] = all(holds for _, _, holds in checks.values())
     line["checks"] = {name: {"value": v, "limit": limit} for name, (v, limit, _) in checks.items()}
     return line, records

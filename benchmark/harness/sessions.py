@@ -10,7 +10,7 @@ import time
 @dataclasses.dataclass
 class Session:
     index: int
-    board: tuple            # (dy, dx, sym) of the input board
+    board: tuple | int      # (dy, dx, sym) of an image's board, or a soup's seed
     turns_asked: int
     start_ns: int = 0
     end_ns: int = 0         # its result or its error
@@ -19,6 +19,9 @@ class Session:
     turns: int = -1
     alive: int = -1
     out_path: pathlib.Path | None = None  # the PGM the controller wrote
+    #: (y0, x0, uint8[h, w]) blocks of the final board the driver kept, so
+    #: that a large PGM can go once they are read
+    windows: list = dataclasses.field(default_factory=list)
 
 
 def now_ns() -> int:

@@ -9,7 +9,8 @@ cell. The tests hold both against the repository's golden files and
 against each other.
 
 ``wrap=False`` closes the edges (cells outside the board are dead). It
-exists only for the control, which must come out as not correct.
+serves the control, which must come out as not correct, and the light
+cones of ``evolve_windows``, whose closed edges never reach the windows.
 """
 
 from __future__ import annotations
@@ -32,26 +33,48 @@ def parse_rule(rulestring: str) -> tuple[frozenset, frozenset]:
     return born, survive
 
 
-def read_pgm(path) -> np.ndarray:
-    """A binary (P5) PGM as ``uint8[H, W]``."""
-    data = pathlib.Path(path).read_bytes()
+def _pgm_header(data: bytes, path) -> tuple[int, int, int]:
+    """``(width, height, offset of the first pixel)`` of a binary (P5) PGM
+    that ``data`` begins."""
     fields, pos = [], 0
     while len(fields) < 4:
         while data[pos:pos + 1].isspace():
             pos += 1
+        if pos >= len(data):
+            raise ValueError(f"{path}: no whole PGM header")
         if data[pos:pos + 1] == b"#":
             pos = data.index(b"\n", pos) + 1
             continue
         end = pos
-        while not data[end:end + 1].isspace():
+        while end < len(data) and not data[end:end + 1].isspace():
             end += 1
         fields.append(data[pos:end])
         pos = end
     if fields[0] != b"P5":
         raise ValueError(f"{path}: not a binary PGM")
-    width, height = int(fields[1]), int(fields[2])
-    pixels = np.frombuffer(data, np.uint8, width * height, pos + 1)
+    return int(fields[1]), int(fields[2]), pos + 1
+
+
+def read_pgm(path) -> np.ndarray:
+    """A binary (P5) PGM as ``uint8[H, W]``."""
+    data = pathlib.Path(path).read_bytes()
+    width, height, offset = _pgm_header(data, path)
+    pixels = np.frombuffer(data, np.uint8, width * height, offset)
     return pixels.reshape(height, width).copy()
+
+
+def pgm_row_blocks(path, rows: int):
+    """The ``uint8[r, W]`` blocks of at most ``rows`` rows that a binary PGM
+    holds, top to bottom, read one at a time."""
+    with open(path, "rb") as f:
+        width, height, offset = _pgm_header(f.read(4096), path)
+        f.seek(offset)
+        for top in range(0, height, rows):
+            n = min(rows, height - top)
+            data = f.read(n * width)
+            if len(data) != n * width:
+                raise ValueError(f"{path}: ends at row {top + len(data) // width}")
+            yield np.frombuffer(data, np.uint8).reshape(n, width)
 
 
 def write_pgm(path, board: np.ndarray) -> None:
@@ -135,6 +158,27 @@ def _step_bytes(b: np.ndarray, born, survive, wrap: bool) -> np.ndarray:
             .astype(np.uint8))
 
 
+def _iterate(state: np.ndarray, turns: int, step) -> np.ndarray:
+    """``state`` after ``turns`` applications of ``step``.
+
+    The rule is deterministic, so a board that comes back repeats from then
+    on, and the turns left are taken modulo that period: the answer is exact,
+    and a board that settles costs its settling, not its turns. Brent's
+    search finds the repeat: the state saved at each power of two of turns
+    is held against every later one, until the next power of two."""
+    saved, since, power = state, 0, 1
+    for done in range(1, turns + 1):
+        state = step(state)
+        since += 1
+        if np.array_equal(state, saved):  # the state of turn done - since
+            for _ in range((turns - done) % since):
+                state = step(state)
+            return state
+        if since == power:
+            saved, since, power = state, 0, power * 2
+    return state
+
+
 def evolve(board: np.ndarray, turns: int, rulestring: str = "B3/S23",
            wrap: bool = True) -> np.ndarray:
     """The board after ``turns`` turns, as ``uint8[H, W]`` of 0 and 255."""
@@ -142,14 +186,45 @@ def evolve(board: np.ndarray, turns: int, rulestring: str = "B3/S23",
     height, width = board.shape
     if width % 64 == 0:
         words = np.packbits(board != 0, axis=1, bitorder="little").view("<u8")
-        for _ in range(turns):
-            words = _step_words(words, born, survive, wrap)
+        words = _iterate(words, turns, lambda x: _step_words(x, born, survive, wrap))
         cells = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")
     else:
-        cells = (board != 0).astype(np.uint8)
-        for _ in range(turns):
-            cells = _step_bytes(cells, born, survive, wrap)
+        cells = _iterate((board != 0).astype(np.uint8), turns,
+                         lambda b: _step_bytes(b, born, survive, wrap))
     return np.where(cells != 0, 255, 0).astype(np.uint8).reshape(height, width)
+
+
+def evolve_windows(windows, h: int, w: int, turns: int,
+                   rulestring: str = "B3/S23") -> list[np.ndarray]:
+    """The ``h x w`` window at (y0, x0) of a torus after ``turns`` turns,
+    for each ``(board_region_fn, y0, x0)`` of ``windows``, each
+    ``uint8[h, w]`` of 0 and 255. ``board_region_fn(y0, x0, h, w)`` gives
+    any block of that window's torus at turn 0, wrapping around its edges.
+
+    A cell after ``turns`` turns depends only on the cells within ``turns``
+    of it, so each window's light cone, the ``(h + 2 turns) x (w + 2 turns)``
+    block around it, widened to whole 64-column words, evolves with closed
+    edges and keeps the right centre: what the closed edges get wrong moves
+    in one cell a turn. The cones of all windows are stacked in one array,
+    whose blocks cannot reach one another's windows for the same reason. The
+    evolution runs in stages of 64 turns, after each of which every block
+    drops the margin it no longer needs. A cone higher or wider than the
+    board needs nothing else: ``board_region_fn`` repeats the torus, so the
+    cone is a block of the board's periodic tiling of the plane."""
+    rows = h + 2 * turns
+    cols = -(-(w + 2 * turns) // 64) * 64
+    blocks = np.stack([fn(y0 - turns, x0 - turns, rows, cols) for fn, y0, x0 in windows])
+    left = turns
+    while turns > 0:
+        stage = min(turns, 64)
+        n, rows, cols = blocks.shape
+        blocks = evolve(blocks.reshape(n * rows, cols), stage, rulestring, wrap=False)
+        blocks = blocks.reshape(n, rows, cols)[:, stage:rows - stage]
+        turns -= stage
+        if stage == 64 and turns > 0:  # a whole word of margin on each side
+            blocks = blocks[:, :, 64:-64]
+            left -= 64
+    return [np.ascontiguousarray(b[:, left:left + w]) for b in blocks]
 
 
 def evolve_bytes(board: np.ndarray, turns: int, rulestring: str = "B3/S23") -> np.ndarray:

@@ -29,3 +29,29 @@ def tmpdir_env(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     return tmp_path
+
+
+#: the benchmark's cell, and the turns of its sessions in the tests' runs on
+#: the CPU, which would take days over its ten million
+CELL = "ref512.turns10000000"
+CPU_TURNS = 10000
+
+
+@pytest.fixture
+def cpu_cell(monkeypatch):
+    """``CELL``, whose sessions have ``CPU_TURNS`` turns wherever the
+    harness looks the cell up (``manifest.cell``)."""
+    import dataclasses
+
+    from benchmark.harness import manifest
+
+    real = manifest.cell
+
+    def cell(name, data=None):
+        found = real(name, data)
+        if name != CELL:
+            return found
+        return dataclasses.replace(found, traffic=dict(found.traffic, turns=CPU_TURNS))
+
+    monkeypatch.setattr(manifest, "cell", cell)
+    return CELL

@@ -12,13 +12,13 @@ from benchmark.harness import runner
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
-def test_a_run_without_a_card_exits_nonzero_with_no_result(root, tmpdir_env):
+def test_a_run_without_a_card_exits_nonzero_with_no_result(root, cpu_cell, tmpdir_env):
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     proc = subprocess.run(
-        [sys.executable, "benchmark/run.py", "--workload", "ref512.turns100", "--seed",
+        [sys.executable, "benchmark/run.py", "--workload", cpu_cell, "--seed",
          "3000000007", "--seconds", "1", "--trace", "0"],
         cwd=root, capture_output=True, text=True, timeout=120)
     assert proc.returncode == runner.EXIT_NO_CARD
@@ -33,22 +33,22 @@ def test_an_unknown_cell_exits_nonzero_with_no_result(root):
     assert proc.returncode == runner.EXIT_NAME and proc.stdout == ""
 
 
-def test_a_checkout_of_the_benchmark_alone_fails(root, tmp_path):
+def test_a_checkout_of_the_benchmark_alone_fails(root, cpu_cell, tmp_path):
     """Without the port beside it the command cannot run a cell."""
     import shutil
 
     shutil.copytree(root / "benchmark", tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(root / "BENCHMARK.json", tmp_path)
-    proc = subprocess.run([sys.executable, "benchmark/run.py", "--workload", "ref512.turns100",
+    proc = subprocess.run([sys.executable, "benchmark/run.py", "--workload", cpu_cell,
                            "--seed", "1", "--seconds", "1", "--trace", "0"],
                           cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-def test_the_last_line_has_the_contract_keys(trace, capsys, tmpdir_env):
-    rc = runner.main(["--workload", "ref512.turns100", "--seed", "2147483659",
+def test_the_last_line_has_the_contract_keys(trace, capsys, cpu_cell, tmpdir_env):
+    rc = runner.main(["--workload", cpu_cell, "--seed", "2147483659",
                       "--seconds", "1", "--trace", str(trace)],
                      t_start=time.monotonic(), device="cpu")
     out, err = capsys.readouterr()

@@ -18,7 +18,16 @@ def data(root):
 def test_every_cell_finds_its_config_driver_and_metrics(data):
     for w in data["workloads"]:
         cell = manifest.cell(w["name"], data)
-        assert cell.config["rule"] and (manifest.BENCH / cell.config["image"]).is_file()
+        config = cell.config
+        assert config["rule"] and config["width"] >= 1 and config["height"] >= 1
+        # an image, or a seeded soup (harness/soup.py)
+        if "image" in config:
+            assert (manifest.BENCH / config["image"]).is_file()
+        else:
+            assert config["board"]["kind"] == "soup" and 0 < config["board"]["density"] < 1
+        if "check" in config:
+            assert callable(manifest.check(config["check"]).compare)
+        assert all(isinstance(a, str) for a in config.get("broker_args", []))
         assert hasattr(manifest.driver(cell.traffic["driver"]), "window")
         names = {m["name"] for m in cell.end_to_end}
         assert manifest.SETUP in names and len(names) >= 2
@@ -30,8 +39,13 @@ def test_every_cell_finds_its_config_driver_and_metrics(data):
                 assert callable(manifest.reader(m["name"]))
 
 
+def test_ref512_keeps_its_image(data, cpu_cell):
+    assert manifest.cell(cpu_cell, data).config["image"] == "inputs/512x512.pgm"
+
+
 @pytest.mark.parametrize("kind,call", [
     ("cell", lambda: manifest.cell("no.such_cell")),
+    ("check", lambda: manifest.check("no_such_check")),
     ("driver", lambda: manifest.driver("no_such_driver")),
     ("metric", lambda: manifest.reader("no_such_metric")),
 ])
@@ -76,3 +90,34 @@ def test_manifest_keys_names_and_limits(data, root):
     names = [m["name"] for m in data["end_to_end"] + data["per_layer"]]
     assert len(names) == len(set(names))
     assert len(json.dumps(data)) < 64 * 1024
+
+
+@pytest.mark.parametrize("turns,warm_turns,expect", [(10**7, 2 * 10**6, 2 * 10**6),
+                                                      (10**4, 2 * 10**6, 10**4),
+                                                      (10**4, None, 10**4)])
+def test_the_warm_up_session_takes_warm_turns_and_at_most_turns(
+        monkeypatch, tmp_path, turns, warm_turns, expect):
+    import numpy as np
+
+    from gol_distributed_final_tpu_torch.rpc import client
+
+    drv = manifest.driver("sessions_closed")
+    asked = []
+
+    def session(ctx, s, images_dir, out_dir):
+        asked.append(s.turns_asked)
+        s.answered = True
+
+    monkeypatch.setattr(drv, "_session", session)
+    monkeypatch.setattr(client, "RemoteBroker", lambda address: None)
+    traffic = {"turns": turns, "pool": 2}
+    if warm_turns is not None:
+        traffic["warm_turns"] = warm_turns
+
+    class Ctx:
+        seed, workdir, address, state = 5, tmp_path, "localhost:1", {}
+        image = np.zeros((64, 64), np.uint8)
+
+    Ctx.traffic = traffic
+    drv.setup(Ctx)
+    assert asked == [expect]

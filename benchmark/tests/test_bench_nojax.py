@@ -23,6 +23,8 @@ for name in {drivers!r}:
     manifest.driver(name)
 for name in {metrics!r}:
     manifest.reader(name)
+for name in {checks!r}:
+    manifest.check(name)
 print(sorted(sys.modules))
 """
 
@@ -30,9 +32,10 @@ print(sorted(sys.modules))
 def test_the_harness_loads_no_jax(root):
     drivers = sorted(p.stem for p in (manifest.BENCH / "traffic").glob("*.py"))
     metrics = sorted(p.name[:-3] for p in (manifest.BENCH / "metrics").glob("*.py"))
-    assert "sessions_closed" in drivers and "cell_updates_per_s" in metrics
+    checks = sorted(p.stem for p in (manifest.BENCH / "checks").glob("*.py"))
+    assert "sessions_closed" in drivers and "cell_updates_per_s" in metrics and "window" in checks
     code = PROBE.format(root=str(root), run=str(root / "benchmark" / "run.py"),
-                        drivers=drivers, metrics=metrics)
+                        drivers=drivers, metrics=metrics, checks=checks)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, timeout=300).stdout
     modules = eval(out.strip().splitlines()[-1])
@@ -47,10 +50,10 @@ def test_names_are_compared_whole():
         "flax", "gol_distributed_final_tpu.ops", "jax.numpy", "jaxlib"]
 
 
-def test_a_run_whose_broker_loads_jax_is_refused(capsys, tmpdir_env):
+def test_a_run_whose_broker_loads_jax_is_refused(capsys, cpu_cell, tmpdir_env):
     """The broker child runs the port: JAX loaded there in the window (here
     a stub, put in its ``sys.modules`` by its first reply) refuses the run."""
-    rc = runner.main(["--workload", "ref512.turns100", "--seed", "2147483661",
+    rc = runner.main(["--workload", cpu_cell, "--seed", "2147483661",
                       "--seconds", "1"], t_start=time.monotonic(), device="cpu",
                      fault="loads_jax")
     out, err = capsys.readouterr()

@@ -34,6 +34,31 @@ def test_512_alive_counts_up_to_10000_turns_on_a_seeded_transform(root):
         assert np.count_nonzero(board) == rows[turn], turn
 
 
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("size", [16, 64])
+def test_turns_past_a_repeat_are_taken_modulo_its_period(root, size, wrap):
+    """The 16x16 image is a glider, which comes back every 64 turns on its
+    torus; the 64x64 one settles into period 2 (by turn 1575 on the torus,
+    241 with closed edges). ``evolve`` equals turn-by-turn byte stepping
+    around the search's powers of two, and after 10^9 turns the state that
+    the period gives."""
+    image = reference.read_pgm(root / "images" / f"{size}x{size}.pgm")
+    born, survive = reference.parse_rule("B3/S23")
+    states, seen = [(image != 0).astype(np.uint8)], {}
+    while states[-1].tobytes() not in seen:
+        seen[states[-1].tobytes()] = len(states) - 1
+        states.append(reference._step_bytes(states[-1], born, survive, wrap))
+    first = seen[states[-1].tobytes()]
+    period = len(states) - 1 - first
+    while len(states) <= 2100:
+        states.append(reference._step_bytes(states[-1], born, survive, wrap))
+    for turns in (1, 63, 64, 65, 241, 1024, 1577, 2100):
+        assert np.array_equal(reference.evolve(image, turns, wrap=wrap) != 0, states[turns] != 0)
+    far = 10**9 + 1
+    assert np.array_equal(reference.evolve(image, far, wrap=wrap) != 0,
+                          states[first + (far - first) % period] != 0)
+
+
 @pytest.mark.parametrize("size", [16, 64, 512])
 @pytest.mark.parametrize("turns", [0, 1, 100])
 def test_golden_images(root, size, turns):
@@ -84,7 +109,8 @@ def test_reference_imports_nothing_of_the_port(root):
     import subprocess
     import sys
 
-    code = ("import sys; sys.path.insert(0, %r); import benchmark.reference; "
+    code = ("import sys; sys.path.insert(0, %r); import benchmark.reference, "
+            "benchmark.harness.soup; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))" % str(root))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True).stdout

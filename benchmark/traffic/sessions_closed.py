@@ -7,7 +7,10 @@ Inputs are a pool of ``pool`` seeded boards written during set-up and taken
 in turn. The window runs from the first session's start to the end of the
 session in flight when the seconds have elapsed.
 
-Parameters: ``turns``, ``pool``.
+Parameters: ``turns``, ``pool``, and optionally ``warm_turns``: the turns of
+the set-up's one warm-up session (at most ``turns``, which it defaults to),
+for sessions longer than it takes to warm every kernel, chunk size and the
+2 s tick.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ def setup(ctx) -> None:
         d.mkdir(parents=True)
         reference.write_pgm(d / f"{w}x{h}.pgm", reference.transform(ctx.image, *t))
     ctx.state["remote"] = RemoteBroker(ctx.address)
-    # one session of the cell's own size and turns builds and warms the path
-    warm = Session(-1, ctx.state["pool"][0], p["turns"])
+    # one session of the cell's own size builds and warms the path
+    warm = Session(-1, ctx.state["pool"][0], min(p.get("warm_turns", p["turns"]), p["turns"]))
     _session(ctx, warm, ctx.workdir / "in" / "0", ctx.workdir / "warm")
     if not warm.answered:
         raise RuntimeError(f"the warm-up session failed: {warm.error}")
