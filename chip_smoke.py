@@ -94,6 +94,16 @@ ranks of half the cards each, and from one rank a card, each held against
 the single card's tiled kernel, and the two-rank layout stopped at turn
 500 and resumed; a line a run with its wall.
 
+    python3 chip_smoke.py --k1-sweep
+
+builds K1 and times its single board on every route at 512^2, 256^2,
+128^2 and 640 x 384 (both word axes), and 160^2, 192^2, 224^2 and 960^2
+(word axis 0): one block, and clusters of 2, 4, 8 and 16 blocks at halo
+depths 8, 16 and 32, each held first against the plain version (n in 0,
+1, d - 1, d, d + 1, 100); on standard output one JSON line a route and
+the fastest routes of each board, the measurement behind
+``whole_board.cluster_plan``.
+
     python3 chip_smoke.py --workers-times [TREE]
 
 runs phase 20b's workers run alone (a seeded 4096^2 soup x 1000 turns
@@ -451,7 +461,7 @@ def kernel_label(mangled: str) -> str:
     """A kernel instantiation's short name from its mangled one, e.g.
     ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
     kernel = re.search(
-        r"(whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
+        r"(whole_board_cluster|whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
         r"sparse_blocks|sparse_step|sparse_scatter|sparse_dilate|sparse_list|strip_steps)_kernel",
         mangled)
     name = kernel.group(1) if kernel else mangled[:40]
@@ -622,6 +632,79 @@ def workers_times(tree: str) -> int:
                       "turns_per_s": 1000 / wall,
                       "handler_ms": 1e3 * sum(service) / len(service),
                       "board": integrity.array_digest(res.world)}))
+    return 0
+
+
+#: K1's sweep: the boards (packed shape, word axis) and the routes
+K1_SWEEP_BOARDS = (((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((256, 8), 1),
+                   ((4, 128), 0), ((128, 4), 1), ((20, 384), 0), ((640, 12), 1),
+                   ((5, 160), 0), ((6, 192), 0), ((7, 224), 0), ((30, 960), 0))
+K1_SWEEP_CLUSTERS = (2, 4, 8, 16)
+K1_SWEEP_DEPTHS = (8, 16, 32)
+
+
+def k1_sweep() -> int:
+    """K1's single board on every route of the sweep (module docstring):
+    each route held against the plain version, then timed by CUDA events
+    around back-to-back counted launches of 100 and 4096 turns."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from gol_distributed_final_tpu_torch.ops import _build, whole_board
+
+    reports = _build.build(["whole_board", "byte_board"])
+    for line in ptxas_summary(reports):
+        print("ptxas", line)
+    card = nvidia_smi("name,power.limit")
+    print("card", card, nvidia_smi("clocks.sm,clocks.max.sm"))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for shape, axis in K1_SWEEP_BOARDS:
+        packed = torch.from_numpy(
+            rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+        rows_n = shape[0]
+        plain = {}
+
+        def want(n):
+            if n not in plain:
+                plain[n] = whole_board.step_n_plain(packed, n, axis)
+            return plain[n]
+
+        lines = shape[1] if axis == 0 else shape[0]
+        routes = [(1, 0)] + [(c, d) for c in K1_SWEEP_CLUSTERS if lines % c == 0
+                             for d in K1_SWEEP_DEPTHS]
+        for cluster, depth in routes:
+            out = torch.empty_like(packed)
+            counts = torch.empty(rows_n, dtype=torch.int32, device=dev)
+            used = None
+            for n in sorted({0, 1, max(depth - 1, 0), depth, depth + 1, 100}):
+                used = whole_board.launch_one(packed, out, counts, n, axis, 8, 12,
+                                              "pallas.vmem_bit", cluster, depth)
+                torch.cuda.synchronize()
+                board, row_counts = want(n)
+                check(torch.equal(out, board) and torch.equal(counts, row_counts),
+                      f"K1 sweep {shape} axis {axis} cluster {cluster} depth {depth} n {n}: "
+                      "differs from the plain version")
+            row = {"shape": list(shape), "axis": axis, "cluster": cluster, "depth": depth,
+                   "used": used, "card": card}
+            for n, reps in ((100, 50), (4096, 5)):
+                row[f"ms_n{n}"] = cuda_ms(lambda: whole_board.launch_one(
+                    packed, out, counts, n, axis, 8, 12, "pallas.vmem_bit", cluster, depth),
+                    reps=reps)
+            rows.append(row)
+            print(json.dumps(row))
+        mine = [r for r in rows if r["shape"] == list(shape) and r["axis"] == axis]
+        block = mine[0]
+        for key in ("ms_n100", "ms_n4096"):
+            best = sorted(mine, key=lambda r: r[key])[:4]
+            print(f"{shape} axis {axis} {key}: one block {block[key]:.5f}; best " + "; ".join(
+                f"C{r['cluster']} d{r['depth']} (ran {r['used']}) {r[key]:.5f}"
+                for r in best))
+    print(json.dumps({"k1_sweep": len(rows), "card": card}))
     return 0
 
 
@@ -1087,11 +1170,12 @@ def observability(dev, board512, golden_counts, card_tag, open_window, close_win
         check(not bad, f"phase 23: counts differ from check/alive at turns {bad[:5]}")
         return wall, result, seen
 
-    # 1. the session through run() (K1 under FusedBitPlane) and through
-    # fused_step_n (K6: 512^2 is past K5's gate), each without and with
-    # the flags; every launch counted, its site's events held against it
+    # 1. the session through run() (K1's cluster route under FusedBitPlane)
+    # and through fused_step_n (K6: 512^2 is past K5's gate), each without
+    # and with the flags; every launch counted, its site's events held
+    # against it
     paths = (
-        ("run()", None, {"pallas.fused_bit": ("whole_board", whole_board)}),
+        ("run()", None, {whole_board.CLUSTER_SITE: ("whole_board", whole_board)}),
         ("fused_step_n", fused_step_n, {"pallas.fused_byte": ("byte_tiled", byte_tiled)}),
     )
     p512 = bitpack.pack(board512, 0, dev)
@@ -1100,8 +1184,8 @@ def observability(dev, board512, golden_counts, card_tag, open_window, close_win
         # K1 a turn at n = 1000 a launch, events around the launch (far
         # longer than its host work); K6's own 8-turn launch from the
         # profiler's device time
-        "pallas.fused_bit": cuda_ms(lambda: whole_board.step_n(p512, 1000, counted=True),
-                                    reps=5) / 1000,
+        whole_board.CLUSTER_SITE: cuda_ms(
+            lambda: whole_board.step_n(p512, 1000, counted=True), reps=5) / 1000,
         "pallas.fused_byte": device_ms(lambda: byte_tiled.step_n(c512, 8, turns_per_launch=8),
                                        "byte_tiled_kernel", reps=50)[0],
     }
@@ -1144,7 +1228,7 @@ def observability(dev, board512, golden_counts, card_tag, open_window, close_win
             check(ops_rate <= ceil.flops_per_s and byte_rate <= ceil.bytes_per_s,
                   f"phase 23 {label}: {site} reads {ops_rate:.4g} int32/s, {byte_rate:.4g} B/s")
             per_launch_ms = s["wall_s"] * 1e3 / s["calls"]
-            if site == "pallas.fused_bit":
+            if site == whole_board.CLUSTER_SITE:
                 own_ms = kernel_ms[site] * 10_000 / s["calls"]  # the same turns, same launches
                 ceiling_ms = EVENT_CEIL * own_ms
             else:
@@ -1255,11 +1339,11 @@ def observability(dev, board512, golden_counts, card_tag, open_window, close_win
     events = json.loads(traces[-1].read_text())["traceEvents"]
     names = [e.get("name", "") for e in events]
     chunks = sum(n == "engine.chunk" for n in names)
-    k1 = sum("whole_board_kernel" in n for n in names)
+    k1 = sum("whole_board_cluster_kernel" in n for n in names)
     check(chunks > 0 and k1 > 0, f"phase 23 trace-device: {chunks} engine.chunk ranges, "
-          f"{k1} whole-board kernels")
+          f"{k1} whole-board kernels on a cluster")
     print(f"phase 23 trace-device: {traces[-1].name} holds {chunks} engine.chunk ranges and "
-          f"{k1} whole_board_kernel records {card_tag}")
+          f"{k1} whole_board_cluster_kernel records {card_tag}")
 
     # 4. the cost of the layer: the host time of one event pair, then the
     # 512^2 x 10000 sessions' walls with metrics off, on, on with -trace,
@@ -2018,7 +2102,6 @@ def kernel_times(tree: str) -> int:
         byte_calls["k5_512_n8"] = (lambda: byte_board.step_n(c512, 8, **forced), k5, 50)
         byte_calls["k5_512_n100"] = (lambda: byte_board.step_n(c512, 100, **forced), k5, 20)
     times = {
-        "k1_512_n100": cuda_ms(lambda: whole_board.step_n(p512, 100, counted=True), reps=50),
         "k2_1000x128_n100": cuda_ms(lambda: batch_board.step_n(b1000, 100), reps=20),
         "k2_256x128_n64": cuda_ms(lambda: batch_board.step_n(b256, 64), reps=50),
         "tiled_16384_k8": cuda_ms(lambda: tiled.step_n(t16k, tiled.MAX_TURNS), reps=10),
@@ -2033,6 +2116,22 @@ def kernel_times(tree: str) -> int:
     for name, (fn, kernel, reps) in byte_calls.items():
         device[name] = device_ms(fn, kernel, reps=reps)[0]
         times[name] = cuda_ms(fn, reps=reps)
+    # K1's single board at 512^2, 256^2 and 128^2, counted, at 100 turns and
+    # at the engine's 4096-turn chunk, on the route the tree picks and,
+    # where the tree has a choice of routes, on one block
+    takes_route = hasattr(whole_board, "launch_one")
+    k1_boards = {512: p512, 256: words((8, 256)), 128: words((4, 128))}
+    for side, packed in k1_boards.items():
+        out = torch.empty_like(packed)
+        counts = torch.empty(packed.shape[0], dtype=torch.int32, device=dev)
+        for n, reps in ((100, 50), (4096, 5)):
+            times[f"k1_{side}_n{n}"] = cuda_ms(
+                lambda: whole_board.step_n(packed, n, counted=True), reps=reps)
+            if takes_route:
+                times[f"k1_{side}_n{n}_block"] = cuda_ms(lambda: whole_board.launch_one(
+                    packed, out, counts, n, 0, 8, 12, "pallas.vmem_bit", 1), reps=reps)
+    device["k1_512_n100"] = device_ms(lambda: whole_board.step_n(p512, 100, counted=True),
+                                      "whole_board(?:_cluster)?_kernel", reps=20)[0]
     if (pathlib.Path(tree) / "gol_distributed_final_tpu_torch" / "ops" / "sparse_tiles.py").exists():
         # the sparse kernel, in the trees that have it, by one yardstick for
         # any design: the device span of a dispatch (its first sparse
@@ -2203,6 +2302,7 @@ def main() -> int:
     conway = "StaticRuleILj8ELj0ELj16E"
     wide_tile = "TileILi{}ELi{}E".format(*byte_tiled.TILE)
     for name, want in (("whole_board", ("whole_board_kernelILi0E", conway)),
+                       ("whole_board", ("whole_board_cluster_kernelILi0E", conway)),
                        ("tiled", ("tiled_kernelILi0ELi8E", conway)),
                        ("byte_board", ("byte_board_bits_kernelILi8E", conway)),
                        ("byte_tiled", ("byte_tiled_kernel", wide_tile, conway)),
@@ -2239,15 +2339,21 @@ def main() -> int:
                     want, want_counts = whole_board.step_n_plain(
                         packed, n, word_axis, rule.birth_mask, rule.survive_mask
                     )
+                    block, block_counts = torch.empty_like(packed), torch.empty_like(got_counts)
+                    whole_board.launch_one(packed, block, block_counts, n, word_axis,
+                                           rule.birth_mask, rule.survive_mask,
+                                           "pallas.vmem_bit", 1)
                     torch.cuda.synchronize()
-                    err = max(max_abs_err(got, want), max_abs_err(got_counts, want_counts))
+                    err = max(max_abs_err(got, want), max_abs_err(got_counts, want_counts),
+                              max_abs_err(block, want), max_abs_err(block_counts, want_counts))
                     check(err == 0, f"whole-board {size}^2 {rule.name} n={n} "
                                     f"word_axis={word_axis}: max abs err {err}")
                     k1_err = max(k1_err, err)
                     k1_cases += 1
     print(f"phase 3 parity: whole-board kernel equals its plain version in "
           f"{k1_cases} cases (64^2 and 512^2, 4 rules and B36/S125, n in 1/7/100, both "
-          f"packings, counts)")
+          f"packings, counts), on the route it picks (512^2: a cluster of "
+          f"{whole_board.cluster_plan((16, 512))[0]}) and on one block")
 
     tiled_err = 0
     tiled_cases = 0
@@ -4013,6 +4119,21 @@ def main() -> int:
           f"(n=1000 per launch); {k1_ms:.4f} ms per n={k1_n} launch, bound "
           f"{k1_bound_ms:.5f} ms ({k1_by}), {k1_ms / k1_bound_ms:.3g}x the bound; plain "
           f"{k1_plain_ms:.3f} ms {card_tag}")
+    # both routes of a single board, counted, at the engine's chunk and at
+    # 100 turns
+    for side in (512, 256, 128):
+        packed = bitpack.pack(board512[:side, :side], 0, dev)
+        plan = whole_board.cluster_plan(tuple(packed.shape))
+        out = torch.empty_like(packed)
+        counts = torch.empty(packed.shape[0], dtype=torch.int32, device=dev)
+        for n, reps in ((100, 50), (4096, 5)):
+            picked = cuda_ms(lambda: whole_board.step_n(packed, n, counted=True), reps=reps)
+            block = cuda_ms(lambda: whole_board.launch_one(
+                packed, out, counts, n, 0, CONWAY.birth_mask, CONWAY.survive_mask,
+                "pallas.vmem_bit", 1), reps=reps)
+            print(f"timing whole-board {side}^2 n={n}: {picked:.5f} ms on the route picked "
+                  f"({plan[0]} block(s), depth {plan[1]}), {block:.5f} ms on one block, "
+                  f"{block / picked:.3g}x {card_tag}")
 
     tiled_times = {}
     for shape in ((128, 4096), (512, 16384)):
@@ -4601,6 +4722,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
+    if sys.argv[1:2] == ["--k1-sweep"]:
+        sys.exit(k1_sweep())
     if sys.argv[1:2] == ["--workers-times"]:
         sys.exit(workers_times(sys.argv[2] if len(sys.argv) > 2 else str(REPO)))
     if sys.argv[1:2] == ["--sparse-sweep"]:

@@ -1,8 +1,9 @@
-// The whole-board bitboard kernel: n turns of any B/S rule on packed boards,
-// each held in one thread block's shared memory, plus each board's row
-// popcounts, or its alive count after every turn (history mode, below), in
-// one launch. The grid runs over a batch of B independent
-// boards (universes); a single board is the batch of one.
+// The whole-board bitboard kernels: n turns of any B/S rule on packed
+// boards, each held in one thread block's shared memory, plus each board's
+// row popcounts, or its alive count after every turn (history mode, below),
+// in one launch. The grid runs over a batch of B independent boards
+// (universes); a single board is the batch of one, and runs instead on a
+// thread block cluster, cut into bands (the cluster route, below).
 //
 // Replaces two Pallas kernels of the JAX package:
 // K1, gol_distributed_final_tpu/ops/pallas_stencil.py:217 (bit_pallas_call,
@@ -14,12 +15,12 @@
 //
 // What bounds it. Device memory is touched twice per launch, so bytes never
 // bound it: the int32 instruction rate does, 12 instructions per word per
-// turn for Conway at the least (ops/bitpack.py::ops_per_word). One board is
-// one block, so a batch of one (K1) reaches at most 1/132 of the card; a
-// batch fills the card with blocks, and then what a block spends per word
-// and how many blocks reside per SM set the time.
+// turn for Conway at the least (ops/bitpack.py::ops_per_word). One board on
+// one block reaches at most 1/132 of the card, hence the cluster route for
+// a batch of one; a batch fills the card with blocks, and then what a block
+// spends per word and how many blocks reside per SM set the time.
 //
-// Design. Block b owns board b: it reads the board's words from device
+// Design of the one-block kernel. Block b owns board b: it reads the board's words from device
 // memory once, runs all n turns in dynamic shared memory (two copies of the
 // board, ping-ponged, one __syncthreads() per turn: a whole board turns in
 // lockstep) and writes the board and its int32 row popcounts once. n and the
@@ -48,6 +49,33 @@
 // share, were slower at 1000 x 128^2 and at one 512^2 board, and no faster
 // at 256 x 128^2); PERF.md's kernel table has the times (chip_smoke.py).
 //
+// The cluster route (whole_board_cluster_kernel), for a batch of one: one
+// block reaches 1/132 of the card, so a lone board is cut into bands over a
+// thread block cluster of C blocks, each on its own SM, with K5's
+// band-and-halo turn loop (byte_board.cu's bit form).
+// Block b holds the band of Q / C lines from b * Q / C (the axis that is
+// not packed) plus d halo lines on each side, two copies in its own dynamic
+// shared memory. Between turns only __syncthreads(), each turn stepping the
+// shrinking cone; every d turns the cluster meets, reads its neighbours'
+// band edges through distributed shared memory and meets again; a last
+// phase of n % d turns. The torus closes across the lines through the
+// ring, along the packed axis inside each block. The first halo is read
+// from device memory; each block writes its own band once. In shared memory
+// a line's words lie side by side in both packings (word axis 0 is
+// transposed as it is loaded and stored), so the turn loop is the same for
+// both. Row popcounts: under word axis 1 a row is a line and a block's rows
+// are its own; under word axis 0 a row crosses every band, so each block
+// puts its band's part of every row into its free copy, the cluster meets,
+// block b adds up the parts of rows b, b + C, ... from every block through
+// distributed shared memory and writes them, and the cluster meets again
+// before any block leaves: exact, with no atomics and no zeroed vector.
+//
+// pick_cluster chooses C and d by the board, from a sweep on the H100
+// (chip_smoke.py --k1-sweep; PERF.md), and a cluster launch the card
+// refuses runs the one-block kernel instead. A batch above one (K2) and the
+// history mode stay on one block a board: a batch already fills the card
+// with blocks, and the history mode is off the sessions' path.
+//
 // History mode (the port of ops/bitpack.py:363 alive_history, an XLA
 // lax.scan of bit_step plus a popcount in the JAX package): the same launch
 // also writes int32 turn_counts[b][t], board b's alive count after turn
@@ -65,6 +93,7 @@
 // The gate, per board: both copies must fit the block's opt-in shared
 // memory (cudaDevAttrMaxSharedMemoryPerBlockOptin, 232,448 B on an H100),
 // so 8 * rows * cols <= that limit (ops/whole_board.py::fits).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -74,9 +103,26 @@
 #include "bit_step.cuh"
 #include "smem_opt_in.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMaxThreads = 1024;  // the largest block plan() chooses
+
+// The cluster route's plan (pick_cluster; ops/whole_board.py::cluster_plan
+// mirrors it). Measured on an H100 (chip_smoke.py --k1-sweep), a counted
+// 4096-turn launch in ms, one block against the plan's cluster: 512^2 6.39 /
+// 2.02 (16 blocks; 8: 2.45, 4: 3.30, 2: 4.43), 960^2 18.90 / 3.57 (16),
+// 256^2 2.37 / 1.42 (16), 224^2 2.75 / 1.37 (16, bands of 14 lines), 192^2
+// 1.41 / 1.33 (16, bands of 12; 8: 1.36), 160^2 1.50 / 1.22 (8; 16, bands of
+// 10: 1.35), 128^2 0.95 / 1.14 (8): one block up to 128^2 (512 words), a
+// cluster from 160^2 (800 words), bands of 12 lines or more. Halo depths of
+// 8 and 32 and about 256 or 1024 runs a block were at best 1% faster.
+constexpr int kMaxCluster = 16;        // the largest cluster picked (past the portable 8)
+constexpr int kMinClusterWords = 768;  // a smaller board stays on one block
+constexpr int kMinBand = 12;           // the thinnest band picked, in lines
+constexpr int kHaloDepth = 16;         // turns between two exchanges of halo lines, at most
+constexpr int kClusterThreadAim = 512;  // runs per block of the cluster, about
 
 // One thread's share of a board: the lines [j0, j0 + len) at packed index
 // i, as word offsets into a board copy.
@@ -182,6 +228,170 @@ whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     }
 }
 
+// A thread's share of a band copy on the cluster route, as in K5's bit
+// form (byte_board.cu), whose turn loop the cluster kernel repeats with the
+// cluster's size a run-time argument. K5 keeps its own: K5 calling one
+// shared loop measured 5% slower at 192^2 (0.0367 against 0.0349 ms of
+// device time a 100-turn launch; PERF.md).
+namespace bands {
+
+// The slots [j0, j0 + run_len) at packed index i.
+struct Run {
+    int m, c, p;  // packed index i-1, i, i+1, wrapped
+    int j0;
+};
+
+__device__ __forceinline__ Run make_run(int item, int P, int run_len) {
+    const int r = item / P;
+    const int i = item - r * P;
+    Run w;
+    w.j0 = r * run_len;
+    w.m = (i == 0 ? P : i) - 1;
+    w.c = i;
+    w.p = i + 1 == P ? 0 : i + 1;
+    return w;
+}
+
+// The run's slots within [lo, hi) of `nxt` from `cur`, 1 <= lo <= hi <
+// slots: the slots either side of them are read, never wrapped.
+template <class Rule>
+__device__ __forceinline__ void step_run(const Run& w, const uint32_t* cur, uint32_t* nxt,
+                                         int P, int run_len, int lo, int hi, const Rule& rule) {
+    const int js = max(w.j0, lo);
+    const int je = min(w.j0 + run_len, hi);
+    if (js < je) {
+        gol_walk(cur + w.m, cur + w.c, cur + w.p, nxt + w.c, (js - 1) * P, js * P, P, je - js,
+                 je * P, rule);
+    }
+}
+
+}  // namespace bands
+
+// A band of one board on a cluster of `cluster` blocks (the header
+// comment): n turns, the band written back, and unless row_counts is null
+// the board's row popcounts.
+template <int WORD_AXIS, class Rule>
+__global__ void __launch_bounds__(kMaxThreads)
+whole_board_cluster_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                           int32_t* __restrict__ row_counts, int rows, int cols, int n,
+                           int cluster, int depth, int run_len, int runs, Rule rule) {
+    extern __shared__ uint32_t smem[];
+    const int P = WORD_AXIS == 0 ? rows : cols;  // words per line
+    const int Q = WORD_AXIS == 0 ? cols : rows;  // lines
+    const int band = Q / cluster;
+    const int rank = static_cast<int>(cg::this_cluster().block_rank());
+    const int line0 = rank * band;
+    const int slots = band + 2 * depth;
+    uint32_t* cur = smem;
+    uint32_t* nxt = smem + slots * P;
+
+    // the band and its halo lines, from device memory: slot s holds line
+    // line0 - depth + s of the torus (depth <= band: one wrap at most);
+    // neighbouring threads read neighbouring words of device memory
+    for (int e = threadIdx.x; e < slots * P; e += blockDim.x) {
+        int s, i;
+        if (WORD_AXIS == 0) {
+            i = e / slots;
+            s = e - i * slots;
+        } else {
+            s = e / P;
+            i = e - s * P;
+        }
+        int line = line0 - depth + s;
+        line = line < 0 ? line + Q : (line >= Q ? line - Q : line);
+        cur[s * P + i] = WORD_AXIS == 0 ? in[i * cols + line] : in[line * cols + i];
+    }
+
+    // every block of the cluster is running before any reads another's
+    // shared memory
+    cg::cluster_group group = cg::this_cluster();
+    group.sync();
+
+    const int items = P * runs;
+    const int tid = threadIdx.x;
+    const bands::Run mine = bands::make_run(tid, P, run_len);
+    for (int left = n; left > 0;) {
+        // A phase of r <= depth turns on the block's own copy: turn s steps
+        // the slots that are still right, depth - r + s from either end, so
+        // after turn r exactly the band is.
+        const int r = min(depth, left);
+        left -= r;
+        for (int s = 1; s <= r; ++s) {
+            const int lo = depth - r + s;
+            const int hi = slots - lo;
+            if (tid < items) bands::step_run(mine, cur, nxt, P, run_len, lo, hi, rule);
+            // more runs than threads only for a band wider than the largest block
+            for (int item = tid + blockDim.x; item < items; item += blockDim.x) {
+                bands::step_run(bands::make_run(item, P, run_len), cur, nxt, P, run_len, lo, hi,
+                                rule);
+            }
+            __syncthreads();
+            uint32_t* tmp = cur;
+            cur = nxt;
+            nxt = tmp;
+        }
+        if (left > 0) {
+            // The halo lines for the next phase, from the neighbours' bands
+            // through distributed shared memory: the block above's last
+            // `depth` lines and the block below's first. Two meetings a
+            // phase: every band is finished before any is read, and every
+            // halo is read before any band is stepped on.
+            group.sync();
+            const uint32_t* above = group.map_shared_rank(cur, rank == 0 ? cluster - 1 : rank - 1);
+            const uint32_t* below = group.map_shared_rank(cur, rank + 1 == cluster ? 0 : rank + 1);
+            for (int e = tid; e < depth * P; e += blockDim.x) {
+                cur[e] = above[band * P + e];
+                cur[(band + depth) * P + e] = below[depth * P + e];
+            }
+            group.sync();
+        }
+    }
+    // the last read of another block's shared memory lies before the last
+    // meeting: from here a block reads and writes only its own, but for the
+    // row popcounts under word axis 0
+    const uint32_t* own = cur + depth * P;
+    for (int e = threadIdx.x; e < band * P; e += blockDim.x) {
+        if (WORD_AXIS == 0) {
+            const int i = e / band;
+            const int j = e - i * band;
+            out[i * cols + line0 + j] = own[j * P + i];
+        } else {
+            out[line0 * cols + e] = own[e];
+        }
+    }
+    if (row_counts == nullptr) return;
+
+    // one warp per row (or per row's part): strided __popc, then a shuffle
+    // reduction
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    if (WORD_AXIS == 1) {
+        for (int j = threadIdx.x >> 5; j < band; j += warps) {
+            int sum = 0;
+            for (int i = lane; i < P; i += 32) sum += __popc(own[j * P + i]);
+            sum = __reduce_add_sync(0xffffffffu, sum);
+            if (lane == 0) row_counts[line0 + j] = sum;
+        }
+        return;
+    }
+    int32_t* part = reinterpret_cast<int32_t*>(nxt);
+    for (int i = threadIdx.x >> 5; i < P; i += warps) {
+        int sum = 0;
+        for (int j = lane; j < band; j += 32) sum += __popc(own[j * P + i]);
+        sum = __reduce_add_sync(0xffffffffu, sum);
+        if (lane == 0) part[i] = sum;
+    }
+    group.sync();
+    for (int i = rank + cluster * static_cast<int>(threadIdx.x); i < P;
+         i += cluster * static_cast<int>(blockDim.x)) {
+        int sum = 0;
+        for (int b = 0; b < cluster; ++b) sum += group.map_shared_rank(part, b)[i];
+        row_counts[i] = sum;
+    }
+    // no block leaves while another reads its parts
+    group.sync();
+}
+
 // The SM count, resident threads and shared memory of an SM on the current
 // device, read once per device.
 cudaError_t sm_shape(int& sms, int& threads, int& smem) {
@@ -247,6 +457,80 @@ int launch(const void* in, void* out, void* row_counts, void* turn_counts, int b
     return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster for a board of Q lines of P words (ops/whole_board.py::
+// cluster_plan mirrors it): one block under kMinClusterWords, else the
+// largest of kMaxCluster, ..., 4, 2 that divides the lines into bands of at
+// least kMinBand lines whose copies, halos included, take no more shared
+// memory than the whole board's, else one block. The halo depth is
+// kHaloDepth, or the band where that is thinner.
+int pick_cluster(int P, int Q) {
+    if (static_cast<long long>(P) * Q < kMinClusterWords) return 1;
+    for (int c = kMaxCluster; c > 1; c /= 2) {
+        const int band = Q / c;
+        if (Q % c == 0 && band >= kMinBand && band + 2 * std::min(kHaloDepth, band) <= Q) {
+            return c;
+        }
+    }
+    return 1;
+}
+
+// One launch of the cluster route: `cluster` blocks, `depth` halo lines
+// (clamped to the band). Returns the launch's error; a cluster the card
+// cannot schedule is refused here.
+template <int WORD_AXIS, class Rule>
+cudaError_t launch_cluster(const void* in, void* out, void* row_counts, int rows, int cols,
+                           int n, int cluster, int depth, Rule rule, cudaStream_t stream) {
+    static std::atomic<bool> opted[kMaxDevices];
+    static std::atomic<bool> wide[kMaxDevices];
+    auto kernel = whole_board_cluster_kernel<WORD_AXIS, Rule>;
+    const int P = WORD_AXIS == 0 ? rows : cols;
+    const int Q = WORD_AXIS == 0 ? cols : rows;
+    if (cluster < 2 || Q % cluster != 0) return cudaErrorInvalidValue;
+    const int band = Q / cluster;
+    depth = std::min(depth, band);
+    if (depth < 1) return cudaErrorInvalidValue;
+    const int slots = band + 2 * depth;
+    // the shortest odd runs that keep the block near kClusterThreadAim threads
+    int run_len = 1;
+    while (run_len < slots && P * ((slots + run_len - 1) / run_len) > kClusterThreadAim) {
+        run_len += 2;
+    }
+    const int runs = (slots + run_len - 1) / run_len;
+    const long long items = static_cast<long long>(P) * runs;
+    const int threads =
+        items >= kMaxThreads ? kMaxThreads : static_cast<int>((items + 31) / 32 * 32);
+    const size_t smem = 2 * static_cast<size_t>(slots) * P * sizeof(uint32_t);
+    cudaError_t err = smem_opt_in_once(kernel, opted);
+    if (err != cudaSuccess) return err;
+    if (cluster > 8) {
+        // 16 blocks is past the portable cluster size; an H100 grants it
+        int device = 0;
+        err = cudaGetDevice(&device);
+        if (err != cudaSuccess) return err;
+        if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+        if (!wide[device].load(std::memory_order_acquire)) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (err != cudaSuccess) return err;
+            wide[device].store(true, std::memory_order_release);
+        }
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(cluster);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    cudaLaunchAttribute attribute[1];
+    attribute[0].id = cudaLaunchAttributeClusterDimension;
+    attribute[0].val.clusterDim.x = cluster;
+    attribute[0].val.clusterDim.y = 1;
+    attribute[0].val.clusterDim.z = 1;
+    config.attrs = attribute;
+    config.numAttrs = 1;
+    return cudaLaunchKernelEx(&config, kernel, static_cast<const uint32_t*>(in),
+                              static_cast<uint32_t*>(out), static_cast<int32_t*>(row_counts),
+                              rows, cols, n, cluster, depth, run_len, runs, rule);
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,6 +555,47 @@ int gol_whole_board_step(const void* in, void* out, void* row_counts, int batch,
             return launch<0, false>(in, out, row_counts, nullptr, batch, rows, cols, n, rule, s);
         }
         return launch<1, false>(in, out, row_counts, nullptr, batch, rows, cols, n, rule, s);
+    });
+}
+
+// n turns of one board, `in` (int32[rows, cols]), into `out`, with its row
+// popcounts into int32[rows] unless row_counts is null, on the route
+// given: cluster 0 picks by the board (pick_cluster), 1 is one block, 2, 4,
+// 8 or 16 a cluster of that many blocks, with `depth` halo lines (0:
+// kHaloDepth). A cluster launch the card refuses runs on one block
+// instead. *used gets
+// the blocks the board ran on (1 for one block). Returns the launch's CUDA
+// error (0 on success); cudaErrorInvalidValue for a cluster that does not
+// divide the lines.
+int gol_whole_board_step_as(const void* in, void* out, void* row_counts, int rows, int cols,
+                            int word_axis, int n, unsigned common, unsigned dead_only,
+                            unsigned live_only, int cluster, int depth, int* used,
+                            void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int P = word_axis == 0 ? rows : cols;
+    const int Q = word_axis == 0 ? cols : rows;
+    if (cluster == 0) cluster = pick_cluster(P, Q);
+    if (depth == 0) depth = kHaloDepth;
+    if (cluster > 1 && Q % cluster != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
+        if (cluster > 1) {
+            const cudaError_t err =
+                word_axis == 0
+                    ? launch_cluster<0>(in, out, row_counts, rows, cols, n, cluster, depth,
+                                        rule, s)
+                    : launch_cluster<1>(in, out, row_counts, rows, cols, n, cluster, depth,
+                                        rule, s);
+            if (err == cudaSuccess) {
+                *used = cluster;
+                return static_cast<int>(cudaGetLastError());
+            }
+            cudaGetLastError();  // the refusal is not left pending: one block runs instead
+        }
+        *used = 1;
+        if (word_axis == 0) {
+            return launch<0, false>(in, out, row_counts, nullptr, 1, rows, cols, n, rule, s);
+        }
+        return launch<1, false>(in, out, row_counts, nullptr, 1, rows, cols, n, rule, s);
     });
 }
 

@@ -57,6 +57,9 @@ reference call it replaces:
 
     pallas.vmem_byte        K5, ops/byte_board.py            (pallas_step_n_fn)
     pallas.vmem_bit         K1, ops/whole_board.py           (pallas_step_n_fn)
+    pallas.vmem_bit_cluster K1's cluster route, ops/whole_board.py (a single
+                            board in bands over a thread block cluster,
+                            whatever site its caller names; the port's own)
     pallas.vmem_bit_batch   K2, ops/batch_board.py
     pallas.tiled            the tiled kernel, ops/tiled.py
     pallas.fused_bit        K1 under FusedBitPlane / the bit ladder

@@ -542,6 +542,13 @@ FUSED_TURNS_PER_LAUNCH = _R.histogram(
     "one-dispatch step+count programs the whole chunk. A collapse toward "
     "1 means the fusion is being bypassed — the launch floor is back.",
 )
+WHOLE_BOARD_LAUNCHES_TOTAL = _R.counter(
+    "gol_whole_board_launches_total",
+    "Launches of the whole-board kernel for a single board "
+    "(ops/whole_board.py::step_n), by the route that ran: one block, or "
+    "the board cut into bands over a thread block cluster.",
+    labelnames=("route",),
+)
 STRIP_ROWS_SKIPPED_TOTAL = _R.counter(
     "gol_strip_rows_skipped_total",
     "Row-steps the resident worker's dead-band skip did NOT compute "

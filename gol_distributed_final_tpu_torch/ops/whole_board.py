@@ -19,6 +19,17 @@ the block's opt-in limit the card reports. The JAX package's
 ``fits_vmem`` budget does not apply. A board past the gate goes to the
 tiled kernel (ops/tiled.py); the planes route, this module only refuses.
 
+A single board (``step_n``) runs on the cluster route where
+``cluster_plan`` gives it more than one block: its lines cut into bands
+over a thread block cluster, each block on its own SM, with K5's
+band-and-halo turn loop (csrc/byte_board.cu). ``cluster_plan`` mirrors the
+kernel source's ``pick_cluster``, the measured choice of blocks and halo
+depth; a cluster launch the card refuses runs on one block instead. The
+batches of ``ops/batch_board.py`` and the history mode stay on one block a
+board. The cluster route's launches are timed under their own site,
+``CLUSTER_SITE``, and counted apart (``cluster_launches``, and
+``gol_whole_board_launches_total{route}`` with metrics on).
+
 ``step_n`` takes the plain version (``bit_step_n`` plus ``row_popcounts``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
 raises.
@@ -38,6 +49,8 @@ import ctypes
 import torch
 
 from ..obs import device as _device
+from ..obs import instruments as _ins
+from ..obs import metrics as _metrics
 from . import _build
 from .bitpack import (
     bit_launch_cost, bit_step, bit_step_n, row_popcounts, rule_masks, turn_counts,
@@ -49,9 +62,24 @@ from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 H100_SMEM_OPTIN = 232_448
 
 #: kernel launches made by ``step_n``; ``plain_calls`` counts the times it
-#: took the plain version (CPU tensors) instead
+#: took the plain version (CPU tensors) instead; ``cluster_launches`` the
+#: launches among ``launches`` that ran on a cluster
 launches = 0
 plain_calls = 0
+cluster_launches = 0
+
+#: the cluster route's plan (csrc/whole_board.cu: kMaxCluster,
+#: kMinClusterWords, kMinBand, kHaloDepth; pick_cluster, where the sweep
+#: on an H100 that set them is written): one block up to 128^2 (512 words),
+#: a cluster from 160^2 (800 words), bands of at least 12 lines
+MAX_CLUSTER = 16
+MIN_CLUSTER_WORDS = 768
+MIN_BAND = 12
+HALO_DEPTH = 16
+
+#: the telemetry site of the cluster route's launches, whatever site the
+#: caller names for the one-block kernel
+CLUSTER_SITE = "pallas.vmem_bit_cluster"
 
 #: history-mode launches made by ``history``, and its plain versions
 history_launches = 0
@@ -66,6 +94,12 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+    ],
+    "gol_whole_board_step_as": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
     ],
     "gol_whole_board_history": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -105,9 +139,87 @@ def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask, site) ->
             ))
 
 
+def launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask, site,
+               cluster=0, depth=0) -> int:
+    """One launch for one contiguous int32 board ``[rows, cols]`` (the
+    callers check it), on the route ``cluster`` gives: 0 the kernel's pick
+    (``cluster_plan``), 1 one block, 2, 4, 8 or 16 a cluster of that many
+    blocks, with ``depth`` halo lines (0: the kernel's), which is how the
+    routes are checked and timed against each other. Returns the blocks the board ran on: 1 where the card refused
+    the cluster. Raises on a refused launch. With metrics on the
+    launch is timed under ``site``, or ``CLUSTER_SITE`` on a cluster."""
+    global launches, cluster_launches
+    rows, cols = packed.shape
+    common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
+    used = ctypes.c_int(0)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream()
+        started = _device.begin(packed.device, stream)
+        err = _lib().gol_whole_board_step_as(
+            packed.data_ptr(), out.data_ptr(), None if counts is None else counts.data_ptr(),
+            rows, cols, word_axis, n, common, dead_only, live_only, cluster, depth,
+            ctypes.byref(used), stream.cuda_stream,
+        )
+        _build.check(err, "whole-board kernel launch")
+        on_cluster = used.value > 1
+        if started is not None:
+            _device.end(CLUSTER_SITE if on_cluster else site, packed.device, started,
+                        *bit_launch_cost(packed.numel(), n, birth_mask, survive_mask,
+                                         0 if counts is None else 4 * rows))
+    launches += 1
+    cluster_launches += on_cluster
+    if _metrics.enabled():
+        _ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels("cluster" if on_cluster else "block").inc()
+    return used.value
+
+
 def reset_counts() -> None:
-    global launches, plain_calls, history_launches, history_plain_calls
-    launches = plain_calls = history_launches = history_plain_calls = 0
+    global launches, plain_calls, cluster_launches, history_launches, history_plain_calls
+    launches = plain_calls = cluster_launches = history_launches = history_plain_calls = 0
+
+
+def _lines(shape: tuple[int, int], word_axis: int) -> tuple[int, int]:
+    """``(P, Q)`` of a packed board: words per line (the packed axis) and
+    lines (the other axis), as the cluster route cuts them."""
+    return (shape[0], shape[1]) if word_axis == 0 else (shape[1], shape[0])
+
+
+def cluster_plan(shape: tuple[int, int], word_axis: int = 0) -> tuple[int, int]:
+    """``(blocks, halo depth)`` the kernel picks for one packed board of
+    ``shape``: ``(1, 0)`` (one block) under ``MIN_CLUSTER_WORDS`` words,
+    else the largest of ``MAX_CLUSTER``, ..., 4, 2 blocks that divides the
+    lines into bands of at least ``MIN_BAND`` lines whose copies, halos
+    included, take no more shared memory than the whole board's, with
+    ``HALO_DEPTH`` halo lines or the band where that is thinner, else one
+    block."""
+    words, lines = _lines(shape, word_axis)
+    if words * lines >= MIN_CLUSTER_WORDS:
+        cluster = MAX_CLUSTER
+        while cluster > 1:
+            band, depth = lines // cluster, min(HALO_DEPTH, lines // cluster)
+            if lines % cluster == 0 and band >= MIN_BAND and band + 2 * depth <= lines:
+                return cluster, depth
+            cluster //= 2
+    return 1, 0
+
+
+def bands(shape: tuple[int, int], word_axis: int, cluster: int) -> list[tuple[int, int]]:
+    """``(first line, lines)`` of each block's band on a cluster of
+    ``cluster`` blocks: block b holds the lines from ``b * Q / cluster``."""
+    lines = _lines(shape, word_axis)[1]
+    if lines % cluster:
+        raise ValueError(f"{cluster} blocks do not divide {lines} lines")
+    band = lines // cluster
+    return [(b * band, band) for b in range(cluster)]
+
+
+def phases(n: int, depth: int) -> list[int]:
+    """The turns of each phase between two meetings of the cluster: ``depth``
+    each, and a last, shorter one of ``n % depth``; one phase of all n on
+    one block (``depth`` 0)."""
+    if depth == 0:
+        return [n] if n else []
+    return [depth] * (n // depth) + ([n % depth] if n % depth else [])
 
 
 def smem_bytes(shape: tuple[int, int]) -> int:
@@ -179,9 +291,10 @@ def step_n(
 ):
     """n turns of an int32 bitboard ``[rows, cols]``; with ``counted`` also
     its ``int32[rows]`` row popcounts, as ``(board, counts)``. The input is
-    never written. ``site`` is the telemetry site the launch is timed
-    under (obs/device.py)."""
-    global launches, plain_calls
+    never written. ``site`` is the telemetry site the one-block launch is
+    timed under (obs/device.py); the route is the kernel's pick
+    (``launch_one``)."""
+    global plain_calls
     n = int(n)
     if n < 0:
         raise ValueError(f"turn count must be >= 0, got {n}")
@@ -201,9 +314,7 @@ def step_n(
     counts = (
         torch.empty(rows, dtype=torch.int32, device=packed.device) if counted else None
     )
-    launch(packed[None], out[None], None if counts is None else counts[None],
-           n, word_axis, birth_mask, survive_mask, site)
-    launches += 1
+    launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask, site)
     return (out, counts) if counted else out
 
 

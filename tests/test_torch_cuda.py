@@ -163,6 +163,151 @@ def test_bitboard_kernels_per_rule(cuda_device, rule, word_axis):
         assert torch.equal(got3, bitpack.bit_step_n(ragged, n, word_axis, *masks))
 
 
+#: single boards on K1's cluster route: 512^2 in both packings, 256^2, and
+#: 640 x 384 (under the gate, not square) in both packings
+CLUSTER_BOARDS = [((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((20, 384), 0), ((640, 12), 1)]
+
+
+def _route_turns(depth):
+    """Turns across a phase's edges, a short last phase and the engine's
+    chunk."""
+    return (0, 1, depth - 1, depth, depth + 1, 100, 4096)
+
+
+def _assert_counted_equal(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _on_one_block(packed, n, word_axis, birth_mask=life.CONWAY.birth_mask,
+                  survive_mask=life.CONWAY.survive_mask):
+    """K1's counted one-block route, whatever the plan picks."""
+    out = torch.empty_like(packed)
+    counts = torch.empty(packed.shape[0], dtype=torch.int32, device=packed.device)
+    assert whole_board.launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask,
+                                  "pallas.vmem_bit", 1) == 1
+    return out, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,word_axis", CLUSTER_BOARDS)
+def test_whole_board_cluster_route_matches_plain_and_one_block(cuda_device, shape, word_axis):
+    """A single board takes the cluster route the plan gives it, and equals
+    the plain version and the one-block kernel bit for bit, board and row
+    counts, counted and not: every compiled rule and two run-time ones, n
+    across a phase's edges and the engine's 4096-turn chunk."""
+    packed = _words(shape, sum(shape) + word_axis, cuda_device)
+    blocks, depth = whole_board.cluster_plan(shape, word_axis)
+    assert blocks > 1
+    for rule in ALL_RULES:
+        masks = (rule.birth_mask, rule.survive_mask)
+        for n in _route_turns(depth):
+            before = (whole_board.launches, whole_board.cluster_launches)
+            got = whole_board.step_n(packed, n, word_axis, *masks, counted=True)
+            uncounted = whole_board.step_n(packed, n, word_axis, *masks)
+            block = _on_one_block(packed, n, word_axis, *masks)
+            want = whole_board.step_n_plain(packed, n, word_axis, *masks)
+            torch.cuda.synchronize()
+            assert (whole_board.launches, whole_board.cluster_launches) == \
+                (before[0] + 3, before[1] + 2), (rule.name, n)
+            _assert_counted_equal(got, want)
+            _assert_counted_equal(block, want)
+            assert torch.equal(uncounted, want[0]), (rule.name, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word_axis", [0, 1])
+def test_whole_board_cluster_route_on_the_image(cuda_device, word_axis):
+    """images/512x512.pgm on the picked route against the plain version,
+    the one-block kernel and check/alive's count at each turn."""
+    with open(REPO_ROOT / "check" / "alive" / "512x512.csv") as f:
+        golden = {int(r["completed_turns"]): int(r["alive_cells"]) for r in csv.DictReader(f)}
+    packed = bitpack.pack(read_pgm(REPO_ROOT / "images" / "512x512.pgm"), word_axis,
+                          cuda_device)
+    depth = whole_board.cluster_plan(tuple(packed.shape), word_axis)[1]
+    before = whole_board.cluster_launches
+    for n in _route_turns(depth):
+        got = whole_board.step_n(packed, n, word_axis, counted=True)
+        block = _on_one_block(packed, n, word_axis)
+        want = whole_board.step_n_plain(packed, n, word_axis)
+        torch.cuda.synchronize()
+        _assert_counted_equal(got, want)
+        _assert_counted_equal(block, want)
+        if n:
+            assert int(got[1].sum()) == golden[n]
+    assert whole_board.cluster_launches == before + len(_route_turns(depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,word_axis", [((16, 512), 0), ((512, 16), 1), ((8, 256), 0)])
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("depth", [8, 32])
+def test_whole_board_forced_clusters_match_plain(cuda_device, shape, word_axis, cluster, depth):
+    """Every cluster size at halo depths the plan does not pick (clamped to
+    a band thinner than the depth), on the blocks asked for."""
+    packed = _words(shape, cluster + depth, cuda_device)
+    out = torch.empty_like(packed)
+    counts = torch.empty(shape[0], dtype=torch.int32, device=cuda_device)
+    for n in _route_turns(depth):
+        used = whole_board.launch_one(packed, out, counts, n, word_axis, life.CONWAY.birth_mask,
+                                      life.CONWAY.survive_mask, "pallas.vmem_bit", cluster,
+                                      depth)
+        torch.cuda.synchronize()
+        assert used == cluster
+        _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, n, word_axis))
+
+
+@pytest.mark.cuda
+def test_whole_board_refused_cluster_runs_on_one_block(cuda_device):
+    """A cluster the card cannot schedule (32 blocks, past the largest any
+    card takes) runs on one block instead, right, and counted as one
+    block; the next launch takes its cluster again."""
+    packed = _words((16, 512), 5, cuda_device)
+    out = torch.empty_like(packed)
+    counts = torch.empty(16, dtype=torch.int32, device=cuda_device)
+    args = (life.CONWAY.birth_mask, life.CONWAY.survive_mask, "pallas.vmem_bit")
+    before = whole_board.cluster_launches
+    assert whole_board.launch_one(packed, out, counts, 37, 0, *args, 32) == 1
+    torch.cuda.synchronize()
+    _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
+    assert whole_board.cluster_launches == before
+    assert whole_board.launch_one(packed, out, counts, 37, 0, *args) == \
+        whole_board.cluster_plan((16, 512))[0]
+    torch.cuda.synchronize()
+    _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,word_axis", [
+    ((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((4, 128), 0), ((5, 160), 0),
+    ((6, 192), 0), ((20, 384), 0), ((640, 12), 1), ((29, 1000), 0), ((1500, 4), 0),
+    ((100, 24), 0), ((1, 1), 0),
+])
+def test_whole_board_kernel_picks_the_plan(cuda_device, shape, word_axis):
+    """The kernel's own pick is the Python mirror's, on the card."""
+    packed = _words(shape, 3, cuda_device)
+    used = whole_board.launch_one(packed, torch.empty_like(packed), None, 3, word_axis,
+                                  life.CONWAY.birth_mask, life.CONWAY.survive_mask,
+                                  "pallas.vmem_bit")
+    torch.cuda.synchronize()
+    assert used == whole_board.cluster_plan(shape, word_axis)[0]
+
+
+@pytest.mark.cuda
+def test_whole_board_route_shows_in_the_kernels_name(cuda_device):
+    """A single 512^2 board runs whole_board_cluster_kernel; a batch of
+    two such boards runs the one-block whole_board_kernel, and counts no
+    single-board launch."""
+    one = _words((16, 512), 6, cuda_device)
+    two = _words((2, 16, 512), 7, cuda_device)
+    names = _traced_kernels(lambda: whole_board.step_n(one, 3, counted=True),
+                            ("whole_board_cluster_kernel",))
+    assert names and all("whole_board_cluster_kernel<0, StaticRule" in n for n in names), names
+    before = (whole_board.launches, whole_board.cluster_launches)
+    names = _traced_kernels(lambda: batch_board.step_n(two, 3), ("whole_board_kernel",))
+    assert names and all("whole_board_kernel<0" in n for n in names), names
+    assert (whole_board.launches, whole_board.cluster_launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [64, 128, 512])
 @pytest.mark.parametrize("batch", [1, 7, 256, 1000])
@@ -1180,8 +1325,8 @@ def _obs_off():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("site_call", ["whole_board", "batch_board", "tiled", "byte_board",
-                                       "byte_tiled", "strip_steps"])
+@pytest.mark.parametrize("site_call", ["whole_board", "whole_board_block", "batch_board",
+                                       "tiled", "byte_board", "byte_tiled", "strip_steps"])
 def test_each_wrapper_times_its_launches_by_events(cuda_device, site_call):
     """With metrics on, every launch of a wrapper is one event pair under
     its site, resolved without a synchronisation of the card: the site's
@@ -1192,8 +1337,10 @@ def test_each_wrapper_times_its_launches_by_events(cuda_device, site_call):
     from gol_distributed_final_tpu_torch.ops import strip_steps
 
     calls = {
-        "whole_board": (whole_board, "pallas.vmem_bit",
+        "whole_board": (whole_board, whole_board.CLUSTER_SITE,
                         lambda: whole_board.step_n(_words((16, 512), 1, cuda_device), 64)),
+        "whole_board_block": (whole_board, "pallas.vmem_bit",
+                              lambda: _on_one_block(_words((16, 512), 1, cuda_device), 64, 0)),
         "batch_board": (batch_board, "pallas.vmem_bit_batch",
                         lambda: batch_board.step_n(_words((8, 4, 128), 2, cuda_device), 16)),
         "tiled": (tiled, "pallas.tiled",

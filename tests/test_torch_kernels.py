@@ -68,6 +68,168 @@ def test_whole_board_gate_is_the_cards_shared_memory():
     assert not whole_board.fits((32, 1024), "cpu")  # 1024^2 board: 262,144 B
 
 
+# -- K1's cluster route: the plan and the route choice ------------------------
+
+
+#: packed shape, word axis, and the (blocks, halo depth) the plan gives
+CLUSTER_PLANS = [
+    ((16, 512), 0, (16, 16)), ((512, 16), 1, (16, 16)),  # 512^2: bands of 32 lines
+    ((8, 256), 0, (16, 16)), ((256, 8), 1, (16, 16)),    # 256^2: bands of 16 lines
+    ((4, 128), 0, (1, 0)), ((128, 4), 1, (1, 0)),        # 128^2: 512 words, one block
+    ((20, 384), 0, (16, 16)), ((640, 12), 1, (16, 16)),  # 640 x 384 in both packings
+    ((5, 160), 0, (8, 16)),                              # 160 lines: 16 bands of 10 too thin
+    ((6, 192), 0, (16, 12)), ((7, 224), 0, (16, 14)),    # bands thinner than the halo depth
+    ((29, 1000), 0, (8, 16)),                            # 1000 lines: 8 divides, 16 does not
+    ((1500, 4), 0, (1, 0)), ((4, 1500), 1, (1, 0)),      # 4 lines: no band holds a halo
+    ((100, 24), 0, (1, 0)),                              # 2 bands of 12 and halos: past the board
+    ((1, 1), 0, (1, 0)),
+]
+
+
+@pytest.mark.parametrize("shape,word_axis,plan", CLUSTER_PLANS)
+def test_cluster_plan_bands_and_phases(shape, word_axis, plan):
+    """The mirror of the kernel's pick: the blocks and halo depth, bands
+    that split the lines evenly, each with room for its halo, and every
+    band's two copies with halos within one block's shared memory."""
+    assert whole_board.cluster_plan(shape, word_axis) == plan
+    blocks, depth = plan
+    words, lines = (shape if word_axis == 0 else shape[::-1])
+    bands = whole_board.bands(shape, word_axis, blocks)
+    assert [first for first, _ in bands] == [b * lines // blocks for b in range(blocks)]
+    assert {size for _, size in bands} == {lines // blocks}
+    if blocks > 1:
+        assert words * lines >= whole_board.MIN_CLUSTER_WORDS
+        assert lines // blocks >= whole_board.MIN_BAND
+        assert depth == min(whole_board.HALO_DEPTH, lines // blocks)
+        assert 2 * 4 * (lines // blocks + 2 * depth) * words <= whole_board.smem_bytes(shape)
+
+
+@pytest.mark.parametrize("n,depth,want", [
+    (0, 16, []), (1, 16, [1]), (15, 16, [15]), (16, 16, [16]), (17, 16, [16, 1]),
+    (100, 16, [16] * 6 + [4]), (4096, 16, [16] * 256), (100, 0, [100]), (0, 0, []),
+])
+def test_cluster_phases_end_with_the_short_one(n, depth, want):
+    """Phases of ``depth`` turns between the cluster's meetings, the last
+    one n % depth; one phase of all n on one block."""
+    assert whole_board.phases(n, depth) == want
+    assert sum(want) == n
+
+
+def test_cluster_plan_matches_the_kernel_source():
+    """ops/whole_board.py's plan mirrors csrc/whole_board.cu's constants,
+    and both say the same rule."""
+    src = (pathlib.Path(whole_board.__file__).parents[1] / "csrc" / "whole_board.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kMaxCluster|kMinClusterWords|kMinBand|kHaloDepth) = (\d+);", src)}
+    assert consts == {"kMaxCluster": whole_board.MAX_CLUSTER,
+                      "kMinClusterWords": whole_board.MIN_CLUSTER_WORDS,
+                      "kMinBand": whole_board.MIN_BAND, "kHaloDepth": whole_board.HALO_DEPTH}
+    assert "P) * Q < kMinClusterWords" in src
+    assert "band >= kMinBand && band + 2 * std::min(kHaloDepth, band) <= Q" in src
+
+
+class _StubLibrary:
+    """The kernel library's entry points, recording their calls: the
+    single-board entry runs the board on the blocks the plan gives, or on
+    one block where ``refuse`` says the card refused the cluster."""
+
+    def __init__(self, refuse=False):
+        self.refuse = refuse
+        self.calls = []
+
+    def gol_whole_board_step_as(self, src, dst, counts, rows, cols, word_axis, n, common,
+                                dead_only, live_only, cluster, depth, used, stream):
+        self.calls.append(("one", rows, cols, word_axis, n, cluster))
+        picked = whole_board.cluster_plan((rows, cols), word_axis)[0] if cluster == 0 else cluster
+        used._obj.value = 1 if self.refuse else picked
+        return 0
+
+    def gol_whole_board_step(self, src, dst, counts, batch, rows, cols, word_axis, n, common,
+                             dead_only, live_only, stream):
+        self.calls.append(("batch", batch, rows, cols, word_axis, n))
+        return 0
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    """A stub in place of the built library and of the card's stream, with
+    metrics on, so a CPU tensor can stand in for a board on the card."""
+    import contextlib
+    import types
+
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+
+    def install(refuse=False):
+        stub = _StubLibrary(refuse)
+        monkeypatch.setattr(whole_board, "_lib", lambda: stub)
+        return stub
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    obs_metrics.registry().reset()
+    obs_device.reset_dispatch()
+    obs_metrics.enable(True)
+    yield install
+    obs_metrics.enable(False)
+    obs_metrics.registry().reset()
+    obs_device.reset_dispatch()
+
+
+def _routes():
+    from gol_distributed_final_tpu_torch.obs import instruments as ins
+
+    return {route: ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route).value
+            for route in ("block", "cluster")}
+
+
+@pytest.mark.parametrize("shape,word_axis,refuse", [
+    ((16, 512), 0, False), ((512, 16), 1, False), ((8, 256), 0, False),
+    ((4, 128), 0, False), ((16, 512), 0, True),
+])
+def test_single_board_route_with_the_library_stubbed(stub_library, shape, word_axis, refuse):
+    """A batch of one under the gate asks the kernel to pick (cluster 0)
+    and takes the cluster route where the plan gives more than one block:
+    counted in ``cluster_launches`` and under route "cluster", timed under
+    ``CLUSTER_SITE``. A board the plan keeps on one block, and a cluster
+    the card refuses, take one block, timed under the caller's site."""
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+
+    stub = stub_library(refuse)
+    board = torch.zeros(shape, dtype=torch.int32)
+    counts = torch.zeros(shape[0], dtype=torch.int32)
+    whole_board.reset_counts()
+    used = whole_board.launch_one(board, torch.empty_like(board), counts, 100, word_axis,
+                                  8, 12, "pallas.fused_bit")
+    assert stub.calls == [("one", *shape, word_axis, 100, 0)]
+    blocks = 1 if refuse else whole_board.cluster_plan(shape, word_axis)[0]
+    assert used == blocks
+    on_cluster = blocks > 1
+    assert (whole_board.launches, whole_board.cluster_launches) == (1, int(on_cluster))
+    assert _routes() == {"block": float(not on_cluster), "cluster": float(on_cluster)}
+    site = whole_board.CLUSTER_SITE if on_cluster else "pallas.fused_bit"
+    assert set(obs_device.dispatch_stats()) == {site}
+
+
+def test_a_batch_above_one_takes_one_block_with_the_library_stubbed(stub_library):
+    """K2's launches (ops/batch_board.py) go through ``launch``, the
+    one-block entry over the batch, whatever the plan gives one board of
+    it; the single-board route counters do not move."""
+    from gol_distributed_final_tpu_torch.obs import device as obs_device
+
+    stub = stub_library()
+    boards = torch.zeros((4, 16, 512), dtype=torch.int32)
+    whole_board.reset_counts()
+    whole_board.launch(boards, torch.empty_like(boards), None, 64, 0, 8, 12,
+                       "pallas.fused_bit_batch")
+    assert whole_board.cluster_plan((16, 512), 0)[0] > 1
+    assert stub.calls == [("batch", 4, 16, 512, 0, 64)]
+    assert (whole_board.launches, whole_board.cluster_launches) == (0, 0)
+    assert _routes() == {"block": 0.0, "cluster": 0.0}
+    assert set(obs_device.dispatch_stats()) == {"pallas.fused_bit_batch"}
+
+
 # -- the tiled kernel (K3 / K4) -----------------------------------------------
 
 
