@@ -98,11 +98,14 @@ the single card's tiled kernel, and the two-rank layout stopped at turn
 
 builds K1 and times its single board on every route at 512^2, 256^2,
 128^2 and 640 x 384 (both word axes), and 160^2, 192^2, 224^2 and 960^2
-(word axis 0): one block, and clusters of 2, 4, 8 and 16 blocks at halo
-depths 8, 16 and 32, each held first against the plain version (n in 0,
-1, d - 1, d, d + 1, 100); on standard output one JSON line a route and
-the fastest routes of each board, the measurement behind
-``whole_board.cluster_plan``.
+(word axis 0): one block; the shared-memory loop on clusters of 2, 4, 8
+and 16 blocks at halo depths 8, 16 and 32; the register loop on clusters
+of 8 and 16 at depths 8, 16, 32 and 48 and 2, 4 and 8 lines a thread;
+each held first against the plain version (n in 0, 1, d - 1, d, d + 1,
+100); on standard output the register loop's registers and
+spills, one JSON line a route, and for each board the plan's time
+against the shared-memory loop's plan and the fastest routes, the
+measurement behind ``whole_board.cluster_plan``.
 
     python3 chip_smoke.py --workers-times [TREE]
 
@@ -461,7 +464,7 @@ def kernel_label(mangled: str) -> str:
     """A kernel instantiation's short name from its mangled one, e.g.
     ``tiled<0, 8, StaticRule<8, 0, 16>>``."""
     kernel = re.search(
-        r"(whole_board_cluster|whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
+        r"(whole_board_cluster_registers|whole_board_cluster|whole_board|tiled|byte_board_bits|byte_board_bytes|byte_board|byte_tiled|"
         r"sparse_blocks|sparse_step|sparse_scatter|sparse_dilate|sparse_list|strip_steps)_kernel",
         mangled)
     name = kernel.group(1) if kernel else mangled[:40]
@@ -635,18 +638,45 @@ def workers_times(tree: str) -> int:
     return 0
 
 
-#: K1's sweep: the boards (packed shape, word axis) and the routes
+#: K1's sweep: the boards (packed shape, word axis) and the routes: the
+#: shared-memory loop on clusters of 2-16 blocks at three depths, the
+#: register loop on clusters of 8 and 16 at four depths and every compiled
+#: lines a thread
 K1_SWEEP_BOARDS = (((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((256, 8), 1),
                    ((4, 128), 0), ((128, 4), 1), ((20, 384), 0), ((640, 12), 1),
                    ((5, 160), 0), ((6, 192), 0), ((7, 224), 0), ((30, 960), 0))
 K1_SWEEP_CLUSTERS = (2, 4, 8, 16)
 K1_SWEEP_DEPTHS = (8, 16, 32)
+K1_SWEEP_REG_CLUSTERS = (8, 16)
+K1_SWEEP_REG_DEPTHS = (8, 16, 32, 48)
+
+
+def k1_sweep_routes(whole_board, shape, axis) -> list:
+    """The sweep's routes for one board (``whole_board.Route``s), the
+    plan's among them, each once."""
+    Route = whole_board.Route
+    words, lines = (shape[0], shape[1]) if axis == 0 else (shape[1], shape[0])
+    routes = [Route(1)]
+    for c in K1_SWEEP_CLUSTERS:
+        if lines % c == 0:
+            routes += [Route(c, min(d, lines // c)) for d in K1_SWEEP_DEPTHS]
+    for c in K1_SWEEP_REG_CLUSTERS:
+        if lines % c:
+            continue
+        band = lines // c
+        for d in sorted({min(d, band) for d in K1_SWEEP_REG_DEPTHS}):
+            routes += [Route(c, d, per_thread) for per_thread in whole_board.REG_LINE_CHOICES
+                       if whole_board.register_warps(words, band + 2 * d, per_thread)]
+    routes.append(whole_board.cluster_plan(shape, axis))
+    return list(dict.fromkeys(routes))
 
 
 def k1_sweep() -> int:
     """K1's single board on every route of the sweep (module docstring):
     each route held against the plain version, then timed by CUDA events
-    around back-to-back counted launches of 100 and 4096 turns."""
+    around back-to-back counted launches of 100 and 4096 turns; per board
+    the fastest routes, the plan's, and the shared-memory loop's on the
+    plan's cluster at depth 16, or the band (``smem`` below)."""
     import numpy as np
     import torch
 
@@ -655,14 +685,18 @@ def k1_sweep() -> int:
         return 1
     from gol_distributed_final_tpu_torch.ops import _build, whole_board
 
+    for name in ("whole_board", "byte_board"):
+        _build.library_path(name).unlink(missing_ok=True)  # built now, so ptxas reports
     reports = _build.build(["whole_board", "byte_board"])
-    for line in ptxas_summary(reports):
+    ptxas = ptxas_summary(reports)
+    for line in ptxas:
         print("ptxas", line)
     card = nvidia_smi("name,power.limit")
     print("card", card, nvidia_smi("clocks.sm,clocks.max.sm"))
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     rows = []
+    summary = []
     for shape, axis in K1_SWEEP_BOARDS:
         packed = torch.from_numpy(
             rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
@@ -674,36 +708,53 @@ def k1_sweep() -> int:
                 plain[n] = whole_board.step_n_plain(packed, n, axis)
             return plain[n]
 
-        lines = shape[1] if axis == 0 else shape[0]
-        routes = [(1, 0)] + [(c, d) for c in K1_SWEEP_CLUSTERS if lines % c == 0
-                             for d in K1_SWEEP_DEPTHS]
-        for cluster, depth in routes:
+        plan = whole_board.cluster_plan(shape, axis)
+        mine = []
+        for route in k1_sweep_routes(whole_board, shape, axis):
             out = torch.empty_like(packed)
             counts = torch.empty(rows_n, dtype=torch.int32, device=dev)
+            args = tuple(route)
+            d = route.depth
             used = None
-            for n in sorted({0, 1, max(depth - 1, 0), depth, depth + 1, 100}):
+            for n in sorted({0, 1, max(d - 1, 0), d, d + 1, 100}):
                 used = whole_board.launch_one(packed, out, counts, n, axis, 8, 12,
-                                              "pallas.vmem_bit", cluster, depth)
+                                              "pallas.vmem_bit", *args)
                 torch.cuda.synchronize()
                 board, row_counts = want(n)
                 check(torch.equal(out, board) and torch.equal(counts, row_counts),
-                      f"K1 sweep {shape} axis {axis} cluster {cluster} depth {depth} n {n}: "
+                      f"K1 sweep {shape} axis {axis} {route} n {n}: "
                       "differs from the plain version")
-            row = {"shape": list(shape), "axis": axis, "cluster": cluster, "depth": depth,
-                   "used": used, "card": card}
+            row = {"shape": list(shape), "axis": axis, "route": list(route),
+                   "ran": list(used), "plan": route == plan, "card": card}
             for n, reps in ((100, 50), (4096, 5)):
                 row[f"ms_n{n}"] = cuda_ms(lambda: whole_board.launch_one(
-                    packed, out, counts, n, axis, 8, 12, "pallas.vmem_bit", cluster, depth),
-                    reps=reps)
+                    packed, out, counts, n, axis, 8, 12, "pallas.vmem_bit", *args), reps=reps)
             rows.append(row)
+            mine.append(row)
             print(json.dumps(row))
-        mine = [r for r in rows if r["shape"] == list(shape) and r["axis"] == axis]
-        block = mine[0]
+        shared = whole_board.Route(plan.blocks, min(16, shape[1 - axis] // plan.blocks)
+                                   if plan.blocks > 1 else 0)
+        by_route = {tuple(r["route"]): r for r in mine}
         for key in ("ms_n100", "ms_n4096"):
             best = sorted(mine, key=lambda r: r[key])[:4]
-            print(f"{shape} axis {axis} {key}: one block {block[key]:.5f}; best " + "; ".join(
-                f"C{r['cluster']} d{r['depth']} (ran {r['used']}) {r[key]:.5f}"
-                for r in best))
+            planned = by_route[tuple(plan)][key]
+            before = by_route[tuple(shared)][key]
+            line = (f"{shape} axis {axis} {key}: plan {tuple(plan)} {planned:.5f}; smem "
+                    f"{tuple(shared)} {before:.5f} ({planned / before:.3f}); one block "
+                    f"{by_route[(1, 0, 0)][key]:.5f}; best " + "; ".join(
+                        f"{tuple(r['route'])} {r[key]:.5f}" for r in best))
+            summary.append(line)
+            print(line)
+    for line in summary:
+        print("summary", line)
+    # the register loop, every lines a thread the plan may take, every rule
+    # and both packings, spills nothing
+    for per_thread in whole_board.REG_LINE_CHOICES:
+        planned = [line for line in ptxas
+                   if line.startswith(f"whole_board_cluster_registers<0, {per_thread},")
+                   or line.startswith(f"whole_board_cluster_registers<1, {per_thread},")]
+        check(len(planned) == 10 and all(line.endswith(" 0 spill bytes") for line in planned),
+              f"the plan's register loop ({per_thread} lines a thread) spills: {planned}")
     print(json.dumps({"k1_sweep": len(rows), "card": card}))
     return 0
 
@@ -1339,11 +1390,11 @@ def observability(dev, board512, golden_counts, card_tag, open_window, close_win
     events = json.loads(traces[-1].read_text())["traceEvents"]
     names = [e.get("name", "") for e in events]
     chunks = sum(n == "engine.chunk" for n in names)
-    k1 = sum("whole_board_cluster_kernel" in n for n in names)
+    k1 = sum(bool(re.search(r"whole_board_cluster(?:_registers)?_kernel", n)) for n in names)
     check(chunks > 0 and k1 > 0, f"phase 23 trace-device: {chunks} engine.chunk ranges, "
           f"{k1} whole-board kernels on a cluster")
     print(f"phase 23 trace-device: {traces[-1].name} holds {chunks} engine.chunk ranges and "
-          f"{k1} whole_board_cluster_kernel records {card_tag}")
+          f"{k1} records of K1's cluster route {card_tag}")
 
     # 4. the cost of the layer: the host time of one event pair, then the
     # 512^2 x 10000 sessions' walls with metrics off, on, on with -trace,
@@ -2116,11 +2167,15 @@ def kernel_times(tree: str) -> int:
     for name, (fn, kernel, reps) in byte_calls.items():
         device[name] = device_ms(fn, kernel, reps=reps)[0]
         times[name] = cuda_ms(fn, reps=reps)
-    # K1's single board at 512^2, 256^2 and 128^2, counted, at 100 turns and
-    # at the engine's 4096-turn chunk, on the route the tree picks and,
-    # where the tree has a choice of routes, on one block
+    # K1's single board at 512^2, 256^2, 192^2 and 128^2, counted, at 100
+    # turns and at the engine's 4096-turn chunk, on the route the tree picks
+    # and, where the tree has a choice of routes, on one block; its history
+    # mode at 512^2 x 10000 where the tree has it
     takes_route = hasattr(whole_board, "launch_one")
-    k1_boards = {512: p512, 256: words((8, 256)), 128: words((4, 128))}
+    if hasattr(whole_board, "history"):
+        times["history_512_n10000"] = cuda_ms(lambda: whole_board.history(p512, 10_000),
+                                              reps=5)
+    k1_boards = {512: p512, 256: words((8, 256)), 192: words((6, 192)), 128: words((4, 128))}
     for side, packed in k1_boards.items():
         out = torch.empty_like(packed)
         counts = torch.empty(packed.shape[0], dtype=torch.int32, device=dev)
@@ -2131,7 +2186,8 @@ def kernel_times(tree: str) -> int:
                 times[f"k1_{side}_n{n}_block"] = cuda_ms(lambda: whole_board.launch_one(
                     packed, out, counts, n, 0, 8, 12, "pallas.vmem_bit", 1), reps=reps)
     device["k1_512_n100"] = device_ms(lambda: whole_board.step_n(p512, 100, counted=True),
-                                      "whole_board(?:_cluster)?_kernel", reps=20)[0]
+                                      "whole_board(?:_cluster(?:_registers)?)?_kernel",
+                                      reps=20)[0]
     if (pathlib.Path(tree) / "gol_distributed_final_tpu_torch" / "ops" / "sparse_tiles.py").exists():
         # the sparse kernel, in the trees that have it, by one yardstick for
         # any design: the device span of a dispatch (its first sparse
@@ -4132,7 +4188,7 @@ def main() -> int:
                 packed, out, counts, n, 0, CONWAY.birth_mask, CONWAY.survive_mask,
                 "pallas.vmem_bit", 1), reps=reps)
             print(f"timing whole-board {side}^2 n={n}: {picked:.5f} ms on the route picked "
-                  f"({plan[0]} block(s), depth {plan[1]}), {block:.5f} ms on one block, "
+                  f"({plan}), {block:.5f} ms on one block, "
                   f"{block / picked:.3g}x {card_tag}")
 
     tiled_times = {}

@@ -49,32 +49,56 @@
 // share, were slower at 1000 x 128^2 and at one 512^2 board, and no faster
 // at 256 x 128^2); PERF.md's kernel table has the times (chip_smoke.py).
 //
-// The cluster route (whole_board_cluster_kernel), for a batch of one: one
-// block reaches 1/132 of the card, so a lone board is cut into bands over a
-// thread block cluster of C blocks, each on its own SM, with K5's
-// band-and-halo turn loop (byte_board.cu's bit form).
-// Block b holds the band of Q / C lines from b * Q / C (the axis that is
-// not packed) plus d halo lines on each side, two copies in its own dynamic
-// shared memory. Between turns only __syncthreads(), each turn stepping the
-// shrinking cone; every d turns the cluster meets, reads its neighbours'
-// band edges through distributed shared memory and meets again; a last
-// phase of n % d turns. The torus closes across the lines through the
-// ring, along the packed axis inside each block. The first halo is read
-// from device memory; each block writes its own band once. In shared memory
-// a line's words lie side by side in both packings (word axis 0 is
-// transposed as it is loaded and stored), so the turn loop is the same for
-// both. Row popcounts: under word axis 1 a row is a line and a block's rows
-// are its own; under word axis 0 a row crosses every band, so each block
-// puts its band's part of every row into its free copy, the cluster meets,
-// block b adds up the parts of rows b, b + C, ... from every block through
-// distributed shared memory and writes them, and the cluster meets again
-// before any block leaves: exact, with no atomics and no zeroed vector.
+// The cluster route, for a batch of one: one block reaches 1/132 of the
+// card, so a lone board is cut into bands over a thread block cluster of C
+// blocks, each on its own SM, with K5's band-and-halo scheme (byte_board.cu's
+// bit form). Block b holds the band of Q / C lines from b * Q / C (the axis
+// that is not packed) plus d halo lines on each side. Every d turns the
+// cluster meets and each block reads its neighbours' band edges through
+// distributed shared memory; a last phase of n % d turns. The torus closes
+// across the lines through the ring, along the packed axis inside each
+// block. The first halo is read from device memory; each block writes its
+// own band once. In shared memory a line's words lie side by side in both
+// packings (word axis 0 is transposed as it is loaded and stored), so the
+// turn loops are the same for both. Row popcounts: under word axis 1 a row
+// is a line and a block's rows are its own; under word axis 0 a row crosses
+// every band, so each block puts its band's part of every row into shared
+// memory no other block reads, the cluster meets, block b adds up the parts
+// of rows b, b + C, ... from every block through distributed shared memory
+// and writes them, and the cluster meets again before any block leaves:
+// exact, with no atomics and no zeroed vector.
 //
-// pick_cluster chooses C and d by the board, from a sweep on the H100
-// (chip_smoke.py --k1-sweep; PERF.md), and a cluster launch the card
-// refuses runs the one-block kernel instead. A batch above one (K2) and the
-// history mode stay on one block a board: a batch already fills the card
-// with blocks, and the history mode is off the sessions' path.
+// Between two meetings a block runs its turns in one of two loops.
+// - The register loop (whole_board_cluster_registers_kernel), for a line of
+//   P <= 32 words: a line lies across P lanes of a warp, 32 / P line
+//   columns a warp, and each thread holds R consecutive lines at its packed
+//   index in registers for all n turns (R a template parameter). A turn
+//   makes each line's packed-axis sum once, with the packed neighbours by
+//   __shfl_sync (the torus wrapped in the source lane); the lines above and
+//   below a thread's stack come by shuffle from the warp's neighbouring
+//   column, and at a warp's ends from the neighbouring warps' edge line
+//   sums in shared memory, double-buffered by the turn's parity, so the
+//   turn needs one __syncthreads(). A warp whose lines have all left the
+//   phase's cone steps nothing. The cluster meets once a phase: each block
+//   writes its band into one of two copies in turn, so a neighbour's read
+//   of one copy lies before that block's next write of it. Edited copies
+//   on the H100 chose this hand-off between warps over ones with no
+//   block-wide barrier (PERF.md): at 512^2 each warp meeting its two
+//   neighbours at named barriers of 64 threads measured 8% slower a
+//   launch, mbarriers 15-20%, turn counts in shared memory with release
+//   and acquire 30%, and warp halos refreshed every 2 or 4 turns, with no
+//   trade between, 30% or more; with no hand-off at all (a wrong result)
+//   the loop was 20% faster, so the barrier is not what a turn costs.
+// - The shared-memory loop (whole_board_cluster_kernel), for a line past a
+//   warp or a band no block of at most kRegMaxThreads holds: two copies
+//   of the slots, one __syncthreads() between turns, each turn walking
+//   the shrinking cone (bit_step.cuh's gol_walk), and two meetings a phase.
+//
+// pick_cluster and plan_lines choose C, the loop and d by the board, from
+// the sweep, and a cluster launch the card refuses runs the one-block
+// kernel instead. A batch above one (K2) and the history mode stay on one
+// block a board: a batch already fills the card with blocks, and the
+// history mode is off the sessions' path.
 //
 // History mode (the port of ops/bitpack.py:363 alive_history, an XLA
 // lax.scan of bit_step plus a popcount in the JAX package): the same launch
@@ -123,6 +147,29 @@ constexpr int kMinClusterWords = 768;  // a smaller board stays on one block
 constexpr int kMinBand = 12;           // the thinnest band picked, in lines
 constexpr int kHaloDepth = 16;         // turns between two exchanges of halo lines, at most
 constexpr int kClusterThreadAim = 512;  // runs per block of the cluster, about
+// The register loop's plan (plan_lines; ops/whole_board.py::cluster_plan
+// mirrors it). Measured on an H100 (chip_smoke.py --k1-sweep), a counted
+// 4096-turn launch in ms, the shared-memory loop against the register loop
+// on the cluster pick_cluster gives: 512^2 2.03 / 1.00 (axis 1: 2.05 /
+// 1.01; 8 lines a thread 0.97-1.02, 2 lines 1.19; depth 32 1.03-1.05,
+// depth 8 1.31), 960^2 3.57 / 1.95 (8 lines a thread), 640 x 384 2.19 /
+// 1.29 (axis 1: 2.06 / 1.14), 256^2 1.40 / 0.78, 224^2 1.35 / 0.86, 192^2
+// 1.33 / 0.84, 160^2 1.23 / 0.81 (8 blocks). 2 lines a thread was the
+// better at 160^2 in one sweep and 30% the worse in the next; 4 is the
+// best or within 5% of it on every board.
+constexpr int kRegMaxWords = 32;   // a line on at most one warp's lanes, else the shared-memory loop
+constexpr int kRegMaxThreads = 512;  // the largest block: up to 128 registers a thread
+constexpr int kRegLines = 4;         // lines a thread
+constexpr int kRegLinesWide = 8;     // lines a thread where kRegLines would pass kRegMaxThreads
+constexpr int kRegMaxThreadsWide = 384;  // the largest block of kRegLinesWide: 168 registers
+
+// The largest block of the register loop with R lines a thread: the SM's
+// 65,536 registers over its threads leave each enough for its R words and
+// their sums, under any rule, with no spills.
+constexpr int register_threads(int R) {
+    return R < kRegLinesWide ? kRegMaxThreads : kRegMaxThreadsWide;
+}
+constexpr int kRegDepth = 16;      // turns between two meetings of the cluster, at most
 
 // One thread's share of a board: the lines [j0, j0 + len) at packed index
 // i, as word offsets into a board copy.
@@ -228,11 +275,11 @@ whole_board_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     }
 }
 
-// A thread's share of a band copy on the cluster route, as in K5's bit
-// form (byte_board.cu), whose turn loop the cluster kernel repeats with the
-// cluster's size a run-time argument. K5 keeps its own: K5 calling one
-// shared loop measured 5% slower at 192^2 (0.0367 against 0.0349 ms of
-// device time a 100-turn launch; PERF.md).
+// A thread's share of a band copy on the cluster route's shared-memory
+// loop, as in K5's bit form (byte_board.cu), whose turn loop the cluster
+// kernel repeats with the cluster's size a run-time argument. K5 keeps its
+// own: K5 calling one shared loop measured 5% slower at 192^2 (0.0367
+// against 0.0349 ms of device time a 100-turn launch; PERF.md).
 namespace bands {
 
 // The slots [j0, j0 + run_len) at packed index i.
@@ -265,29 +312,14 @@ __device__ __forceinline__ void step_run(const Run& w, const uint32_t* cur, uint
     }
 }
 
-}  // namespace bands
-
-// A band of one board on a cluster of `cluster` blocks (the header
-// comment): n turns, the band written back, and unless row_counts is null
-// the board's row popcounts.
-template <int WORD_AXIS, class Rule>
-__global__ void __launch_bounds__(kMaxThreads)
-whole_board_cluster_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                           int32_t* __restrict__ row_counts, int rows, int cols, int n,
-                           int cluster, int depth, int run_len, int runs, Rule rule) {
-    extern __shared__ uint32_t smem[];
-    const int P = WORD_AXIS == 0 ? rows : cols;  // words per line
-    const int Q = WORD_AXIS == 0 ? cols : rows;  // lines
-    const int band = Q / cluster;
-    const int rank = static_cast<int>(cg::this_cluster().block_rank());
-    const int line0 = rank * band;
-    const int slots = band + 2 * depth;
-    uint32_t* cur = smem;
-    uint32_t* nxt = smem + slots * P;
-
-    // the band and its halo lines, from device memory: slot s holds line
-    // line0 - depth + s of the torus (depth <= band: one wrap at most);
-    // neighbouring threads read neighbouring words of device memory
+// Block `rank`'s band of Q / cluster lines and `depth` halo lines on each
+// side into `cur`, line-major: slot s holds line line0 - depth + s of the
+// torus (depth <= band: one wrap at most); neighbouring threads read
+// neighbouring words of device memory.
+template <int WORD_AXIS>
+__device__ __forceinline__ void load_slots(const uint32_t* __restrict__ in, uint32_t* cur,
+                                           int cols, int P, int Q, int line0, int depth,
+                                           int slots) {
     for (int e = threadIdx.x; e < slots * P; e += blockDim.x) {
         int s, i;
         if (WORD_AXIS == 0) {
@@ -301,10 +333,84 @@ whole_board_cluster_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict
         line = line < 0 ? line + Q : (line >= Q ? line - Q : line);
         cur[s * P + i] = WORD_AXIS == 0 ? in[i * cols + line] : in[line * cols + i];
     }
+}
+
+// The band (`own`, its `band` lines line-major) back to device memory,
+// and unless row_counts is null the board's row popcounts, `part` holding
+// P ints of the block's own shared memory that no other block reads. A
+// block reads another's shared memory here only for the row popcounts
+// under word axis 0, between two meetings of the cluster.
+template <int WORD_AXIS>
+__device__ __forceinline__ void store_band(const uint32_t* own, int32_t* part,
+                                           uint32_t* __restrict__ out,
+                                           int32_t* __restrict__ row_counts, int cols, int P,
+                                           int band, int line0, int rank, int cluster,
+                                           cg::cluster_group& group) {
+    for (int e = threadIdx.x; e < band * P; e += blockDim.x) {
+        if (WORD_AXIS == 0) {
+            const int i = e / band;
+            const int j = e - i * band;
+            out[i * cols + line0 + j] = own[j * P + i];
+        } else {
+            out[line0 * cols + e] = own[e];
+        }
+    }
+    if (row_counts == nullptr) return;
+
+    // one warp per row (or per row's part): strided __popc, then a shuffle
+    // reduction
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    if (WORD_AXIS == 1) {
+        for (int j = threadIdx.x >> 5; j < band; j += warps) {
+            int sum = 0;
+            for (int i = lane; i < P; i += 32) sum += __popc(own[j * P + i]);
+            sum = __reduce_add_sync(0xffffffffu, sum);
+            if (lane == 0) row_counts[line0 + j] = sum;
+        }
+        return;
+    }
+    for (int i = threadIdx.x >> 5; i < P; i += warps) {
+        int sum = 0;
+        for (int j = lane; j < band; j += 32) sum += __popc(own[j * P + i]);
+        sum = __reduce_add_sync(0xffffffffu, sum);
+        if (lane == 0) part[i] = sum;
+    }
+    group.sync();
+    for (int i = rank + cluster * static_cast<int>(threadIdx.x); i < P;
+         i += cluster * static_cast<int>(blockDim.x)) {
+        int sum = 0;
+        for (int b = 0; b < cluster; ++b) sum += group.map_shared_rank(part, b)[i];
+        row_counts[i] = sum;
+    }
+    // no block leaves while another reads its parts
+    group.sync();
+}
+
+}  // namespace bands
+
+// A band of one board on a cluster of `cluster` blocks, the shared-memory
+// loop (the header comment): n turns, the band written back, and unless
+// row_counts is null the board's row popcounts.
+template <int WORD_AXIS, class Rule>
+__global__ void __launch_bounds__(kMaxThreads)
+whole_board_cluster_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                           int32_t* __restrict__ row_counts, int rows, int cols, int n,
+                           int cluster, int depth, int run_len, int runs, Rule rule) {
+    extern __shared__ uint32_t smem[];
+    const int P = WORD_AXIS == 0 ? rows : cols;  // words per line
+    const int Q = WORD_AXIS == 0 ? cols : rows;  // lines
+    const int band = Q / cluster;
+    cg::cluster_group group = cg::this_cluster();
+    const int rank = static_cast<int>(group.block_rank());
+    const int line0 = rank * band;
+    const int slots = band + 2 * depth;
+    uint32_t* cur = smem;
+    uint32_t* nxt = smem + slots * P;
+    bands::load_slots<WORD_AXIS>(in, cur, cols, P, Q, line0, depth, slots);
 
     // every block of the cluster is running before any reads another's
     // shared memory
-    cg::cluster_group group = cg::this_cluster();
     group.sync();
 
     const int items = P * runs;
@@ -347,49 +453,252 @@ whole_board_cluster_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict
         }
     }
     // the last read of another block's shared memory lies before the last
-    // meeting: from here a block reads and writes only its own, but for the
-    // row popcounts under word axis 0
-    const uint32_t* own = cur + depth * P;
-    for (int e = threadIdx.x; e < band * P; e += blockDim.x) {
-        if (WORD_AXIS == 0) {
-            const int i = e / band;
-            const int j = e - i * band;
-            out[i * cols + line0 + j] = own[j * P + i];
-        } else {
-            out[line0 * cols + e] = own[e];
-        }
-    }
-    if (row_counts == nullptr) return;
+    // meeting
+    bands::store_band<WORD_AXIS>(cur + depth * P, reinterpret_cast<int32_t*>(nxt), out,
+                                 row_counts, cols, P, band, line0, rank, cluster, group);
+}
 
-    // one warp per row (or per row's part): strided __popc, then a shuffle
-    // reduction
+// The register loop of the cluster route (the header comment): the slots
+// of a block's band and halo cut into stacks of R lines, one stack a
+// thread at one packed index, its words in registers for all n turns.
+namespace regs {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// A thread's stack, the lanes it trades with and the shared memory its
+// warp trades edge sums through, all fixed before the turn loop. A warp
+// holds 32 / P line columns of R lines; the sums of its first and last
+// lines lie at word `edges + parity * stride + (warp * 2 + side) * 2P + 2i`
+// (two words: weights 1 and 2; side 0 the first line, side 1 the last),
+// and each parity's 32 scratch slots follow its sums. A lane with no edge
+// to put or take uses its own scratch slot, so the trade is the same
+// instructions on every lane. Addresses are in the shared window, at
+// parity 0.
+struct Stack {
+    bool live;             // the lane holds a line column (lanes past 32 / P do not)
+    int i;                 // packed index
+    int first;             // the slot of its first line (past the slots: garbage lines)
+    int warp_first, warp_last;  // the slots of the warp's first and last lines
+    int src_m, src_p;      // lanes holding packed index i-1 and i+1 of the same lines, wrapped
+    int lane_up, lane_dn;  // lanes holding the warp's lines above and below the stack
+    // where the lane puts its first and last line's sums, and gets the
+    // neighbouring warps' edge sums above and below its stack
+    unsigned put_first, put_last, get_up, get_dn;
+    unsigned parity_bytes;  // from parity 0 to parity 1
+    bool take_up, take_dn;  // the lane takes those sums in place of its shuffled ones
+};
+
+__device__ __forceinline__ unsigned shared_address(const uint32_t* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ Stack make_stack(int R, int P, uint32_t* edges, int stride) {
+    Stack k;
     const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
     const int warps = blockDim.x >> 5;
-    if (WORD_AXIS == 1) {
-        for (int j = threadIdx.x >> 5; j < band; j += warps) {
-            int sum = 0;
-            for (int i = lane; i < P; i += 32) sum += __popc(own[j * P + i]);
-            sum = __reduce_add_sync(0xffffffffu, sum);
-            if (lane == 0) row_counts[line0 + j] = sum;
-        }
+    const int per_warp = 32 / P;
+    const int col = lane / P;
+    k.live = col < per_warp;
+    k.i = k.live ? lane - col * P : 0;
+    k.warp_first = warp * per_warp * R;
+    k.warp_last = k.warp_first + per_warp * R - 1;
+    k.first = k.warp_first + col * R;
+    const int base = col * P;
+    k.src_m = k.live ? base + (k.i == 0 ? P - 1 : k.i - 1) : lane;
+    k.src_p = k.live ? base + (k.i + 1 == P ? 0 : k.i + 1) : lane;
+    k.lane_up = k.live && col > 0 ? lane - P : lane;
+    k.lane_dn = k.live && col + 1 < per_warp ? lane + P : lane;
+    const bool top = k.live && col == 0;
+    const bool bottom = k.live && col + 1 == per_warp;
+    k.take_up = top && warp > 0;
+    k.take_dn = bottom && warp + 1 < warps;
+    const unsigned junk = shared_address(edges + 4 * warps * P + 2 * lane);
+    auto slot = [&](int w, int side) {
+        return shared_address(edges + ((w * 2 + side) * P + k.i) * 2);
+    };
+    k.put_first = top ? slot(warp, 0) : junk;
+    k.put_last = bottom ? slot(warp, 1) : junk;
+    k.get_up = k.take_up ? slot(warp - 1, 1) : junk;
+    k.get_dn = k.take_dn ? slot(warp + 1, 0) : junk;
+    k.parity_bytes = 4 * stride;
+    return k;
+}
+
+__device__ __forceinline__ void put2(unsigned address, const GolLineSum& v) {
+    asm volatile("st.shared.v2.u32 [%0], {%1, %2};" ::"r"(address), "r"(v.v0), "r"(v.v1)
+                 : "memory");
+}
+
+__device__ __forceinline__ GolLineSum get2(unsigned address) {
+    GolLineSum v;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(v.v0), "=r"(v.v1)
+                 : "r"(address)
+                 : "memory");
+    return v;
+}
+
+// One turn of a thread's R words, of parity PARITY (the turn's count & 1).
+// Packed-axis neighbours come by shuffle, the lines above and below the
+// stack from the neighbouring stacks: by shuffle inside the warp, and at
+// the warp's ends the neighbouring warps' edge line sums through shared
+// memory: each warp puts its two edge sums, steps its inner lines, meets
+// the block at its barrier, and takes its neighbours' sums. The sums are
+// double-buffered by parity, so one barrier a turn keeps every read of a
+// turn's sums before their slots are written again. An idle warp only
+// meets the block.
+template <int PARITY, int R, class Rule>
+__device__ __forceinline__ void turn(uint32_t (&x)[R], const Stack& k, bool idle,
+                                     const Rule& rule) {
+    if (idle) {
+        __syncthreads();
         return;
     }
-    int32_t* part = reinterpret_cast<int32_t*>(nxt);
-    for (int i = threadIdx.x >> 5; i < P; i += warps) {
-        int sum = 0;
-        for (int j = lane; j < band; j += 32) sum += __popc(own[j * P + i]);
-        sum = __reduce_add_sync(0xffffffffu, sum);
-        if (lane == 0) part[i] = sum;
+    GolLineSum sum[R];
+    // the first and last lines' sums first: they are what the neighbouring
+    // warps take
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int r = j == 0 ? 0 : (j == 1 ? R - 1 : j - 1);
+        const uint32_t m = __shfl_sync(kFull, x[r], k.src_m);
+        const uint32_t p = __shfl_sync(kFull, x[r], k.src_p);
+        sum[r] = gol_line_sum(m, x[r], p);
     }
-    group.sync();
-    for (int i = rank + cluster * static_cast<int>(threadIdx.x); i < P;
-         i += cluster * static_cast<int>(blockDim.x)) {
-        int sum = 0;
-        for (int b = 0; b < cluster; ++b) sum += group.map_shared_rank(part, b)[i];
-        row_counts[i] = sum;
+    const unsigned parity = PARITY * k.parity_bytes;
+    put2(k.put_first + parity, sum[0]);
+    put2(k.put_last + parity, sum[R - 1]);
+    GolLineSum up, dn;
+    up.v0 = __shfl_sync(kFull, sum[R - 1].v0, k.lane_up);
+    up.v1 = __shfl_sync(kFull, sum[R - 1].v1, k.lane_up);
+    dn.v0 = __shfl_sync(kFull, sum[0].v0, k.lane_dn);
+    dn.v1 = __shfl_sync(kFull, sum[0].v1, k.lane_dn);
+    uint32_t next[R];
+#pragma unroll
+    for (int r = 1; r + 1 < R; ++r) next[r] = gol_finish(rule, sum[r - 1], sum[r], sum[r + 1], x[r]);
+    __syncthreads();
+    const GolLineSum above = get2(k.get_up + parity);
+    const GolLineSum below = get2(k.get_dn + parity);
+    up.v0 = k.take_up ? above.v0 : up.v0;
+    up.v1 = k.take_up ? above.v1 : up.v1;
+    dn.v0 = k.take_dn ? below.v0 : dn.v0;
+    dn.v1 = k.take_dn ? below.v1 : dn.v1;
+    if constexpr (R == 1) {
+        next[0] = gol_finish(rule, up, sum[0], dn, x[0]);
+    } else {
+        next[0] = gol_finish(rule, up, sum[0], sum[1], x[0]);
+        next[R - 1] = gol_finish(rule, sum[R - 2], sum[R - 1], dn, x[R - 1]);
     }
-    // no block leaves while another reads its parts
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = next[r];
+}
+
+}  // namespace regs
+
+// A band of one board on a cluster of `cluster` blocks, the register loop
+// (the header comment): n turns, the band written back, and unless
+// row_counts is null the board's row popcounts. The block is whole warps,
+// enough stacks of R lines to hold the slots.
+template <int WORD_AXIS, int R, class Rule>
+__global__ void __launch_bounds__(register_threads(R), 1)
+whole_board_cluster_registers_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                                     int32_t* __restrict__ row_counts, int rows, int cols,
+                                     int n, int cluster, int depth, Rule rule) {
+    extern __shared__ uint32_t smem[];
+    const int P = WORD_AXIS == 0 ? rows : cols;  // words per line, <= 32
+    const int Q = WORD_AXIS == 0 ? cols : rows;  // lines
+    const int band = Q / cluster;
+    cg::cluster_group group = cg::this_cluster();
+    const int rank = static_cast<int>(group.block_rank());
+    const int line0 = rank * band;
+    const int slots = band + 2 * depth;
+    const int warps = blockDim.x >> 5;
+    // two copies of the slots, written in turn at the cluster's meetings
+    // (so one meeting a phase keeps every read of a neighbour's copy before
+    // that neighbour writes it again); then, for each of two parities, the
+    // warps' edge sums and the lanes' scratch slots
+    const int copy_words = slots * P;
+    uint32_t* edges = smem + 2 * copy_words;
+    const int stride = 4 * warps * P + 64;
+    bands::load_slots<WORD_AXIS>(in, smem, cols, P, Q, line0, depth, slots);
+    // every block of the cluster is running before any reads another's
+    // shared memory
     group.sync();
+
+    const regs::Stack k = regs::make_stack(R, P, edges, stride);
+    uint32_t x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int s = k.first + r;
+        x[r] = k.live && s < slots ? smem[s * P + k.i] : 0u;
+    }
+
+    int meeting = 1;  // the copy a meeting writes is smem + (meeting & 1) * copy_words
+    int t = 0;
+    bool arrived = false;  // the last meeting's reads are done: a cluster barrier arrival
+    for (int left = n; left > 0;) {
+        // A phase of r <= depth turns: after turn s the slots from lo =
+        // depth - r + s to slots - lo are right, so after the phase at least
+        // the band is.
+        const int r = min(depth, left);
+        left -= r;
+        for (int s = 1; s <= r; ++s, ++t) {
+            // a warp whose lines all lie two slots or more outside those is
+            // idle: nothing it holds is needed, nor its edge line by the
+            // warp beside it
+            const int lo = depth - r + s;
+            const bool idle = k.warp_last <= lo - 2 || k.warp_first >= slots - lo + 1;
+            if (t & 1) {
+                regs::turn<1>(x, k, idle, rule);
+            } else {
+                regs::turn<0>(x, k, idle, rule);
+            }
+        }
+        if (left > 0) {
+            // The cluster meets once: the band into the spare copy, which no
+            // other block reads this phase; then the halo lines, the block
+            // above's last `depth` band lines and the block below's first,
+            // through distributed shared memory, every load issued before
+            // any is used.
+            uint32_t* spare = smem + (meeting & 1) * copy_words;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const int slot = k.first + j;
+                if (k.live && slot >= depth && slot < depth + band) spare[slot * P + k.i] = x[j];
+            }
+            group.sync();
+            const uint32_t* above = group.map_shared_rank(spare, rank == 0 ? cluster - 1 : rank - 1);
+            const uint32_t* below = group.map_shared_rank(spare, rank + 1 == cluster ? 0 : rank + 1);
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const int slot = k.first + j;
+                const uint32_t* from = slot < depth ? above + (band + slot) * P
+                                                    : below + (slot - band) * P;
+                if (k.live && (slot < depth || (slot >= depth + band && slot < slots))) {
+                    x[j] = from[k.i];
+                }
+            }
+            ++meeting;
+            if (left <= depth) {
+                // the last meeting: no block leaves before every block has
+                // read its halo (the wait below)
+                asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+                arrived = true;
+            }
+        }
+    }
+    if (arrived) asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    // the band into the spare copy, which no other block reads, and the
+    // edge area for the row popcounts' parts
+    uint32_t* own = smem + (meeting & 1) * copy_words;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int slot = k.first + j;
+        if (k.live && slot >= depth && slot < depth + band) own[slot * P + k.i] = x[j];
+    }
+    __syncthreads();
+    bands::store_band<WORD_AXIS>(own + depth * P, reinterpret_cast<int32_t*>(edges), out,
+                                 row_counts, cols, P, band, line0, rank, cluster, group);
 }
 
 // The SM count, resident threads and shared memory of an SM on the current
@@ -461,8 +770,7 @@ int launch(const void* in, void* out, void* row_counts, void* turn_counts, int b
 // cluster_plan mirrors it): one block under kMinClusterWords, else the
 // largest of kMaxCluster, ..., 4, 2 that divides the lines into bands of at
 // least kMinBand lines whose copies, halos included, take no more shared
-// memory than the whole board's, else one block. The halo depth is
-// kHaloDepth, or the band where that is thinner.
+// memory than the whole board's, else one block.
 int pick_cluster(int P, int Q) {
     if (static_cast<long long>(P) * Q < kMinClusterWords) return 1;
     for (int c = kMaxCluster; c > 1; c /= 2) {
@@ -474,36 +782,43 @@ int pick_cluster(int P, int Q) {
     return 1;
 }
 
-// One launch of the cluster route: `cluster` blocks, `depth` halo lines
-// (clamped to the band). Returns the launch's error; a cluster the card
-// cannot schedule is refused here.
-template <int WORD_AXIS, class Rule>
-cudaError_t launch_cluster(const void* in, void* out, void* row_counts, int rows, int cols,
-                           int n, int cluster, int depth, Rule rule, cudaStream_t stream) {
-    static std::atomic<bool> opted[kMaxDevices];
-    static std::atomic<bool> wide[kMaxDevices];
-    auto kernel = whole_board_cluster_kernel<WORD_AXIS, Rule>;
-    const int P = WORD_AXIS == 0 ? rows : cols;
-    const int Q = WORD_AXIS == 0 ? cols : rows;
-    if (cluster < 2 || Q % cluster != 0) return cudaErrorInvalidValue;
-    const int band = Q / cluster;
-    depth = std::min(depth, band);
-    if (depth < 1) return cudaErrorInvalidValue;
-    const int slots = band + 2 * depth;
-    // the shortest odd runs that keep the block near kClusterThreadAim threads
-    int run_len = 1;
-    while (run_len < slots && P * ((slots + run_len - 1) / run_len) > kClusterThreadAim) {
-        run_len += 2;
+// A single board's route: blocks (1: one block), halo depth, and on a
+// cluster the loop: lines a thread in the register loop, 0 the
+// shared-memory loop.
+struct Route {
+    int blocks, depth, lines;
+};
+
+// The warps of the register loop's block for slots of lines, or 0 where a
+// line is wider than a warp or the block would pass register_threads.
+int register_warps(int P, int slots, int lines) {
+    if (P > kRegMaxWords || lines < 1) return 0;
+    const int per_warp = 32 / P * lines;
+    const int warps = (slots + per_warp - 1) / per_warp;
+    return warps * 32 <= register_threads(lines) ? warps : 0;
+}
+
+// The register loop's lines a thread for bands of `band` lines at halo
+// depth `depth` (ops/whole_board.py::plan_lines mirrors it): kRegLines, or
+// kRegLinesWide where that block would pass kRegMaxThreads; 0, the
+// shared-memory loop, for a line wider than a warp (P > kRegMaxWords) or
+// where neither fits.
+int plan_lines(int P, int band, int depth) {
+    for (int lines : {kRegLines, kRegLinesWide}) {
+        if (register_warps(P, band + 2 * depth, lines) > 0) return lines;
     }
-    const int runs = (slots + run_len - 1) / run_len;
-    const long long items = static_cast<long long>(P) * runs;
-    const int threads =
-        items >= kMaxThreads ? kMaxThreads : static_cast<int>((items + 31) / 32 * 32);
-    const size_t smem = 2 * static_cast<size_t>(slots) * P * sizeof(uint32_t);
+    return 0;
+}
+
+// Launch `kernel` on one cluster of `cluster` blocks (16 is past the
+// portable 8, which an H100 grants per kernel).
+template <typename Kernel, typename... Args>
+cudaError_t launch_on_cluster(Kernel* kernel, std::atomic<bool> (&opted)[kMaxDevices],
+                              std::atomic<bool> (&wide)[kMaxDevices], int cluster, int threads,
+                              size_t smem, cudaStream_t stream, Args... args) {
     cudaError_t err = smem_opt_in_once(kernel, opted);
     if (err != cudaSuccess) return err;
     if (cluster > 8) {
-        // 16 blocks is past the portable cluster size; an H100 grants it
         int device = 0;
         err = cudaGetDevice(&device);
         if (err != cudaSuccess) return err;
@@ -526,9 +841,82 @@ cudaError_t launch_cluster(const void* in, void* out, void* row_counts, int rows
     attribute[0].val.clusterDim.z = 1;
     config.attrs = attribute;
     config.numAttrs = 1;
-    return cudaLaunchKernelEx(&config, kernel, static_cast<const uint32_t*>(in),
-                              static_cast<uint32_t*>(out), static_cast<int32_t*>(row_counts),
-                              rows, cols, n, cluster, depth, run_len, runs, rule);
+    return cudaLaunchKernelEx(&config, kernel, args...);
+}
+
+// One launch of the cluster route's shared-memory loop: `cluster` blocks,
+// `depth` halo lines (clamped by the caller). Returns the launch's error; a
+// cluster the card cannot schedule is refused here.
+template <int WORD_AXIS, class Rule>
+cudaError_t launch_cluster(const void* in, void* out, void* row_counts, int rows, int cols,
+                           int n, int cluster, int depth, Rule rule, cudaStream_t stream) {
+    static std::atomic<bool> opted[kMaxDevices];
+    static std::atomic<bool> wide[kMaxDevices];
+    const int P = WORD_AXIS == 0 ? rows : cols;
+    const int Q = WORD_AXIS == 0 ? cols : rows;
+    const int slots = Q / cluster + 2 * depth;
+    // the shortest odd runs that keep the block near kClusterThreadAim threads
+    int run_len = 1;
+    while (run_len < slots && P * ((slots + run_len - 1) / run_len) > kClusterThreadAim) {
+        run_len += 2;
+    }
+    const int runs = (slots + run_len - 1) / run_len;
+    const long long items = static_cast<long long>(P) * runs;
+    const int threads =
+        items >= kMaxThreads ? kMaxThreads : static_cast<int>((items + 31) / 32 * 32);
+    const size_t smem = 2 * static_cast<size_t>(slots) * P * sizeof(uint32_t);
+    return launch_on_cluster(whole_board_cluster_kernel<WORD_AXIS, Rule>, opted, wide, cluster,
+                             threads, smem, stream, static_cast<const uint32_t*>(in),
+                             static_cast<uint32_t*>(out), static_cast<int32_t*>(row_counts),
+                             rows, cols, n, cluster, depth, run_len, runs, rule);
+}
+
+// One launch of the register loop with R lines a thread; as
+// launch_cluster.
+template <int WORD_AXIS, int R, class Rule>
+cudaError_t launch_cluster_registers(const void* in, void* out, void* row_counts, int rows,
+                                     int cols, int n, int cluster, int depth, Rule rule,
+                                     cudaStream_t stream) {
+    static std::atomic<bool> opted[kMaxDevices];
+    static std::atomic<bool> wide[kMaxDevices];
+    const int P = WORD_AXIS == 0 ? rows : cols;
+    const int Q = WORD_AXIS == 0 ? cols : rows;
+    const int slots = Q / cluster + 2 * depth;
+    const int warps = register_warps(P, slots, R);
+    if (warps == 0) return cudaErrorInvalidValue;
+    // two copies of the slots; for each of two parities the warps' edge
+    // sums (two words, two sides) and the lanes' scratch slots
+    const size_t smem = (2 * static_cast<size_t>(slots) * P + 2 * (4 * warps * P + 64)) *
+                        sizeof(uint32_t);
+    return launch_on_cluster(whole_board_cluster_registers_kernel<WORD_AXIS, R, Rule>, opted,
+                             wide, cluster, 32 * warps, smem, stream,
+                             static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
+                             static_cast<int32_t*>(row_counts), rows, cols, n, cluster, depth,
+                             rule);
+}
+
+// The route's cluster launch, either loop (route.lines 0, 2, 4 or 8);
+// cudaErrorInvalidValue for lines not compiled in.
+template <int WORD_AXIS, class Rule>
+cudaError_t launch_route(const void* in, void* out, void* row_counts, int rows, int cols, int n,
+                         const Route& route, Rule rule, cudaStream_t stream) {
+    const int c = route.blocks, d = route.depth;
+    switch (route.lines) {
+        case 0:
+            return launch_cluster<WORD_AXIS>(in, out, row_counts, rows, cols, n, c, d, rule,
+                                             stream);
+        case 2:
+            return launch_cluster_registers<WORD_AXIS, 2>(in, out, row_counts, rows, cols, n, c,
+                                                          d, rule, stream);
+        case 4:
+            return launch_cluster_registers<WORD_AXIS, 4>(in, out, row_counts, rows, cols, n, c,
+                                                          d, rule, stream);
+        case 8:
+            return launch_cluster_registers<WORD_AXIS, 8>(in, out, row_counts, rows, cols, n, c,
+                                                          d, rule, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -561,37 +949,49 @@ int gol_whole_board_step(const void* in, void* out, void* row_counts, int batch,
 // n turns of one board, `in` (int32[rows, cols]), into `out`, with its row
 // popcounts into int32[rows] unless row_counts is null, on the route
 // given: cluster 0 picks by the board (pick_cluster), 1 is one block, 2, 4,
-// 8 or 16 a cluster of that many blocks, with `depth` halo lines (0:
-// kHaloDepth). A cluster launch the card refuses runs on one block
-// instead. *used gets
-// the blocks the board ran on (1 for one block). Returns the launch's CUDA
-// error (0 on success); cudaErrorInvalidValue for a cluster that does not
-// divide the lines.
+// 8 or 16 a cluster of that many blocks; on a cluster `depth` halo lines
+// (0: the loop's kRegDepth or kHaloDepth) and `lines` the loop (-1: the
+// plan's for the band and depth, plan_lines; 0 the shared-memory loop; 2, 4 or 8 the
+// register loop with that many lines a thread). The depth is clamped to
+// the band. A cluster launch the card refuses runs on one block instead.
+// route[3] gets the route that ran: blocks (1 for one block), depth and
+// lines. Returns the launch's CUDA error (0 on success);
+// cudaErrorInvalidValue for a cluster that does not divide the lines or a
+// register loop the board's shape or the compiled lines do not allow.
 int gol_whole_board_step_as(const void* in, void* out, void* row_counts, int rows, int cols,
                             int word_axis, int n, unsigned common, unsigned dead_only,
-                            unsigned live_only, int cluster, int depth, int* used,
+                            unsigned live_only, int cluster, int depth, int lines, int* route,
                             void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int P = word_axis == 0 ? rows : cols;
     const int Q = word_axis == 0 ? cols : rows;
-    if (cluster == 0) cluster = pick_cluster(P, Q);
-    if (depth == 0) depth = kHaloDepth;
-    if (cluster > 1 && Q % cluster != 0) return static_cast<int>(cudaErrorInvalidValue);
+    Route r = {cluster == 0 ? pick_cluster(P, Q) : cluster, 0, 0};
+    if (r.blocks > 1) {
+        if (Q % r.blocks != 0) return static_cast<int>(cudaErrorInvalidValue);
+        const int band = Q / r.blocks;
+        r.lines = lines < 0 ? plan_lines(P, band, std::min(depth > 0 ? depth : kRegDepth, band))
+                            : lines;
+        r.depth = std::min(depth > 0 ? depth : (r.lines > 0 ? kRegDepth : kHaloDepth), band);
+        const bool compiled = r.lines == 0 || r.lines == 2 || r.lines == 4 || r.lines == 8;
+        if (!compiled || (r.lines > 0 && register_warps(P, band + 2 * r.depth, r.lines) == 0)) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
     return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
-        if (cluster > 1) {
+        if (r.blocks > 1) {
             const cudaError_t err =
-                word_axis == 0
-                    ? launch_cluster<0>(in, out, row_counts, rows, cols, n, cluster, depth,
-                                        rule, s)
-                    : launch_cluster<1>(in, out, row_counts, rows, cols, n, cluster, depth,
-                                        rule, s);
+                word_axis == 0 ? launch_route<0>(in, out, row_counts, rows, cols, n, r, rule, s)
+                               : launch_route<1>(in, out, row_counts, rows, cols, n, r, rule, s);
             if (err == cudaSuccess) {
-                *used = cluster;
+                route[0] = r.blocks;
+                route[1] = r.depth;
+                route[2] = r.lines;
                 return static_cast<int>(cudaGetLastError());
             }
             cudaGetLastError();  // the refusal is not left pending: one block runs instead
         }
-        *used = 1;
+        route[0] = 1;
+        route[1] = route[2] = 0;
         if (word_axis == 0) {
             return launch<0, false>(in, out, row_counts, nullptr, 1, rows, cols, n, rule, s);
         }

@@ -545,8 +545,9 @@ FUSED_TURNS_PER_LAUNCH = _R.histogram(
 WHOLE_BOARD_LAUNCHES_TOTAL = _R.counter(
     "gol_whole_board_launches_total",
     "Launches of the whole-board kernel for a single board "
-    "(ops/whole_board.py::step_n), by the route that ran: one block, or "
-    "the board cut into bands over a thread block cluster.",
+    "(ops/whole_board.py::step_n), by the route that ran: one block "
+    "(block), or the board cut into bands over a thread block cluster, "
+    "stepped in shared memory (cluster) or in registers (cluster_registers).",
     labelnames=("route",),
 )
 STRIP_ROWS_SKIPPED_TOTAL = _R.counter(

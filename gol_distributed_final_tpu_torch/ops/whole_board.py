@@ -22,13 +22,17 @@ tiled kernel (ops/tiled.py); the planes route, this module only refuses.
 A single board (``step_n``) runs on the cluster route where
 ``cluster_plan`` gives it more than one block: its lines cut into bands
 over a thread block cluster, each block on its own SM, with K5's
-band-and-halo turn loop (csrc/byte_board.cu). ``cluster_plan`` mirrors the
-kernel source's ``pick_cluster``, the measured choice of blocks and halo
-depth; a cluster launch the card refuses runs on one block instead. The
-batches of ``ops/batch_board.py`` and the history mode stay on one block a
-board. The cluster route's launches are timed under their own site,
-``CLUSTER_SITE``, and counted apart (``cluster_launches``, and
-``gol_whole_board_launches_total{route}`` with metrics on).
+band-and-halo scheme (csrc/byte_board.cu). Between two meetings of the
+cluster a block runs its turns in one of two loops: the register loop,
+its band in registers and its neighbours' words by warp shuffles, for a
+line of at most 32 words, else the shared-memory loop. ``cluster_plan`` mirrors the kernel
+source's plan, the measured choice of blocks, halo depth and loop; a
+cluster launch the card refuses runs on one block instead. The batches of
+``ops/batch_board.py`` and the history mode stay on one block a board.
+The cluster route's launches are timed under their own site,
+``CLUSTER_SITE``, and counted apart (``cluster_launches``,
+``register_launches``, and ``gol_whole_board_launches_total{route}`` with
+metrics on: "block", "cluster" or "cluster_registers").
 
 ``step_n`` takes the plain version (``bit_step_n`` plus ``row_popcounts``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
@@ -45,6 +49,7 @@ the step launches' counts do not move.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -63,19 +68,38 @@ H100_SMEM_OPTIN = 232_448
 
 #: kernel launches made by ``step_n``; ``plain_calls`` counts the times it
 #: took the plain version (CPU tensors) instead; ``cluster_launches`` the
-#: launches among ``launches`` that ran on a cluster
+#: launches among ``launches`` that ran on a cluster, ``register_launches``
+#: those among them that ran the register loop
 launches = 0
 plain_calls = 0
 cluster_launches = 0
+register_launches = 0
 
 #: the cluster route's plan (csrc/whole_board.cu: kMaxCluster,
 #: kMinClusterWords, kMinBand, kHaloDepth; pick_cluster, where the sweep
 #: on an H100 that set them is written): one block up to 128^2 (512 words),
-#: a cluster from 160^2 (800 words), bands of at least 12 lines
+#: a cluster from 160^2 (800 words), bands of at least 12 lines; the
+#: shared-memory loop's halo depth
 MAX_CLUSTER = 16
 MIN_CLUSTER_WORDS = 768
 MIN_BAND = 12
 HALO_DEPTH = 16
+
+#: the register loop's plan (csrc/whole_board.cu: kRegMaxWords, kRegLines,
+#: kRegLinesWide, kRegDepth; plan_lines): lines of at most 32 words,
+#: REG_LINES lines a thread (REG_LINES_WIDE where that block would pass
+#: REG_MAX_THREADS), halo depth REG_DEPTH
+REG_MAX_WORDS = 32
+REG_LINES = 4
+REG_LINES_WIDE = 8
+REG_DEPTH = 16
+#: the register loop's lines a thread that the kernel compiles in
+REG_LINE_CHOICES = (2, 4, 8)
+#: the register loop's largest block, which leaves a thread up to 128
+#: registers (kRegMaxThreads), and up to 168 with REG_LINES_WIDE lines a
+#: thread (kRegMaxThreadsWide)
+REG_MAX_THREADS = 512
+REG_MAX_THREADS_WIDE = 384
 
 #: the telemetry site of the cluster route's launches, whatever site the
 #: caller names for the one-block kernel
@@ -99,7 +123,8 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p,
     ],
     "gol_whole_board_history": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -139,43 +164,66 @@ def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask, site) ->
             ))
 
 
+class Route(NamedTuple):
+    """A single board's route: ``blocks`` (1: one block), and on a cluster
+    its halo ``depth`` and its loop, ``lines`` a thread in the register
+    loop or 0 for the shared-memory loop."""
+
+    blocks: int
+    depth: int = 0
+    lines: int = 0
+
+    @property
+    def name(self) -> str:
+        """The label of ``gol_whole_board_launches_total``."""
+        if self.blocks == 1:
+            return "block"
+        return "cluster_registers" if self.lines else "cluster"
+
+
 def launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask, site,
-               cluster=0, depth=0) -> int:
+               cluster=0, depth=0, lines=-1) -> Route:
     """One launch for one contiguous int32 board ``[rows, cols]`` (the
     callers check it), on the route ``cluster`` gives: 0 the kernel's pick
     (``cluster_plan``), 1 one block, 2, 4, 8 or 16 a cluster of that many
-    blocks, with ``depth`` halo lines (0: the kernel's), which is how the
-    routes are checked and timed against each other. Returns the blocks the board ran on: 1 where the card refused
-    the cluster. Raises on a refused launch. With metrics on the
-    launch is timed under ``site``, or ``CLUSTER_SITE`` on a cluster."""
-    global launches, cluster_launches
+    blocks, with ``depth`` halo lines (0: the loop's) and ``lines`` the loop
+    (-1: the plan's for the band, 0 the shared-memory loop, one of
+    ``REG_LINE_CHOICES`` the register loop), which is how the routes are
+    checked and timed against each other. Returns the route that ran: one
+    block where the card refused the cluster. Raises on a refused launch.
+    With metrics on the launch is timed under ``site``, or
+    ``CLUSTER_SITE`` on a cluster."""
+    global launches, cluster_launches, register_launches
     rows, cols = packed.shape
     common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
-    used = ctypes.c_int(0)
+    ran = (ctypes.c_int * 3)()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream()
         started = _device.begin(packed.device, stream)
         err = _lib().gol_whole_board_step_as(
             packed.data_ptr(), out.data_ptr(), None if counts is None else counts.data_ptr(),
-            rows, cols, word_axis, n, common, dead_only, live_only, cluster, depth,
-            ctypes.byref(used), stream.cuda_stream,
+            rows, cols, word_axis, n, common, dead_only, live_only, cluster, depth, lines,
+            ran, stream.cuda_stream,
         )
         _build.check(err, "whole-board kernel launch")
-        on_cluster = used.value > 1
+        route = Route(*ran)
         if started is not None:
-            _device.end(CLUSTER_SITE if on_cluster else site, packed.device, started,
+            _device.end(CLUSTER_SITE if route.blocks > 1 else site, packed.device, started,
                         *bit_launch_cost(packed.numel(), n, birth_mask, survive_mask,
                                          0 if counts is None else 4 * rows))
     launches += 1
-    cluster_launches += on_cluster
+    cluster_launches += route.blocks > 1
+    register_launches += route.name == "cluster_registers"
     if _metrics.enabled():
-        _ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels("cluster" if on_cluster else "block").inc()
-    return used.value
+        _ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route.name).inc()
+    return route
 
 
 def reset_counts() -> None:
-    global launches, plain_calls, cluster_launches, history_launches, history_plain_calls
-    launches = plain_calls = cluster_launches = history_launches = history_plain_calls = 0
+    global launches, plain_calls, cluster_launches, register_launches
+    global history_launches, history_plain_calls
+    launches = plain_calls = cluster_launches = register_launches = 0
+    history_launches = history_plain_calls = 0
 
 
 def _lines(shape: tuple[int, int], word_axis: int) -> tuple[int, int]:
@@ -184,23 +232,51 @@ def _lines(shape: tuple[int, int], word_axis: int) -> tuple[int, int]:
     return (shape[0], shape[1]) if word_axis == 0 else (shape[1], shape[0])
 
 
-def cluster_plan(shape: tuple[int, int], word_axis: int = 0) -> tuple[int, int]:
-    """``(blocks, halo depth)`` the kernel picks for one packed board of
-    ``shape``: ``(1, 0)`` (one block) under ``MIN_CLUSTER_WORDS`` words,
-    else the largest of ``MAX_CLUSTER``, ..., 4, 2 blocks that divides the
-    lines into bands of at least ``MIN_BAND`` lines whose copies, halos
-    included, take no more shared memory than the whole board's, with
-    ``HALO_DEPTH`` halo lines or the band where that is thinner, else one
-    block."""
+def register_warps(words: int, slots: int, lines: int) -> int:
+    """Warps of the register loop's block for ``slots`` lines of ``words``
+    words: stacks of ``lines`` lines, ``32 // words`` a warp; 0 where the
+    line is wider than a warp or the block would pass ``REG_MAX_THREADS``
+    (``REG_MAX_THREADS_WIDE`` for ``REG_LINES_WIDE`` lines a thread)."""
+    if words > REG_MAX_WORDS or lines < 1:
+        return 0
+    warps = -(-slots // (32 // words * lines))
+    limit = REG_MAX_THREADS if lines < REG_LINES_WIDE else REG_MAX_THREADS_WIDE
+    return warps if 32 * warps <= limit else 0
+
+
+def plan_lines(words: int, band: int, depth: int) -> int:
+    """The register loop's lines a thread for bands of ``band`` lines of
+    ``words`` words at halo depth ``depth``: ``REG_LINES``, or
+    ``REG_LINES_WIDE`` where that block would pass ``REG_MAX_THREADS``; 0,
+    the shared-memory loop, where neither fits."""
+    for lines in (REG_LINES, REG_LINES_WIDE):
+        if register_warps(words, band + 2 * depth, lines):
+            return lines
+    return 0
+
+
+def cluster_plan(shape: tuple[int, int], word_axis: int = 0) -> Route:
+    """The ``Route`` the kernel picks for one packed board of ``shape``:
+    one block under ``MIN_CLUSTER_WORDS`` words, else the largest of
+    ``MAX_CLUSTER``, ..., 4, 2 blocks that divides the lines into bands of
+    at least ``MIN_BAND`` lines whose copies, halos of ``HALO_DEPTH``
+    included, take no more shared memory than the whole board's, else one
+    block. On a cluster, the register loop where ``plan_lines`` gives it
+    lines, at depth ``REG_DEPTH``, else the shared-memory loop at depth
+    ``HALO_DEPTH``; either depth clamped to the band."""
     words, lines = _lines(shape, word_axis)
     if words * lines >= MIN_CLUSTER_WORDS:
         cluster = MAX_CLUSTER
         while cluster > 1:
-            band, depth = lines // cluster, min(HALO_DEPTH, lines // cluster)
-            if lines % cluster == 0 and band >= MIN_BAND and band + 2 * depth <= lines:
-                return cluster, depth
+            band = lines // cluster
+            if (lines % cluster == 0 and band >= MIN_BAND
+                    and band + 2 * min(HALO_DEPTH, band) <= lines):
+                per_thread = plan_lines(words, band, min(REG_DEPTH, band))
+                if per_thread:
+                    return Route(cluster, min(REG_DEPTH, band), per_thread)
+                return Route(cluster, min(HALO_DEPTH, band))
             cluster //= 2
-    return 1, 0
+    return Route(1)
 
 
 def bands(shape: tuple[int, int], word_axis: int, cluster: int) -> list[tuple[int, int]]:

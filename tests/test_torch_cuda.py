@@ -163,9 +163,12 @@ def test_bitboard_kernels_per_rule(cuda_device, rule, word_axis):
         assert torch.equal(got3, bitpack.bit_step_n(ragged, n, word_axis, *masks))
 
 
-#: single boards on K1's cluster route: 512^2 in both packings, 256^2, and
-#: 640 x 384 (under the gate, not square) in both packings
-CLUSTER_BOARDS = [((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((20, 384), 0), ((640, 12), 1)]
+#: single boards on K1's cluster route: 512^2 in both packings, 256^2,
+#: 192^2 and 160^2, and 640 x 384 (under the gate, not square) in both
+#: packings, all on the register loop; and 1280 x 640, whose 40-word line
+#: is wider than a warp, on the shared-memory loop
+CLUSTER_BOARDS = [((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((6, 192), 0), ((5, 160), 0),
+                  ((20, 384), 0), ((640, 12), 1), ((40, 640), 0)]
 
 
 def _route_turns(depth):
@@ -184,31 +187,36 @@ def _on_one_block(packed, n, word_axis, birth_mask=life.CONWAY.birth_mask,
     out = torch.empty_like(packed)
     counts = torch.empty(packed.shape[0], dtype=torch.int32, device=packed.device)
     assert whole_board.launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask,
-                                  "pallas.vmem_bit", 1) == 1
+                                  "pallas.vmem_bit", 1).blocks == 1
     return out, counts
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,word_axis", CLUSTER_BOARDS)
 def test_whole_board_cluster_route_matches_plain_and_one_block(cuda_device, shape, word_axis):
-    """A single board takes the cluster route the plan gives it, and equals
-    the plain version and the one-block kernel bit for bit, board and row
-    counts, counted and not: every compiled rule and two run-time ones, n
-    across a phase's edges and the engine's 4096-turn chunk."""
+    """A single board takes the cluster route the plan gives it (the
+    register loop wherever a line fits a warp), and equals the plain
+    version and the one-block kernel bit for bit, board and row counts,
+    counted and not: every compiled rule and two run-time ones, n across a
+    phase's edges and the engine's 4096-turn chunk."""
     packed = _words(shape, sum(shape) + word_axis, cuda_device)
-    blocks, depth = whole_board.cluster_plan(shape, word_axis)
-    assert blocks > 1
+    plan = whole_board.cluster_plan(shape, word_axis)
+    assert plan.blocks > 1
+    assert plan.name == ("cluster" if shape == (40, 640) else "cluster_registers")
+    registers = int(plan.name == "cluster_registers")
     for rule in ALL_RULES:
         masks = (rule.birth_mask, rule.survive_mask)
-        for n in _route_turns(depth):
-            before = (whole_board.launches, whole_board.cluster_launches)
+        for n in _route_turns(plan.depth):
+            before = (whole_board.launches, whole_board.cluster_launches,
+                      whole_board.register_launches)
             got = whole_board.step_n(packed, n, word_axis, *masks, counted=True)
             uncounted = whole_board.step_n(packed, n, word_axis, *masks)
             block = _on_one_block(packed, n, word_axis, *masks)
             want = whole_board.step_n_plain(packed, n, word_axis, *masks)
             torch.cuda.synchronize()
-            assert (whole_board.launches, whole_board.cluster_launches) == \
-                (before[0] + 3, before[1] + 2), (rule.name, n)
+            assert (whole_board.launches, whole_board.cluster_launches,
+                    whole_board.register_launches) == \
+                (before[0] + 3, before[1] + 2, before[2] + 2 * registers), (rule.name, n)
             _assert_counted_equal(got, want)
             _assert_counted_equal(block, want)
             assert torch.equal(uncounted, want[0]), (rule.name, n)
@@ -241,19 +249,94 @@ def test_whole_board_cluster_route_on_the_image(cuda_device, word_axis):
 @pytest.mark.parametrize("shape,word_axis", [((16, 512), 0), ((512, 16), 1), ((8, 256), 0)])
 @pytest.mark.parametrize("cluster", [2, 4, 8, 16])
 @pytest.mark.parametrize("depth", [8, 32])
-def test_whole_board_forced_clusters_match_plain(cuda_device, shape, word_axis, cluster, depth):
+@pytest.mark.parametrize("lines", [0, -1])
+def test_whole_board_forced_clusters_match_plain(cuda_device, shape, word_axis, cluster, depth,
+                                                 lines):
     """Every cluster size at halo depths the plan does not pick (clamped to
-    a band thinner than the depth), on the blocks asked for."""
+    a band thinner than the depth), on the blocks asked for, in the
+    shared-memory loop (lines 0) and in the loop the plan gives the band
+    (-1: the register loop where a block of 16 warps holds it)."""
     packed = _words(shape, cluster + depth, cuda_device)
+    words, lines_total = (shape if word_axis == 0 else shape[::-1])
+    band = lines_total // cluster
+    registers = lines != 0 and whole_board.plan_lines(words, band, min(depth, band)) > 0
     out = torch.empty_like(packed)
     counts = torch.empty(shape[0], dtype=torch.int32, device=cuda_device)
     for n in _route_turns(depth):
-        used = whole_board.launch_one(packed, out, counts, n, word_axis, life.CONWAY.birth_mask,
-                                      life.CONWAY.survive_mask, "pallas.vmem_bit", cluster,
-                                      depth)
+        route = whole_board.launch_one(packed, out, counts, n, word_axis,
+                                       life.CONWAY.birth_mask, life.CONWAY.survive_mask,
+                                       "pallas.vmem_bit", cluster, depth, lines)
         torch.cuda.synchronize()
-        assert used == cluster
+        assert route.blocks == cluster
+        assert route.name == ("cluster_registers" if registers else "cluster")
         _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, n, word_axis))
+
+
+#: the register loop forced off the plan: (blocks, depth, lines a thread)
+#: at every compiled lines a thread, other depths and other clusters; some
+#: need more than 16 warps on some boards, and are refused there
+FORCED_REGISTER_ROUTES = [(16, 16, 2), (16, 16, 8), (16, 8, 4), (16, 32, 4), (16, 32, 2),
+                          (8, 48, 4), (8, 16, 8), (4, 16, 8), (2, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,word_axis", [((16, 512), 0), ((512, 16), 1), ((8, 256), 0),
+                                             ((6, 192), 0), ((5, 160), 0)])
+@pytest.mark.parametrize("route", FORCED_REGISTER_ROUTES, ids=str)
+def test_whole_board_register_loop_forced_routes_match_plain(cuda_device, shape, word_axis,
+                                                             route):
+    """The register loop at lines a thread, depths and clusters the plan
+    does not pick equals the plain version, board and row counts, for n
+    across the cluster's phase edges, Conway and a run-time rule; a route
+    the board's block cannot hold is refused."""
+    blocks, depth, per_thread = route
+    words, lines = (shape if word_axis == 0 else shape[::-1])
+    depth = min(depth, lines // blocks)
+    packed = _words(shape, sum(route) + word_axis, cuda_device)
+    out = torch.empty_like(packed)
+    counts = torch.empty(shape[0], dtype=torch.int32, device=cuda_device)
+    if lines % blocks or not whole_board.register_warps(words, lines // blocks + 2 * depth,
+                                                         per_thread):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            whole_board.launch_one(packed, out, counts, 5, word_axis, 8, 12, "pallas.vmem_bit",
+                                   *route)
+        return
+    turns = {0, 1, 2, depth - 1, depth, depth + 1, 2 * depth + 3, 100, 4096}
+    for rule in (life.CONWAY, ALL_RULES[-1]):
+        masks = (rule.birth_mask, rule.survive_mask)
+        for n in sorted(turns):
+            ran = whole_board.launch_one(packed, out, counts, n, word_axis, *masks,
+                                         "pallas.vmem_bit", *route)
+            torch.cuda.synchronize()
+            assert ran == whole_board.Route(blocks, depth, per_thread)
+            _assert_counted_equal((out, counts),
+                                  whole_board.step_n_plain(packed, n, word_axis, *masks))
+
+
+@pytest.mark.cuda
+def test_whole_board_register_launches_counted_by_route(cuda_device):
+    """With metrics on, every launch of the register loop counts under
+    ``gol_whole_board_launches_total{route="cluster_registers"}``, the
+    shared-memory loop's under "cluster" and one block's under "block"."""
+    from gol_distributed_final_tpu_torch.obs import instruments as ins
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+
+    _obs_off()
+    obs_metrics.enable()
+    try:
+        packed = _words((16, 512), 9, cuda_device)
+        wide = _words((40, 640), 10, cuda_device)
+        small = _words((4, 128), 11, cuda_device)
+        for _ in range(3):
+            whole_board.step_n(packed, 100, counted=True)
+        whole_board.step_n(wide, 10)
+        whole_board.step_n(small, 10)
+        torch.cuda.synchronize()
+        counts = {route: ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route).value
+                  for route in ("block", "cluster", "cluster_registers")}
+        assert counts == {"block": 1.0, "cluster": 1.0, "cluster_registers": 3.0}
+    finally:
+        _obs_off()
 
 
 @pytest.mark.cuda
@@ -266,12 +349,14 @@ def test_whole_board_refused_cluster_runs_on_one_block(cuda_device):
     counts = torch.empty(16, dtype=torch.int32, device=cuda_device)
     args = (life.CONWAY.birth_mask, life.CONWAY.survive_mask, "pallas.vmem_bit")
     before = whole_board.cluster_launches
-    assert whole_board.launch_one(packed, out, counts, 37, 0, *args, 32) == 1
-    torch.cuda.synchronize()
-    _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
+    for lines in (-1, 0):  # the register loop and the shared-memory loop
+        assert whole_board.launch_one(packed, out, counts, 37, 0, *args, 32, 0, lines) == \
+            whole_board.Route(1)
+        torch.cuda.synchronize()
+        _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
     assert whole_board.cluster_launches == before
     assert whole_board.launch_one(packed, out, counts, 37, 0, *args) == \
-        whole_board.cluster_plan((16, 512))[0]
+        whole_board.cluster_plan((16, 512))
     torch.cuda.synchronize()
     _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
 
@@ -280,28 +365,31 @@ def test_whole_board_refused_cluster_runs_on_one_block(cuda_device):
 @pytest.mark.parametrize("shape,word_axis", [
     ((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((4, 128), 0), ((5, 160), 0),
     ((6, 192), 0), ((20, 384), 0), ((640, 12), 1), ((29, 1000), 0), ((1500, 4), 0),
-    ((100, 24), 0), ((1, 1), 0),
+    ((100, 24), 0), ((1, 1), 0), ((30, 960), 0), ((40, 640), 0), ((640, 40), 1),
 ])
 def test_whole_board_kernel_picks_the_plan(cuda_device, shape, word_axis):
-    """The kernel's own pick is the Python mirror's, on the card."""
+    """The kernel's own pick is the Python mirror's, on the card: blocks,
+    depth and loop."""
     packed = _words(shape, 3, cuda_device)
-    used = whole_board.launch_one(packed, torch.empty_like(packed), None, 3, word_axis,
-                                  life.CONWAY.birth_mask, life.CONWAY.survive_mask,
-                                  "pallas.vmem_bit")
+    ran = whole_board.launch_one(packed, torch.empty_like(packed), None, 3, word_axis,
+                                 life.CONWAY.birth_mask, life.CONWAY.survive_mask,
+                                 "pallas.vmem_bit")
     torch.cuda.synchronize()
-    assert used == whole_board.cluster_plan(shape, word_axis)[0]
+    assert ran == whole_board.cluster_plan(shape, word_axis)
 
 
 @pytest.mark.cuda
 def test_whole_board_route_shows_in_the_kernels_name(cuda_device):
-    """A single 512^2 board runs whole_board_cluster_kernel; a batch of
-    two such boards runs the one-block whole_board_kernel, and counts no
-    single-board launch."""
+    """A single 512^2 board runs whole_board_cluster_registers_kernel at
+    the plan's lines a thread; a batch of two such boards runs the
+    one-block whole_board_kernel, and counts no single-board launch."""
     one = _words((16, 512), 6, cuda_device)
     two = _words((2, 16, 512), 7, cuda_device)
+    lines = whole_board.cluster_plan((16, 512)).lines
     names = _traced_kernels(lambda: whole_board.step_n(one, 3, counted=True),
-                            ("whole_board_cluster_kernel",))
-    assert names and all("whole_board_cluster_kernel<0, StaticRule" in n for n in names), names
+                            ("whole_board_cluster_registers_kernel",))
+    assert names and all(f"whole_board_cluster_registers_kernel<0, {lines}, StaticRule" in n
+                         for n in names), names
     before = (whole_board.launches, whole_board.cluster_launches)
     names = _traced_kernels(lambda: batch_board.step_n(two, 3), ("whole_board_kernel",))
     assert names and all("whole_board_kernel<0" in n for n in names), names

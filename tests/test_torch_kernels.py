@@ -71,37 +71,85 @@ def test_whole_board_gate_is_the_cards_shared_memory():
 # -- K1's cluster route: the plan and the route choice ------------------------
 
 
-#: packed shape, word axis, and the (blocks, halo depth) the plan gives
+#: packed shape, word axis, and the route the plan gives: (blocks, halo
+#: depth, lines a thread in the register loop or 0 for the shared-memory
+#: loop)
 CLUSTER_PLANS = [
-    ((16, 512), 0, (16, 16)), ((512, 16), 1, (16, 16)),  # 512^2: bands of 32 lines
-    ((8, 256), 0, (16, 16)), ((256, 8), 1, (16, 16)),    # 256^2: bands of 16 lines
-    ((4, 128), 0, (1, 0)), ((128, 4), 1, (1, 0)),        # 128^2: 512 words, one block
-    ((20, 384), 0, (16, 16)), ((640, 12), 1, (16, 16)),  # 640 x 384 in both packings
-    ((5, 160), 0, (8, 16)),                              # 160 lines: 16 bands of 10 too thin
-    ((6, 192), 0, (16, 12)), ((7, 224), 0, (16, 14)),    # bands thinner than the halo depth
-    ((29, 1000), 0, (8, 16)),                            # 1000 lines: 8 divides, 16 does not
-    ((1500, 4), 0, (1, 0)), ((4, 1500), 1, (1, 0)),      # 4 lines: no band holds a halo
-    ((100, 24), 0, (1, 0)),                              # 2 bands of 12 and halos: past the board
-    ((1, 1), 0, (1, 0)),
+    ((16, 512), 0, (16, 16, 4)), ((512, 16), 1, (16, 16, 4)),  # 512^2: bands of 32 lines
+    ((8, 256), 0, (16, 16, 4)), ((256, 8), 1, (16, 16, 4)),    # 256^2: bands of 16 lines
+    ((4, 128), 0, (1, 0, 0)), ((128, 4), 1, (1, 0, 0)),        # 128^2: 512 words, one block
+    ((20, 384), 0, (16, 16, 4)), ((640, 12), 1, (16, 16, 4)),  # 640 x 384 in both packings
+    ((5, 160), 0, (8, 16, 4)),                    # 160 lines: 16 bands of 10 too thin
+    ((6, 192), 0, (16, 12, 4)), ((7, 224), 0, (16, 14, 4)),  # bands thinner than the depth
+    ((30, 960), 0, (16, 16, 8)),                  # 960^2: one line column a warp; 4 lines: 23 warps
+    ((29, 1000), 0, (8, 16, 0)),                  # 1000 lines: 8 divides; 157 slots: 20 warps
+    ((40, 640), 0, (16, 16, 0)), ((640, 40), 1, (16, 16, 0)),  # 40 words: past a warp
+    ((1500, 4), 0, (1, 0, 0)), ((4, 1500), 1, (1, 0, 0)),  # 4 lines: no band holds a halo
+    ((100, 24), 0, (1, 0, 0)),                    # 2 bands of 12 and halos: past the board
+    ((1, 1), 0, (1, 0, 0)),
 ]
 
 
 @pytest.mark.parametrize("shape,word_axis,plan", CLUSTER_PLANS)
 def test_cluster_plan_bands_and_phases(shape, word_axis, plan):
-    """The mirror of the kernel's pick: the blocks and halo depth, bands
-    that split the lines evenly, each with room for its halo, and every
-    band's two copies with halos within one block's shared memory."""
-    assert whole_board.cluster_plan(shape, word_axis) == plan
-    blocks, depth = plan
+    """The mirror of the kernel's pick: the blocks, halo depth and loop,
+    bands that split the lines evenly, each with room for its halo, every
+    band's two copies with halos within one block's shared memory, and the
+    register loop wherever a line fits a warp and a block of at most 16
+    warps holds the band and its halo."""
+    route = whole_board.cluster_plan(shape, word_axis)
+    assert route == plan
+    blocks, depth, lines_a_thread = plan
     words, lines = (shape if word_axis == 0 else shape[::-1])
     bands = whole_board.bands(shape, word_axis, blocks)
     assert [first for first, _ in bands] == [b * lines // blocks for b in range(blocks)]
     assert {size for _, size in bands} == {lines // blocks}
-    if blocks > 1:
-        assert words * lines >= whole_board.MIN_CLUSTER_WORDS
-        assert lines // blocks >= whole_board.MIN_BAND
-        assert depth == min(whole_board.HALO_DEPTH, lines // blocks)
-        assert 2 * 4 * (lines // blocks + 2 * depth) * words <= whole_board.smem_bytes(shape)
+    if blocks == 1:
+        assert route.name == "block"
+        return
+    band = lines // blocks
+    assert words * lines >= whole_board.MIN_CLUSTER_WORDS
+    assert band >= whole_board.MIN_BAND
+    assert 2 * 4 * (band + 2 * min(whole_board.HALO_DEPTH, band)) * words <= \
+        whole_board.smem_bytes(shape)
+    if lines_a_thread == 0:
+        # the shared-memory loop: the line is wider than a warp, or no block
+        # of the register loop holds the band and its halo
+        assert route.name == "cluster"
+        assert depth == min(whole_board.HALO_DEPTH, band)
+        reg_slots = band + 2 * min(whole_board.REG_DEPTH, band)
+        assert words > whole_board.REG_MAX_WORDS or not any(
+            whole_board.register_warps(words, reg_slots, n) for n in whole_board.REG_LINE_CHOICES)
+        return
+    assert route.name == "cluster_registers"
+    assert lines_a_thread in whole_board.REG_LINE_CHOICES
+    assert depth == min(whole_board.REG_DEPTH, band)
+    warps = whole_board.register_warps(words, band + 2 * depth, lines_a_thread)
+    assert 0 < 32 * warps <= whole_board.REG_MAX_THREADS
+    assert warps * 32 // words * lines_a_thread >= band + 2 * depth
+
+
+@pytest.mark.parametrize("words,slots,lines,warps", [
+    (16, 64, 4, 8), (16, 64, 8, 4), (16, 64, 2, 16),  # 512^2 at depth 16
+    (16, 96, 2, 0), (16, 96, 4, 12),                  # depth 32: 24 warps of 2 lines, past 512
+    (5, 52, 4, 3), (6, 36, 4, 2), (6, 36, 2, 4),      # 160^2, 192^2
+    (30, 92, 4, 0), (30, 92, 8, 12),                  # 960^2: one line column a warp
+    (30, 100, 8, 0), (29, 157, 8, 0),                 # 8 lines a thread: at most 12 warps
+    (33, 64, 4, 0), (32, 64, 4, 16), (16, 64, 0, 0),
+])
+def test_register_loop_block(words, slots, lines, warps):
+    """The register loop's block: stacks of ``lines`` lines, 32 // words
+    a warp; none past 512 threads (16 warps), 384 with 8 lines a thread, or
+    for a line past a warp."""
+    assert whole_board.register_warps(words, slots, lines) == warps
+
+
+@pytest.mark.parametrize("shape,word_axis,name", [
+    ((16, 512), 0, "cluster_registers"), ((40, 640), 0, "cluster"), ((4, 128), 0, "block"),
+])
+def test_route_names_the_loop(shape, word_axis, name):
+    """The route's label of ``gol_whole_board_launches_total``."""
+    assert whole_board.cluster_plan(shape, word_axis).name == name
 
 
 @pytest.mark.parametrize("n,depth,want", [
@@ -117,15 +165,185 @@ def test_cluster_phases_end_with_the_short_one(n, depth, want):
 
 def test_cluster_plan_matches_the_kernel_source():
     """ops/whole_board.py's plan mirrors csrc/whole_board.cu's constants,
-    and both say the same rule."""
+    and both say the same rule: the cluster, then the loop by the line's
+    words, the register loop's lines a thread by the block's size."""
     src = (pathlib.Path(whole_board.__file__).parents[1] / "csrc" / "whole_board.cu").read_text()
-    consts = {k: int(v) for k, v in re.findall(
-        r"constexpr int (kMaxCluster|kMinClusterWords|kMinBand|kHaloDepth) = (\d+);", src)}
+    names = ("kMaxCluster|kMinClusterWords|kMinBand|kHaloDepth|kRegMaxWords|kRegMaxThreads|"
+             "kRegLines|kRegLinesWide|kRegMaxThreadsWide|kRegDepth")
+    consts = {k: int(v) for k, v in re.findall(rf"constexpr int ({names}) = (\d+);", src)}
     assert consts == {"kMaxCluster": whole_board.MAX_CLUSTER,
                       "kMinClusterWords": whole_board.MIN_CLUSTER_WORDS,
-                      "kMinBand": whole_board.MIN_BAND, "kHaloDepth": whole_board.HALO_DEPTH}
+                      "kMinBand": whole_board.MIN_BAND, "kHaloDepth": whole_board.HALO_DEPTH,
+                      "kRegMaxWords": whole_board.REG_MAX_WORDS,
+                      "kRegMaxThreads": whole_board.REG_MAX_THREADS,
+                      "kRegLines": whole_board.REG_LINES,
+                      "kRegLinesWide": whole_board.REG_LINES_WIDE,
+                      "kRegMaxThreadsWide": whole_board.REG_MAX_THREADS_WIDE,
+                      "kRegDepth": whole_board.REG_DEPTH}
     assert "P) * Q < kMinClusterWords" in src
     assert "band >= kMinBand && band + 2 * std::min(kHaloDepth, band) <= Q" in src
+    assert "if (P > kRegMaxWords || lines < 1) return 0;" in src
+    assert "const int per_warp = 32 / P * lines;" in src
+    assert "return warps * 32 <= register_threads(lines) ? warps : 0;" in src
+    assert "return R < kRegLinesWide ? kRegMaxThreads : kRegMaxThreadsWide;" in src
+    assert "for (int lines : {kRegLines, kRegLinesWide}) {" in src
+    assert "if (register_warps(P, band + 2 * depth, lines) > 0) return lines;" in src
+    assert "plan_lines(P, band, std::min(depth > 0 ? depth : kRegDepth, band))" in src
+    compiled = {int(v) for v in re.findall(
+        r"launch_cluster_registers<WORD_AXIS, (\d+)>", src)}
+    assert compiled == set(whole_board.REG_LINE_CHOICES)
+
+
+# -- K1's register loop, emulated: the kernel's schedule in numpy ------------
+
+
+def _line_sums(x):
+    """gol_line_sum along the last axis (the packed axis, wrapped): the
+    weight-1 and weight-2 planes of each word and its two neighbours."""
+    prev, nxt = np.roll(x, 1, axis=-1), np.roll(x, -1, axis=-1)
+    minus = (x << np.uint32(1)) | (prev >> np.uint32(31))
+    plus = (x >> np.uint32(1)) | (nxt << np.uint32(31))
+    return minus ^ x ^ plus, (minus & x) | (plus & (minus ^ x))
+
+
+def _finish(masks, a, b, c, mid):
+    """gol_finish: the T planes of three line sums, then the rule's select."""
+    a_s, a_c = a[0] ^ b[0] ^ c[0], (a[0] & b[0]) | (c[0] & (a[0] ^ b[0]))
+    b_s, b_c = a[1] ^ b[1] ^ c[1], (a[1] & b[1]) | (c[1] & (a[1] ^ b[1]))
+    c_c = a_c & b_s
+    planes = (a_s, a_c ^ b_s, b_c ^ c_c, b_c & c_c)
+    full = np.uint32(0xFFFFFFFF)
+
+    def any_eq(mask):
+        acc = np.zeros_like(mid)
+        for value in range(10):
+            if mask >> value & 1:
+                eq = np.full_like(mid, full)
+                for bit, plane in enumerate(planes):
+                    eq &= plane if value >> bit & 1 else ~plane
+                acc |= eq
+        return acc
+
+    common, dead_only, live_only = masks
+    return any_eq(common) | (~mid & any_eq(dead_only)) | (mid & any_eq(live_only))
+
+
+def _register_loop(packed, n, word_axis, masks, route):
+    """The register loop's schedule as csrc/whole_board.cu runs it, on
+    numpy: the band and halo of each of the cluster's blocks cut into
+    stacks of ``route.lines`` lines, ``32 // P`` line columns a warp (the
+    block holds ``register_warps`` warps); a turn makes every stack's line
+    sums, takes the lines above and below it from the warp's neighbouring
+    column, or at a warp's end from the neighbouring warp's edge sums, or
+    at the block's ends from its own stack (garbage the halo absorbs); a
+    warp outside the phase's cone is idle, its words junk here; every
+    ``depth`` turns the cluster meets once, each block reading its halo
+    from the neighbours' spare copies of their bands, copies written in
+    turn. Lines past the slots hold zeros. Returns the board, packed as it
+    came."""
+    blocks, depth, per_thread = route
+    lines_np = np.asarray(packed).astype(np.uint32)
+    lines_np = lines_np.T.copy() if word_axis == 0 else lines_np.copy()
+    Q, P = lines_np.shape
+    band, cols = Q // blocks, 32 // P
+    slots = band + 2 * depth
+    warps = whole_board.register_warps(P, slots, per_thread)
+    assert warps > 0
+    span = cols * per_thread
+    # the slot of line r of the stack at (warp, column)
+    first = np.arange(warps)[:, None] * span + np.arange(cols)[None, :] * per_thread
+    slot = first[:, :, None] + np.arange(per_thread)[None, None, :]
+    inside = slot < slots
+    copies = np.zeros((blocks, 2, slots, P), np.uint32)
+    for b in range(blocks):
+        copies[b, 0] = lines_np[(b * band - depth + np.arange(slots)) % Q]
+    x = np.where(inside[None, :, :, :, None],
+                 copies[:, 0][:, np.minimum(slot, slots - 1)], np.uint32(0))
+    # the slots of each warp's first and last lines: a warp whose lines all
+    # lie two slots or more outside those a turn needs is idle for it, and
+    # its words turn to junk here, which no needed line may read
+    warp_first = np.arange(warps) * span
+    warp_last = warp_first + span - 1
+    meeting, left = 1, n
+    while left > 0:
+        r = min(depth, left)
+        left -= r
+        for s in range(1, r + 1):
+            lo = depth - r + s
+            idle = (warp_last <= lo - 2) | (warp_first >= slots - lo + 1)
+            v0, v1 = _line_sums(x)  # [block, warp, column, line, word]
+            ext0 = np.concatenate([v0[:, :, :, -1:], v0, v0[:, :, :, :1]], axis=3)
+            ext1 = np.concatenate([v1[:, :, :, -1:], v1, v1[:, :, :, :1]], axis=3)
+            for ext, v in ((ext0, v0), (ext1, v1)):
+                ext[:, :, 1:, 0] = v[:, :, :-1, -1]   # the column above's last line
+                ext[:, :, :-1, -1] = v[:, :, 1:, 0]   # the column below's first line
+                ext[:, 1:, 0, 0] = v[:, :-1, -1, -1]  # the warp above's last line
+                ext[:, :-1, -1, -1] = v[:, 1:, 0, 0]  # the warp below's first line
+            x = _finish(masks, (ext0[..., :-2, :], ext1[..., :-2, :]),
+                        (ext0[..., 1:-1, :], ext1[..., 1:-1, :]),
+                        (ext0[..., 2:, :], ext1[..., 2:, :]), x)
+            x[:, idle] = np.uint32(0xA5A5A5A5) ^ (x[:, idle] << np.uint32(1))
+        if left > 0:
+            spare = copies[:, meeting & 1]
+            in_band = inside & (slot >= depth) & (slot < depth + band)
+            spare[:, slot[in_band]] = x[:, in_band]
+            above, below = np.roll(spare, 1, axis=0), np.roll(spare, -1, axis=0)
+            top = slot < depth
+            bottom = inside & (slot >= depth + band)
+            x[:, top] = above[:, band + slot[top]]
+            x[:, bottom] = below[:, slot[bottom] - band]
+            meeting += 1
+    result = np.zeros_like(lines_np)
+    in_band = inside & (slot >= depth) & (slot < depth + band)
+    for b in range(blocks):
+        result[b * band + slot[in_band] - depth] = x[b][in_band]
+    result = result.T if word_axis == 0 else result
+    return np.ascontiguousarray(result).view(np.int32)
+
+
+#: the sweep's boards (chip_smoke.py --k1-sweep) that take the register
+#: loop, and the rules: Conway, compiled, and B36/S125, a run-time one
+REGISTER_BOARDS = [((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((256, 8), 1),
+                   ((20, 384), 0), ((640, 12), 1), ((5, 160), 0), ((6, 192), 0),
+                   ((7, 224), 0), ((30, 960), 0)]
+
+
+def _register_routes(shape, word_axis):
+    """The plan's route and the register loop's others on the plan's
+    cluster: every compiled lines a thread at the plan's depth and at 8 and
+    32 (clamped to the band), where the block holds them."""
+    plan = whole_board.cluster_plan(shape, word_axis)
+    words = shape[0] if word_axis == 0 else shape[1]
+    band = (shape[1] if word_axis == 0 else shape[0]) // plan.blocks
+    routes = {plan}
+    for depth in {plan.depth, min(8, band), min(32, band)}:
+        for per_thread in whole_board.REG_LINE_CHOICES:
+            if whole_board.register_warps(words, band + 2 * depth, per_thread):
+                routes.add(whole_board.Route(plan.blocks, depth, per_thread))
+    return sorted(routes)
+
+
+@pytest.mark.parametrize("rule", ["B3/S23", "B36/S125"])
+@pytest.mark.parametrize("shape,word_axis", REGISTER_BOARDS)
+def test_register_loop_schedule_matches_plain(shape, word_axis, rule):
+    """The register loop's schedule, emulated, equals the plain version
+    for n across the cluster's phase edges, at every route it may take on
+    the plan's cluster."""
+    trule = tlife.LifeRule.from_rulestring(rule)
+    masks = tbit.rule_masks(trule.birth_mask, trule.survive_mask)
+    rng = np.random.default_rng(sum(shape) + word_axis)
+    packed = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    state = torch.from_numpy(packed)
+    plain = {}
+    for route in _register_routes(shape, word_axis):
+        assert route.lines in whole_board.REG_LINE_CHOICES
+        d = route.depth
+        for n in sorted({0, 1, 2, d - 1, d, d + 1, 2 * d + 3, 100}):
+            if n not in plain:
+                plain[n] = whole_board.step_n_plain(state, n, word_axis, trule.birth_mask,
+                                                    trule.survive_mask)[0].numpy()
+            got = _register_loop(packed, n, word_axis, masks, route)
+            np.testing.assert_array_equal(got, plain[n], err_msg=f"{route} n={n}")
 
 
 class _StubLibrary:
@@ -138,10 +356,10 @@ class _StubLibrary:
         self.calls = []
 
     def gol_whole_board_step_as(self, src, dst, counts, rows, cols, word_axis, n, common,
-                                dead_only, live_only, cluster, depth, used, stream):
-        self.calls.append(("one", rows, cols, word_axis, n, cluster))
-        picked = whole_board.cluster_plan((rows, cols), word_axis)[0] if cluster == 0 else cluster
-        used._obj.value = 1 if self.refuse else picked
+                                dead_only, live_only, cluster, depth, lines, ran, stream):
+        self.calls.append(("one", rows, cols, word_axis, n, cluster, depth, lines))
+        picked = whole_board.cluster_plan((rows, cols), word_axis)
+        ran[:] = (1, 0, 0) if self.refuse else picked
         return 0
 
     def gol_whole_board_step(self, src, dst, counts, batch, rows, cols, word_axis, n, common,
@@ -181,33 +399,40 @@ def _routes():
     from gol_distributed_final_tpu_torch.obs import instruments as ins
 
     return {route: ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route).value
-            for route in ("block", "cluster")}
+            for route in ("block", "cluster", "cluster_registers")}
 
 
 @pytest.mark.parametrize("shape,word_axis,refuse", [
     ((16, 512), 0, False), ((512, 16), 1, False), ((8, 256), 0, False),
-    ((4, 128), 0, False), ((16, 512), 0, True),
+    ((4, 128), 0, False), ((16, 512), 0, True), ((40, 640), 0, False),
 ])
 def test_single_board_route_with_the_library_stubbed(stub_library, shape, word_axis, refuse):
-    """A batch of one under the gate asks the kernel to pick (cluster 0)
-    and takes the cluster route where the plan gives more than one block:
-    counted in ``cluster_launches`` and under route "cluster", timed under
-    ``CLUSTER_SITE``. A board the plan keeps on one block, and a cluster
-    the card refuses, take one block, timed under the caller's site."""
+    """A batch of one under the gate asks the kernel to pick (cluster 0,
+    depth 0, the plan's loop) and takes the cluster route
+    where the plan gives more than one block: counted in
+    ``cluster_launches``, in ``register_launches`` and under route
+    "cluster_registers" for the register loop, under "cluster" for the
+    shared-memory loop, timed under ``CLUSTER_SITE``. A board the plan
+    keeps on one block, and a cluster the card refuses, take one block,
+    timed under the caller's site."""
     from gol_distributed_final_tpu_torch.obs import device as obs_device
 
     stub = stub_library(refuse)
     board = torch.zeros(shape, dtype=torch.int32)
     counts = torch.zeros(shape[0], dtype=torch.int32)
     whole_board.reset_counts()
-    used = whole_board.launch_one(board, torch.empty_like(board), counts, 100, word_axis,
-                                  8, 12, "pallas.fused_bit")
-    assert stub.calls == [("one", *shape, word_axis, 100, 0)]
-    blocks = 1 if refuse else whole_board.cluster_plan(shape, word_axis)[0]
-    assert used == blocks
-    on_cluster = blocks > 1
-    assert (whole_board.launches, whole_board.cluster_launches) == (1, int(on_cluster))
-    assert _routes() == {"block": float(not on_cluster), "cluster": float(on_cluster)}
+    route = whole_board.launch_one(board, torch.empty_like(board), counts, 100, word_axis,
+                                   8, 12, "pallas.fused_bit")
+    assert stub.calls == [("one", *shape, word_axis, 100, 0, 0, -1)]
+    want = whole_board.Route(1) if refuse else whole_board.cluster_plan(shape, word_axis)
+    assert route == want
+    on_cluster = want.blocks > 1
+    registers = want.name == "cluster_registers"
+    assert (whole_board.launches, whole_board.cluster_launches,
+            whole_board.register_launches) == (1, int(on_cluster), int(registers))
+    assert _routes() == {"block": float(not on_cluster),
+                         "cluster": float(on_cluster and not registers),
+                         "cluster_registers": float(registers)}
     site = whole_board.CLUSTER_SITE if on_cluster else "pallas.fused_bit"
     assert set(obs_device.dispatch_stats()) == {site}
 
@@ -223,10 +448,11 @@ def test_a_batch_above_one_takes_one_block_with_the_library_stubbed(stub_library
     whole_board.reset_counts()
     whole_board.launch(boards, torch.empty_like(boards), None, 64, 0, 8, 12,
                        "pallas.fused_bit_batch")
-    assert whole_board.cluster_plan((16, 512), 0)[0] > 1
+    assert whole_board.cluster_plan((16, 512), 0).blocks > 1
     assert stub.calls == [("batch", 4, 16, 512, 0, 64)]
-    assert (whole_board.launches, whole_board.cluster_launches) == (0, 0)
-    assert _routes() == {"block": 0.0, "cluster": 0.0}
+    assert (whole_board.launches, whole_board.cluster_launches,
+            whole_board.register_launches) == (0, 0, 0)
+    assert _routes() == {"block": 0.0, "cluster": 0.0, "cluster_registers": 0.0}
     assert set(obs_device.dispatch_stats()) == {"pallas.fused_bit_batch"}
 
 
