@@ -654,19 +654,16 @@ K1_SWEEP_REG_DEPTHS = (8, 16, 32, 48)
 def k1_sweep_routes(whole_board, shape, axis) -> list:
     """The sweep's routes for one board (``whole_board.Route``s), the
     plan's among them, each once."""
-    Route = whole_board.Route
-    words, lines = (shape[0], shape[1]) if axis == 0 else (shape[1], shape[0])
-    routes = [Route(1)]
+    lines = shape[1] if axis == 0 else shape[0]
+    routes = [whole_board.Route(1)]
     for c in K1_SWEEP_CLUSTERS:
         if lines % c == 0:
-            routes += [Route(c, min(d, lines // c)) for d in K1_SWEEP_DEPTHS]
+            routes += [whole_board.cluster_route(shape, axis, c, d) for d in K1_SWEEP_DEPTHS]
     for c in K1_SWEEP_REG_CLUSTERS:
-        if lines % c:
-            continue
-        band = lines // c
-        for d in sorted({min(d, band) for d in K1_SWEEP_REG_DEPTHS}):
-            routes += [Route(c, d, per_thread) for per_thread in whole_board.REG_LINE_CHOICES
-                       if whole_board.register_warps(words, band + 2 * d, per_thread)]
+        if lines % c == 0:
+            routes += [route for d in K1_SWEEP_REG_DEPTHS
+                       for per_thread in whole_board.REG_LINE_CHOICES
+                       if (route := whole_board.cluster_route(shape, axis, c, d, per_thread)).warps]
     routes.append(whole_board.cluster_plan(shape, axis))
     return list(dict.fromkeys(routes))
 
@@ -713,12 +710,11 @@ def k1_sweep() -> int:
         for route in k1_sweep_routes(whole_board, shape, axis):
             out = torch.empty_like(packed)
             counts = torch.empty(rows_n, dtype=torch.int32, device=dev)
-            args = tuple(route)
             d = route.depth
             used = None
             for n in sorted({0, 1, max(d - 1, 0), d, d + 1, 100}):
                 used = whole_board.launch_one(packed, out, counts, n, axis, 8, 12,
-                                              "pallas.vmem_bit", *args)
+                                              "pallas.vmem_bit", route)
                 torch.cuda.synchronize()
                 board, row_counts = want(n)
                 check(torch.equal(out, board) and torch.equal(counts, row_counts),
@@ -728,12 +724,12 @@ def k1_sweep() -> int:
                    "ran": list(used), "plan": route == plan, "card": card}
             for n, reps in ((100, 50), (4096, 5)):
                 row[f"ms_n{n}"] = cuda_ms(lambda: whole_board.launch_one(
-                    packed, out, counts, n, axis, 8, 12, "pallas.vmem_bit", *args), reps=reps)
+                    packed, out, counts, n, axis, 8, 12, "pallas.vmem_bit", route), reps=reps)
             rows.append(row)
             mine.append(row)
             print(json.dumps(row))
-        shared = whole_board.Route(plan.blocks, min(16, shape[1 - axis] // plan.blocks)
-                                   if plan.blocks > 1 else 0)
+        shared = (whole_board.cluster_route(shape, axis, plan.blocks, 16) if plan.blocks > 1
+                  else plan)
         by_route = {tuple(r["route"]): r for r in mine}
         for key in ("ms_n100", "ms_n4096"):
             best = sorted(mine, key=lambda r: r[key])[:4]
@@ -741,7 +737,7 @@ def k1_sweep() -> int:
             before = by_route[tuple(shared)][key]
             line = (f"{shape} axis {axis} {key}: plan {tuple(plan)} {planned:.5f}; smem "
                     f"{tuple(shared)} {before:.5f} ({planned / before:.3f}); one block "
-                    f"{by_route[(1, 0, 0)][key]:.5f}; best " + "; ".join(
+                    f"{by_route[tuple(whole_board.Route(1))][key]:.5f}; best " + "; ".join(
                         f"{tuple(r['route'])} {r[key]:.5f}" for r in best))
             summary.append(line)
             print(line)
@@ -2172,6 +2168,9 @@ def kernel_times(tree: str) -> int:
     # and, where the tree has a choice of routes, on one block; its history
     # mode at 512^2 x 10000 where the tree has it
     takes_route = hasattr(whole_board, "launch_one")
+    if takes_route:  # one block: a Route, or the older trees' cluster 1
+        block_route = ((whole_board.Route(1),) if hasattr(whole_board, "cluster_route")
+                       else (1,))
     if hasattr(whole_board, "history"):
         times["history_512_n10000"] = cuda_ms(lambda: whole_board.history(p512, 10_000),
                                               reps=5)
@@ -2184,7 +2183,8 @@ def kernel_times(tree: str) -> int:
                 lambda: whole_board.step_n(packed, n, counted=True), reps=reps)
             if takes_route:
                 times[f"k1_{side}_n{n}_block"] = cuda_ms(lambda: whole_board.launch_one(
-                    packed, out, counts, n, 0, 8, 12, "pallas.vmem_bit", 1), reps=reps)
+                    packed, out, counts, n, 0, 8, 12, "pallas.vmem_bit", *block_route),
+                    reps=reps)
     device["k1_512_n100"] = device_ms(lambda: whole_board.step_n(p512, 100, counted=True),
                                       "whole_board(?:_cluster(?:_registers)?)?_kernel",
                                       reps=20)[0]
@@ -2398,7 +2398,7 @@ def main() -> int:
                     block, block_counts = torch.empty_like(packed), torch.empty_like(got_counts)
                     whole_board.launch_one(packed, block, block_counts, n, word_axis,
                                            rule.birth_mask, rule.survive_mask,
-                                           "pallas.vmem_bit", 1)
+                                           "pallas.vmem_bit", whole_board.Route(1))
                     torch.cuda.synchronize()
                     err = max(max_abs_err(got, want), max_abs_err(got_counts, want_counts),
                               max_abs_err(block, want), max_abs_err(block_counts, want_counts))
@@ -2408,7 +2408,7 @@ def main() -> int:
                     k1_cases += 1
     print(f"phase 3 parity: whole-board kernel equals its plain version in "
           f"{k1_cases} cases (64^2 and 512^2, 4 rules and B36/S125, n in 1/7/100, both "
-          f"packings, counts), on the route it picks (512^2: a cluster of "
+          f"packings, counts), on the plan's route (512^2: a cluster of "
           f"{whole_board.cluster_plan((16, 512))[0]}) and on one block")
 
     tiled_err = 0
@@ -4186,7 +4186,7 @@ def main() -> int:
             picked = cuda_ms(lambda: whole_board.step_n(packed, n, counted=True), reps=reps)
             block = cuda_ms(lambda: whole_board.launch_one(
                 packed, out, counts, n, 0, CONWAY.birth_mask, CONWAY.survive_mask,
-                "pallas.vmem_bit", 1), reps=reps)
+                "pallas.vmem_bit", whole_board.Route(1)), reps=reps)
             print(f"timing whole-board {side}^2 n={n}: {picked:.5f} ms on the route picked "
                   f"({plan}), {block:.5f} ms on one block, "
                   f"{block / picked:.3g}x {card_tag}")

@@ -24,22 +24,24 @@
 //   __ballot_sync(byte != 0) is the word). On chip both look the same: Q
 //   lines (rows, or columns) of P words, a line's words side by side, so the
 //   turn loop does not know the packing.
-// - A cluster of C blocks (C = 1, 2, 4 or 8; pick_cluster). Block b holds the
-//   band of Q / C lines from b * Q / C in its own shared memory, two copies
-//   ping-ponged; the band axis is the one that is not packed, so a line is
-//   contiguous words. The blocks form a ring, which closes the torus across
-//   the lines.
+// - A cluster of C blocks (C = 1, 2, 4 or 8; ops/byte_board.py::launch_plan
+//   chooses C, the halo depth d and the form, and the entry point runs
+//   them). Block b holds the band of Q / C lines from b * Q / C in its own
+//   shared memory, two copies ping-ponged; the band axis is the one that is
+//   not packed, so a line is contiguous words. The blocks form a ring, which
+//   closes the torus across the lines.
 // - The cluster's barrier costs far more than a block's (measured: a 64^2
 //   board took 0.19 us a turn on one block and 0.6 us on a cluster of two
-//   that met every turn). So each copy carries d = kHaloDepth halo lines on
-//   each side and the cluster meets once per d turns. In a phase of d turns
-//   a block steps its own copy with __syncthreads() between turns, turn s
-//   stepping only the slots still right (s from either end: the shrinking
-//   cone), so after d turns exactly the band is; then the cluster meets,
-//   every block reads its next halo lines from its two neighbours' bands
-//   through distributed shared memory (map_shared_rank), and the cluster
-//   meets again before any band is stepped on. The halo is work done twice,
-//   (band + d) / band on average: 1.25x for 512^2 on 8 blocks at d = 16.
+//   that met every turn). So each copy carries d halo lines on each side
+//   (16, at most the band) and the cluster meets once per d turns. In a
+//   phase of d turns a block steps its own copy with __syncthreads() between
+//   turns, turn s stepping only the slots still right (s from either end:
+//   the shrinking cone), so after d turns exactly the band is; then the
+//   cluster meets, every block reads its next halo lines from its two
+//   neighbours' bands through distributed shared memory (map_shared_rank),
+//   and the cluster meets again before any band is stepped on. The halo is
+//   work done twice, (band + d) / band on average: 1.25x for 512^2 on 8
+//   blocks at d = 16.
 //   Pushing the bands' ends into the neighbours' double-buffered inboxes at
 //   a phase's last turn, for one meeting a phase, measured no faster.
 // - One block (C = 1) holds the whole torus: no halo, the first and last
@@ -70,9 +72,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxCluster = 8;       // the largest cluster picked (the portable limit)
-constexpr int kMinClusterWords = 768;  // a smaller board stays on one block
-constexpr int kHaloDepth = 16;       // turns between two exchanges of halo lines
 constexpr int kThreadAim = 512;      // runs per block, about
 
 enum Form { kBitsCols = 0, kBitsRows = 1, kBytes = 2 };
@@ -253,29 +252,18 @@ byte_board_bytes_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ ou
     for (int i = threadIdx.x; i < total; i += blockDim.x) out[i] = cur[i] ? 255 : 0;
 }
 
-// The cluster for a board of Q lines of P words: one block under
-// kMinClusterWords, else the largest of 8, 4, 2 that divides the lines
-// (ops/byte_board.py::cluster_size mirrors it). Measured on an H100: up to
-// 128^2 (512 words) one block beats every cluster, from 160^2 (800 words) on
-// eight blocks beat one, and at 256^2 and 512^2 also four and two (PERF.md).
-int pick_cluster(int P, int Q) {
-    if (static_cast<long long>(P) * Q < kMinClusterWords) return 1;
-    for (int c = kMaxCluster; c > 1; c /= 2) {
-        if (Q % c == 0) return c;
-    }
-    return 1;
-}
-
+// One block holds the torus itself (depth 0); a block of a cluster a halo
+// of 1 to band lines on each side.
 template <int CLUSTER, class Rule>
-int launch_bits(const void* in, void* out, int rows, int cols, int n, int pack_rows,
+int launch_bits(const void* in, void* out, int rows, int cols, int n, int pack_rows, int depth,
                 Rule rule, cudaStream_t stream) {
     static std::atomic<bool> opted[kMaxDevices];
     const int P = (pack_rows ? rows : cols) / 32;
     const int Q = pack_rows ? cols : rows;
-    if (Q % CLUSTER != 0) return static_cast<int>(cudaErrorInvalidValue);
     const int band = Q / CLUSTER;
-    // one block holds the torus itself; a block of a cluster a halo
-    const int depth = CLUSTER == 1 ? 0 : (band < kHaloDepth ? band : kHaloDepth);
+    if (Q % CLUSTER != 0 || (CLUSTER == 1 ? depth != 0 : depth < 1 || depth > band)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     const int slots = band + 2 * depth;
     // the shortest odd runs that keep the block near kThreadAim threads
     int run_len = 1;
@@ -330,46 +318,37 @@ int launch_bytes(const void* in, void* out, int rows, int cols, int n, unsigned 
 
 extern "C" {
 
-// n >= 1 turns of `in` (uint8[rows, cols]) into `out`, in the form and on
-// the cluster given: form 0 packs columns, 1 packs rows, 2 steps bytes, -1
-// picks by shape (columns if cols % 32 == 0, else rows if rows % 32 == 0,
-// else bytes); cluster 1, 2, 4, 8 or 16 blocks, 0 picks by size
-// (pick_cluster). 16 is past the portable limit and is refused unless the
-// card allows it. Returns the launch's CUDA error (0 on success);
-// cudaErrorInvalidValue for a form the shape cannot take, a cluster that
-// does not divide the lines, or a cluster with the byte form.
+// n >= 1 turns of `in` (uint8[rows, cols]) into `out`, in the form, on the
+// cluster and at the halo depth given (ops/byte_board.py::launch_plan plans
+// them): form 0 packs columns, 1 packs rows, 2 steps bytes; cluster 1, 2,
+// 4, 8 or 16 blocks, 16 past the portable limit and refused unless the card
+// allows it; depth 0 on one block, else 1 to the band. Returns the launch's
+// CUDA error (0 on success); cudaErrorInvalidValue for a form the shape
+// cannot take, a cluster that does not divide the lines, a depth outside
+// those, or a cluster with the byte form.
 int gol_byte_board_step_as(const void* in, void* out, int rows, int cols, int n,
                            unsigned birth_mask, unsigned survive_mask, int form, int cluster,
-                           void* stream) {
+                           int depth, void* stream) {
     if (rows < 1 || cols < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (form < 0) form = cols % 32 == 0 ? kBitsCols : (rows % 32 == 0 ? kBitsRows : kBytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (form == kBytes) {
-        if (cluster > 1) return static_cast<int>(cudaErrorInvalidValue);
+        if (cluster != 1 || depth != 0) return static_cast<int>(cudaErrorInvalidValue);
         return launch_bytes(in, out, rows, cols, n, birth_mask, survive_mask, s);
     }
     const int pack_rows = form == kBitsRows;
-    if (form > kBytes || (pack_rows ? rows : cols) % 32 != 0) {
+    if (form < 0 || form > kBytes || (pack_rows ? rows : cols) % 32 != 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (cluster == 0) cluster = pick_cluster((pack_rows ? rows : cols) / 32, pack_rows ? cols : rows);
     return gol_with_bs_rule(birth_mask, survive_mask, [&](auto rule) {
         switch (cluster) {
-            case 1: return launch_bits<1>(in, out, rows, cols, n, pack_rows, rule, s);
-            case 2: return launch_bits<2>(in, out, rows, cols, n, pack_rows, rule, s);
-            case 4: return launch_bits<4>(in, out, rows, cols, n, pack_rows, rule, s);
-            case 8: return launch_bits<8>(in, out, rows, cols, n, pack_rows, rule, s);
-            case 16: return launch_bits<16>(in, out, rows, cols, n, pack_rows, rule, s);
+            case 1: return launch_bits<1>(in, out, rows, cols, n, pack_rows, depth, rule, s);
+            case 2: return launch_bits<2>(in, out, rows, cols, n, pack_rows, depth, rule, s);
+            case 4: return launch_bits<4>(in, out, rows, cols, n, pack_rows, depth, rule, s);
+            case 8: return launch_bits<8>(in, out, rows, cols, n, pack_rows, depth, rule, s);
+            case 16: return launch_bits<16>(in, out, rows, cols, n, pack_rows, depth, rule, s);
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
     });
-}
-
-// n turns of `in` into `out`, form and cluster picked by shape.
-int gol_byte_board_step(const void* in, void* out, int rows, int cols, int n,
-                        unsigned birth_mask, unsigned survive_mask, void* stream) {
-    return gol_byte_board_step_as(in, out, rows, cols, n, birth_mask, survive_mask, -1, 0,
-                                  stream);
 }
 
 }  // extern "C"

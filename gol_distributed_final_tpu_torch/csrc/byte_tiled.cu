@@ -46,8 +46,9 @@
 // 1.25x the tile's along the packed axis at 8 words and 1.25x across the
 // lines at 64 rows and k = 8. A 512^2 board wants many blocks: at 64 x 256
 // cells it has 16 for 132 SMs. So a board whose wide tiles number under
-// kMinBlocks takes the small tile, 256 blocks of 128 threads at 512^2
-// (ops/byte_tiled.py::tile_for mirrors the choice).
+// the SMs takes the small tile, 256 blocks of 128 threads at 512^2
+// (ops/byte_tiled.py::tile_for chooses, and the entry point runs the tile
+// it is handed).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -63,7 +64,6 @@ constexpr int kTileR = 64;        // the wide tile, in cells (ops/byte_tiled.py:
 constexpr int kTileC = 256;
 constexpr int kSmallTileR = 16;   // the small tile (ops/byte_tiled.py::SMALL_TILE)
 constexpr int kSmallTileC = 64;
-constexpr int kMinBlocks = 132;   // fewer wide tiles than this: the small tile
 
 template <int ROWS, int COLS, int THREADS>
 struct Tile {
@@ -177,31 +177,21 @@ static_assert(2 * (kTileR + 2 * kMaxTurns) * (kTileC / 32 + 2) * 4 <= 48 * 1024,
 extern "C" {
 
 // k turns (1..32) of `in` (uint8[rows, cols]) into `out`, which must not
-// alias `in`. `tile` picks the tile: 0 by the board's size, 1 the wide one,
-// 2 the small one. Returns cudaGetLastError() after the launch (0 on
-// success); cudaErrorInvalidValue for a k outside 1..32, an empty board, an
-// unknown tile, or more tile rows than one launch's grid holds.
+// alias `in`, on the tile given: 1 the wide one, 2 the small one. Returns
+// cudaGetLastError() after the launch (0 on success); cudaErrorInvalidValue
+// for a k outside 1..32, an empty board, an unknown tile, or more tile rows
+// than one launch's grid holds.
 int gol_byte_tiled_step_tile(const void* in, void* out, int rows, int cols, int k,
                              unsigned birth_mask, unsigned survive_mask, int tile,
                              void* stream) {
-    if (k < 1 || k > kMaxTurns || rows < 1 || cols < 1 || tile < 0 || tile > 2) {
+    if (k < 1 || k > kMaxTurns || rows < 1 || cols < 1 || tile < 1 || tile > 2) {
         return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (tile == 0) {
-        const long long wide_blocks =
-            static_cast<long long>((rows + kTileR - 1) / kTileR) * ((cols + kTileC - 1) / kTileC);
-        tile = wide_blocks < kMinBlocks ? 2 : 1;
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return gol_with_bs_rule(birth_mask, survive_mask, [&](auto rule) {
         if (tile == 1) return launch<WideTile>(in, out, rows, cols, k, rule, s);
         return launch<SmallTile>(in, out, rows, cols, k, rule, s);
     });
-}
-
-int gol_byte_tiled_step(const void* in, void* out, int rows, int cols, int k,
-                        unsigned birth_mask, unsigned survive_mask, void* stream) {
-    return gol_byte_tiled_step_tile(in, out, rows, cols, k, birth_mask, survive_mask, 0, stream);
 }
 
 }  // extern "C"

@@ -94,7 +94,6 @@
 namespace {
 
 constexpr int kMaxTurns = 32;
-constexpr int kMinBlocks = 132;   // fewer wide tiles than this: the small tile
 constexpr unsigned kMod = 65521;  // adler32's modulus
 constexpr int kWireRows = 64;     // ops/sparse.py::WIRE_TILE_ROWS, WIRE_TILE_COLS
 constexpr int kWireCols = 256;
@@ -114,7 +113,7 @@ struct Tile {
     static constexpr int kChunks = kLineBytes / 16;
     static constexpr int kThreads = THREADS;
 };
-// the byte-tile kernel's two tiles (ops/strip_steps.py::TILE, SMALL_TILE)
+// the byte-tile kernel's two tiles (ops/byte_tiled.py::TILE, SMALL_TILE)
 using WideTile = Tile<64, 256, 256>;
 using SmallTile = Tile<16, 64, 128>;
 
@@ -563,8 +562,8 @@ extern "C" {
 // when not null, is four zeroed uint64: the first launch adds S1 and S2 of
 // the strip before the batch to sums[0..1], the last launch those of the
 // new strip to sums[2..3], each congruent modulo 65521 to the adler32
-// sums (h * cols < 2^32). `tile`: 0 by the output's size, 1 the wide tile,
-// 2 the small one. `ctas` caps the
+// sums (h * cols < 2^32). `tile`: 1 the wide tile, 2 the small one
+// (ops/strip_steps.py chooses by the output's size). `ctas` caps the
 // persistent grid (0: as many as the SMs hold). Returns cudaGetLastError()
 // after the launch (0 on success); cudaErrorInvalidValue for arguments
 // outside these ranges.
@@ -574,7 +573,7 @@ int gol_strip_steps(const void* top, const void* mid, const void* bot, const voi
                     void* stream) {
     const bool last = done + k == batch_k;
     if (k < 1 || k > kMaxTurns || h < 1 || cols < 1 || done < 0 || done + k > batch_k ||
-        counts == nullptr || tile < 0 || tile > 2 || ctas < 0 || top == nullptr ||
+        counts == nullptr || tile < 1 || tile > 2 || ctas < 0 || top == nullptr ||
         mid == nullptr || bot == nullptr || out == nullptr ||
         (last && done > 0 && dirty != nullptr && pre == nullptr) ||
         (edges != nullptr && h < batch_k) ||
@@ -609,12 +608,6 @@ int gol_strip_steps(const void* top, const void* mid, const void* bot, const voi
                       (a.dirty == nullptr || aligned16(a.pre)) &&
                       (a.edges == nullptr || aligned16(a.edges));
     a.pre_in_stage = wide && done == 0;
-    if (tile == 0) {
-        const long long wide_tiles =
-            static_cast<long long>((a.out_lines + WideTile::kRows - 1) / WideTile::kRows) *
-            ((cols + WideTile::kCols - 1) / WideTile::kCols);
-        tile = wide_tiles < kMinBlocks ? 2 : 1;
-    }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return tile == 1 ? launch_tile<WideTile>(a, wide, ctas, s)
                      : launch_tile<SmallTile>(a, wide, ctas, s);

@@ -94,9 +94,10 @@
 //   of the slots, one __syncthreads() between turns, each turn walking
 //   the shrinking cone (bit_step.cuh's gol_walk), and two meetings a phase.
 //
-// pick_cluster and plan_lines choose C, the loop and d by the board, from
-// the sweep, and a cluster launch the card refuses runs the one-block
-// kernel instead. A batch above one (K2) and the history mode stay on one
+// ops/whole_board.py::cluster_plan chooses C, d, the loop and its block by
+// the board, from the sweep, and hands the route to the entry point, which
+// runs it; a cluster launch the card refuses runs the one-block kernel
+// instead. A batch above one (K2) and the history mode stay on one
 // block a board: a batch already fills the card with blocks, and the
 // history mode is off the sessions' path.
 //
@@ -131,45 +132,17 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 1024;  // the largest block plan() chooses
-
-// The cluster route's plan (pick_cluster; ops/whole_board.py::cluster_plan
-// mirrors it). Measured on an H100 (chip_smoke.py --k1-sweep), a counted
-// 4096-turn launch in ms, one block against the plan's cluster: 512^2 6.39 /
-// 2.02 (16 blocks; 8: 2.45, 4: 3.30, 2: 4.43), 960^2 18.90 / 3.57 (16),
-// 256^2 2.37 / 1.42 (16), 224^2 2.75 / 1.37 (16, bands of 14 lines), 192^2
-// 1.41 / 1.33 (16, bands of 12; 8: 1.36), 160^2 1.50 / 1.22 (8; 16, bands of
-// 10: 1.35), 128^2 0.95 / 1.14 (8): one block up to 128^2 (512 words), a
-// cluster from 160^2 (800 words), bands of 12 lines or more. Halo depths of
-// 8 and 32 and about 256 or 1024 runs a block were at best 1% faster.
-constexpr int kMaxCluster = 16;        // the largest cluster picked (past the portable 8)
-constexpr int kMinClusterWords = 768;  // a smaller board stays on one block
-constexpr int kMinBand = 12;           // the thinnest band picked, in lines
-constexpr int kHaloDepth = 16;         // turns between two exchanges of halo lines, at most
-constexpr int kClusterThreadAim = 512;  // runs per block of the cluster, about
-// The register loop's plan (plan_lines; ops/whole_board.py::cluster_plan
-// mirrors it). Measured on an H100 (chip_smoke.py --k1-sweep), a counted
-// 4096-turn launch in ms, the shared-memory loop against the register loop
-// on the cluster pick_cluster gives: 512^2 2.03 / 1.00 (axis 1: 2.05 /
-// 1.01; 8 lines a thread 0.97-1.02, 2 lines 1.19; depth 32 1.03-1.05,
-// depth 8 1.31), 960^2 3.57 / 1.95 (8 lines a thread), 640 x 384 2.19 /
-// 1.29 (axis 1: 2.06 / 1.14), 256^2 1.40 / 0.78, 224^2 1.35 / 0.86, 192^2
-// 1.33 / 0.84, 160^2 1.23 / 0.81 (8 blocks). 2 lines a thread was the
-// better at 160^2 in one sweep and 30% the worse in the next; 4 is the
-// best or within 5% of it on every board.
-constexpr int kRegMaxWords = 32;   // a line on at most one warp's lanes, else the shared-memory loop
-constexpr int kRegMaxThreads = 512;  // the largest block: up to 128 registers a thread
-constexpr int kRegLines = 4;         // lines a thread
-constexpr int kRegLinesWide = 8;     // lines a thread where kRegLines would pass kRegMaxThreads
-constexpr int kRegMaxThreadsWide = 384;  // the largest block of kRegLinesWide: 168 registers
+constexpr int kMaxThreads = 1024;        // the largest block plan() chooses
+constexpr int kClusterThreadAim = 512;  // runs per block of the shared-memory loop, about
+constexpr int kRegMaxWords = 32;         // the register loop's line lies on one warp's lanes
+constexpr int kRegMaxThreads = 512;      // its largest block up to 4 lines a thread: 128 registers
+constexpr int kRegMaxThreadsWide = 384;  // and with 8 lines a thread: 168 registers
 
 // The largest block of the register loop with R lines a thread: the SM's
 // 65,536 registers over its threads leave each enough for its R words and
-// their sums, under any rule, with no spills.
-constexpr int register_threads(int R) {
-    return R < kRegLinesWide ? kRegMaxThreads : kRegMaxThreadsWide;
-}
-constexpr int kRegDepth = 16;      // turns between two meetings of the cluster, at most
+// their sums, under any rule, with no spills (ops/whole_board.py::
+// register_threads).
+constexpr int register_threads(int R) { return R <= 4 ? kRegMaxThreads : kRegMaxThreadsWide; }
 
 // One thread's share of a board: the lines [j0, j0 + len) at packed index
 // i, as word offsets into a board copy.
@@ -766,48 +739,29 @@ int launch(const void* in, void* out, void* row_counts, void* turn_counts, int b
     return static_cast<int>(cudaGetLastError());
 }
 
-// The cluster for a board of Q lines of P words (ops/whole_board.py::
-// cluster_plan mirrors it): one block under kMinClusterWords, else the
-// largest of kMaxCluster, ..., 4, 2 that divides the lines into bands of at
-// least kMinBand lines whose copies, halos included, take no more shared
-// memory than the whole board's, else one block.
-int pick_cluster(int P, int Q) {
-    if (static_cast<long long>(P) * Q < kMinClusterWords) return 1;
-    for (int c = kMaxCluster; c > 1; c /= 2) {
-        const int band = Q / c;
-        if (Q % c == 0 && band >= kMinBand && band + 2 * std::min(kHaloDepth, band) <= Q) {
-            return c;
-        }
-    }
-    return 1;
-}
-
-// A single board's route: blocks (1: one block), halo depth, and on a
-// cluster the loop: lines a thread in the register loop, 0 the
-// shared-memory loop.
+// A single board's route, as ops/whole_board.py::Route plans it: blocks
+// (1: one block), and on a cluster its halo depth, its loop (lines a
+// thread in the register loop, 0 the shared-memory loop) and the register
+// loop's warps a block.
 struct Route {
-    int blocks, depth, lines;
+    int blocks, depth, lines, warps;
 };
 
-// The warps of the register loop's block for slots of lines, or 0 where a
-// line is wider than a warp or the block would pass register_threads.
-int register_warps(int P, int slots, int lines) {
-    if (P > kRegMaxWords || lines < 1) return 0;
-    const int per_warp = 32 / P * lines;
-    const int warps = (slots + per_warp - 1) / per_warp;
-    return warps * 32 <= register_threads(lines) ? warps : 0;
-}
-
-// The register loop's lines a thread for bands of `band` lines at halo
-// depth `depth` (ops/whole_board.py::plan_lines mirrors it): kRegLines, or
-// kRegLinesWide where that block would pass kRegMaxThreads; 0, the
-// shared-memory loop, for a line wider than a warp (P > kRegMaxWords) or
-// where neither fits.
-int plan_lines(int P, int band, int depth) {
-    for (int lines : {kRegLines, kRegLinesWide}) {
-        if (register_warps(P, band + 2 * depth, lines) > 0) return lines;
+// Whether the compiled code runs `r` on a board of Q lines of P words. One
+// block takes no depth, loop or warps. A cluster cuts the lines into bands
+// of at least its depth, and runs the shared-memory loop (no warps) or the
+// register loop at a compiled lines a thread, a line on one warp's lanes,
+// with a block of warps that holds the band and its halo within the
+// instantiation's __launch_bounds__.
+bool runnable(const Route& r, int P, int Q) {
+    if (r.blocks == 1) return r.depth == 0 && r.lines == 0 && r.warps == 0;
+    if (r.blocks < 1 || Q % r.blocks != 0 || r.depth < 1 || r.depth > Q / r.blocks) return false;
+    if (r.lines == 0) return r.warps == 0;
+    if (r.lines != 2 && r.lines != 4 && r.lines != 8) return false;
+    if (P < 1 || P > kRegMaxWords || r.warps < 1 || 32 * r.warps > register_threads(r.lines)) {
+        return false;
     }
-    return 0;
+    return r.warps * (32 / P) * r.lines >= Q / r.blocks + 2 * r.depth;
 }
 
 // Launch `kernel` on one cluster of `cluster` blocks (16 is past the
@@ -875,15 +829,13 @@ cudaError_t launch_cluster(const void* in, void* out, void* row_counts, int rows
 // launch_cluster.
 template <int WORD_AXIS, int R, class Rule>
 cudaError_t launch_cluster_registers(const void* in, void* out, void* row_counts, int rows,
-                                     int cols, int n, int cluster, int depth, Rule rule,
-                                     cudaStream_t stream) {
+                                     int cols, int n, int cluster, int depth, int warps,
+                                     Rule rule, cudaStream_t stream) {
     static std::atomic<bool> opted[kMaxDevices];
     static std::atomic<bool> wide[kMaxDevices];
     const int P = WORD_AXIS == 0 ? rows : cols;
     const int Q = WORD_AXIS == 0 ? cols : rows;
     const int slots = Q / cluster + 2 * depth;
-    const int warps = register_warps(P, slots, R);
-    if (warps == 0) return cudaErrorInvalidValue;
     // two copies of the slots; for each of two parities the warps' edge
     // sums (two words, two sides) and the lanes' scratch slots
     const size_t smem = (2 * static_cast<size_t>(slots) * P + 2 * (4 * warps * P + 64)) *
@@ -895,27 +847,25 @@ cudaError_t launch_cluster_registers(const void* in, void* out, void* row_counts
                              rule);
 }
 
-// The route's cluster launch, either loop (route.lines 0, 2, 4 or 8);
-// cudaErrorInvalidValue for lines not compiled in.
+// The route's cluster launch, either loop (route.lines 0, 2, 4 or 8;
+// runnable has refused any other).
 template <int WORD_AXIS, class Rule>
 cudaError_t launch_route(const void* in, void* out, void* row_counts, int rows, int cols, int n,
                          const Route& route, Rule rule, cudaStream_t stream) {
-    const int c = route.blocks, d = route.depth;
+    const int c = route.blocks, d = route.depth, w = route.warps;
     switch (route.lines) {
         case 0:
             return launch_cluster<WORD_AXIS>(in, out, row_counts, rows, cols, n, c, d, rule,
                                              stream);
         case 2:
             return launch_cluster_registers<WORD_AXIS, 2>(in, out, row_counts, rows, cols, n, c,
-                                                          d, rule, stream);
+                                                          d, w, rule, stream);
         case 4:
             return launch_cluster_registers<WORD_AXIS, 4>(in, out, row_counts, rows, cols, n, c,
-                                                          d, rule, stream);
-        case 8:
-            return launch_cluster_registers<WORD_AXIS, 8>(in, out, row_counts, rows, cols, n, c,
-                                                          d, rule, stream);
+                                                          d, w, rule, stream);
         default:
-            return cudaErrorInvalidValue;
+            return launch_cluster_registers<WORD_AXIS, 8>(in, out, row_counts, rows, cols, n, c,
+                                                          d, w, rule, stream);
     }
 }
 
@@ -948,50 +898,29 @@ int gol_whole_board_step(const void* in, void* out, void* row_counts, int batch,
 
 // n turns of one board, `in` (int32[rows, cols]), into `out`, with its row
 // popcounts into int32[rows] unless row_counts is null, on the route
-// given: cluster 0 picks by the board (pick_cluster), 1 is one block, 2, 4,
-// 8 or 16 a cluster of that many blocks; on a cluster `depth` halo lines
-// (0: the loop's kRegDepth or kHaloDepth) and `lines` the loop (-1: the
-// plan's for the band and depth, plan_lines; 0 the shared-memory loop; 2, 4 or 8 the
-// register loop with that many lines a thread). The depth is clamped to
-// the band. A cluster launch the card refuses runs on one block instead.
-// route[3] gets the route that ran: blocks (1 for one block), depth and
-// lines. Returns the launch's CUDA error (0 on success);
-// cudaErrorInvalidValue for a cluster that does not divide the lines or a
-// register loop the board's shape or the compiled lines do not allow.
+// int route[4] holds (Route: blocks, depth, lines, warps; 0 for what a
+// route does not use). A cluster launch the card refuses runs on one block
+// instead, and route then holds {1, 0, 0, 0}. Returns the launch's CUDA
+// error (0 on success); cudaErrorInvalidValue for a route the compiled code
+// cannot run (runnable).
 int gol_whole_board_step_as(const void* in, void* out, void* row_counts, int rows, int cols,
                             int word_axis, int n, unsigned common, unsigned dead_only,
-                            unsigned live_only, int cluster, int depth, int lines, int* route,
-                            void* stream) {
+                            unsigned live_only, int* route, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int P = word_axis == 0 ? rows : cols;
-    const int Q = word_axis == 0 ? cols : rows;
-    Route r = {cluster == 0 ? pick_cluster(P, Q) : cluster, 0, 0};
-    if (r.blocks > 1) {
-        if (Q % r.blocks != 0) return static_cast<int>(cudaErrorInvalidValue);
-        const int band = Q / r.blocks;
-        r.lines = lines < 0 ? plan_lines(P, band, std::min(depth > 0 ? depth : kRegDepth, band))
-                            : lines;
-        r.depth = std::min(depth > 0 ? depth : (r.lines > 0 ? kRegDepth : kHaloDepth), band);
-        const bool compiled = r.lines == 0 || r.lines == 2 || r.lines == 4 || r.lines == 8;
-        if (!compiled || (r.lines > 0 && register_warps(P, band + 2 * r.depth, r.lines) == 0)) {
-            return static_cast<int>(cudaErrorInvalidValue);
-        }
+    const Route r = {route[0], route[1], route[2], route[3]};
+    if (!runnable(r, word_axis == 0 ? rows : cols, word_axis == 0 ? cols : rows)) {
+        return static_cast<int>(cudaErrorInvalidValue);
     }
     return gol_with_rule(common, dead_only, live_only, [&](auto rule) {
         if (r.blocks > 1) {
             const cudaError_t err =
                 word_axis == 0 ? launch_route<0>(in, out, row_counts, rows, cols, n, r, rule, s)
                                : launch_route<1>(in, out, row_counts, rows, cols, n, r, rule, s);
-            if (err == cudaSuccess) {
-                route[0] = r.blocks;
-                route[1] = r.depth;
-                route[2] = r.lines;
-                return static_cast<int>(cudaGetLastError());
-            }
+            if (err == cudaSuccess) return static_cast<int>(cudaGetLastError());
             cudaGetLastError();  // the refusal is not left pending: one block runs instead
+            route[0] = 1;
+            route[1] = route[2] = route[3] = 0;
         }
-        route[0] = 1;
-        route[1] = route[2] = 0;
         if (word_axis == 0) {
             return launch<0, false>(in, out, row_counts, nullptr, 1, rows, cols, n, rule, s);
         }

@@ -7,11 +7,13 @@ It replaces the JAX package's Pallas kernel K5,
 :91-112). What bounds it on the card and how the design meets that is
 written at the top of the CUDA source.
 
-The kernel has two forms, picked by shape (``form``): where an axis is a
+The kernel has two forms, chosen by shape (``form``): where an axis is a
 multiple of 32 the board is packed as it is loaded and steps as a bitboard
 in the shared memory of a thread block cluster of 1, 2, 4 or 8 blocks
 (``cluster_size``), columns packed if W % 32 == 0, else rows; any other
-board (16^2, 24 x 33) steps as bytes in one block.
+board (16^2, 24 x 33) steps as bytes in one block. ``launch_plan`` is the
+one place a launch's form, cluster and halo depth are chosen; every launch
+hands the library all three.
 
 The gate (``fits``) is the port's own: the form's shared memory must fit
 the block's opt-in limit, and the board must hold at most ``MAX_CELLS``
@@ -67,14 +69,15 @@ MAX_CELLS = 192 * 192
 #: (0.174 ms of device time against 0.041; PERF.md)
 MAX_BYTE_FORM_CELLS = 32 * 32
 
-#: the largest cluster picked, and the least words of a board that takes
-#: one (csrc/byte_board.cu: kMaxCluster, kMinClusterWords; 128^2 is 512
-#: words and faster on one block, 160^2 is 800 and faster on eight)
+#: the largest cluster chosen (the portable limit), and the least words of
+#: a board that takes one. Measured on an H100: up to 128^2 (512 words) one
+#: block beats every cluster, from 160^2 (800 words) on eight blocks beat
+#: one, and at 256^2 and 512^2 also four and two (PERF.md)
 MAX_CLUSTER = 8
 MIN_CLUSTER_WORDS = 768
 
 #: turns between two exchanges of halo lines in a cluster: each block's band
-#: carries that many halo lines on each side (kHaloDepth), at most the band
+#: carries that many halo lines on each side, at most the band
 HALO_DEPTH = 16
 
 #: kernel launches made; ``plain_calls`` counts the launches that the plain
@@ -83,13 +86,10 @@ launches = 0
 plain_calls = 0
 
 _SIGNATURES = {
-    "gol_byte_board_step": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-    ],
     "gol_byte_board_step_as": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ],
 }
 _entry = None  # the library's gol_byte_board_step_as, resolved at its first launch
@@ -117,9 +117,9 @@ def _lines(shape, how: str) -> tuple[int, int]:
 
 
 def cluster_size(shape: tuple[int, int], how: str | None = None) -> int:
-    """Blocks in the cluster the kernel picks for a board: 1 for the byte
-    form and for a board under ``MIN_CLUSTER_WORDS`` packed words, else the
-    largest of 8, 4, 2 that divides its lines."""
+    """Blocks in the cluster a board steps on: 1 for the byte form and for
+    a board under ``MIN_CLUSTER_WORDS`` packed words, else the largest of 8,
+    4, 2 that divides its lines."""
     how = form(shape) if how is None else how
     if how == "bytes":
         return 1
@@ -132,19 +132,29 @@ def cluster_size(shape: tuple[int, int], how: str | None = None) -> int:
     return cluster
 
 
-def smem_bytes(shape: tuple[int, int], how: str | None = None, cluster: int | None = None) -> int:
-    """Shared memory one block needs. The bit form: two copies of its band
-    of lines, each in a cluster of more than one block with ``HALO_DEPTH``
-    halo lines on each side. The byte form: two uint8 copies of the
-    board."""
+def launch_plan(shape: tuple[int, int], how: str | None = None,
+                cluster: int | None = None) -> tuple[str, int, int]:
+    """``(form, blocks, halo depth)`` of a launch on a board of ``shape``,
+    the one plan the gate and the launch read: ``form``'s form and
+    ``cluster_size``'s cluster unless ``how`` and ``cluster`` force them, and
+    on a cluster ``HALO_DEPTH`` halo lines, at most the band; none on one
+    block, which holds the whole torus, or in the byte form."""
     how = form(shape) if how is None else how
+    cluster = cluster_size(shape, how) if cluster is None else cluster
+    if how == "bytes" or cluster == 1:
+        return how, cluster, 0
+    return how, cluster, min(HALO_DEPTH, _lines(shape, how)[1] // cluster)
+
+
+def smem_bytes(shape: tuple[int, int], how: str | None = None, cluster: int | None = None) -> int:
+    """Shared memory one block needs on ``launch_plan``'s launch. The bit
+    form: two copies of its band of lines and their halo lines. The byte
+    form: two uint8 copies of the board."""
+    how, cluster, depth = launch_plan(shape, how, cluster)
     if how == "bytes":
         return 2 * shape[0] * shape[1]
     words, lines = _lines(shape, how)
-    cluster = cluster_size(shape, how) if cluster is None else cluster
-    band = lines // cluster
-    depth = 0 if cluster == 1 else min(HALO_DEPTH, band)
-    return 4 * 2 * (band + 2 * depth) * words
+    return 4 * 2 * (lines // cluster + 2 * depth) * words
 
 
 def fits(shape: tuple[int, ...], device) -> bool:
@@ -176,11 +186,11 @@ def step_sizes(
 ) -> torch.Tensor:
     """One launch of n turns for each n >= 1 of ``sizes``, the board of each
     the result of the one before, with the scratch boards, the device and
-    the stream taken once for them all: a whole ladder in one call.
-    ``form`` (one of ``FORMS``) and ``cluster`` force what the kernel
-    otherwise picks by shape; a launch the card refuses raises. The input is
-    never written. ``site`` is the telemetry site each launch is timed
-    under (obs/device.py)."""
+    the stream taken once for them all: a whole ladder in one call, on
+    ``launch_plan``'s launch. ``form`` (one of ``FORMS``) and ``cluster``
+    force what it otherwise plans by shape; a launch the card refuses
+    raises. The input is never written. ``site`` is the telemetry site each
+    launch is timed under (obs/device.py)."""
     global plain_calls, _entry
     sizes = [int(n) for n in sizes]
     if any(n < 1 for n in sizes):
@@ -213,8 +223,10 @@ def step_sizes(
         )
     if form is not None and form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
-    which = -1 if form is None else FORMS.index(form)
-    blocks = 0 if cluster is None else int(cluster)
+    if cluster is not None and int(cluster) < 1:
+        raise ValueError(f"a cluster has >= 1 blocks, got {cluster}")
+    how, blocks, depth = launch_plan(shape, form, None if cluster is None else int(cluster))
+    which = FORMS.index(how)
     if _entry is None:
         _entry = _build.load("byte_board", _SIGNATURES).gol_byte_board_step_as
     entry = _entry
@@ -224,7 +236,7 @@ def step_sizes(
         global launches
         started = _device.begin(src.device, timing)
         err = entry(src.data_ptr(), dst.data_ptr(), shape[0], shape[1], n, birth_mask,
-                    survive_mask, which, blocks, stream)
+                    survive_mask, which, blocks, depth, stream)
         if err:
             _build.check(err, "whole-board byte kernel launch")
         launches += 1

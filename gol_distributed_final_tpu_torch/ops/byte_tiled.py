@@ -41,8 +41,8 @@ MAX_TURNS = 32
 TILE = (64, 256)
 
 #: the small output tile (kSmallTileR, kSmallTileC), for a board with fewer
-#: than ``MIN_BLOCKS`` wide tiles (kMinBlocks, a block for each SM of an
-#: H100): 512^2 is 8 x 2 wide tiles, and 32 x 8 small ones
+#: than ``MIN_BLOCKS`` wide tiles (a block for each SM of an H100): 512^2
+#: is 8 x 2 wide tiles, and 32 x 8 small ones
 SMALL_TILE = (16, 64)
 MIN_BLOCKS = 132
 
@@ -55,10 +55,6 @@ launches = 0
 plain_calls = 0
 
 _SIGNATURES = {
-    "gol_byte_tiled_step": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-    ],
     "gol_byte_tiled_step_tile": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
@@ -88,8 +84,9 @@ def can_tile(shape: tuple[int, ...]) -> bool:
 
 
 def tile_for(shape: tuple[int, int]) -> tuple[int, int]:
-    """The tile the kernel cuts a board of ``shape`` into: the wide one
-    unless that leaves fewer than ``MIN_BLOCKS`` blocks."""
+    """The tile a board of ``shape`` is cut into, the one place it is
+    chosen: the wide one unless that leaves fewer than ``MIN_BLOCKS``
+    blocks."""
     wide_blocks = -(-shape[0] // TILE[0]) * -(-shape[1] // TILE[1])
     return SMALL_TILE if wide_blocks < MIN_BLOCKS else TILE
 
@@ -145,9 +142,10 @@ def step_sizes(
     """One launch for each k of ``sizes`` (each 1..MAX_TURNS turns), the
     board of each the result of the one before, with the scratch boards,
     the device and the stream taken once for them all: a whole ladder in one
-    call. ``tile`` forces ``TILE`` or ``SMALL_TILE``. The input is never
-    written. ``site`` is the telemetry site each launch is timed under
-    (obs/device.py; the JAX package's byte tiles are its fused ladder's)."""
+    call, on ``tile_for``'s tile unless ``tile`` forces ``TILE`` or
+    ``SMALL_TILE``. The input is never written. ``site`` is the telemetry
+    site each launch is timed under (obs/device.py; the JAX package's byte
+    tiles are its fused ladder's)."""
     global plain_calls, _entry
     sizes = [int(k) for k in sizes]
     for k in sizes:
@@ -175,7 +173,7 @@ def step_sizes(
     if tile not in (None, TILE, SMALL_TILE):
         raise ValueError(f"the byte-tile kernel has tiles {TILE} and {SMALL_TILE}, got {tile}")
     rows, cols = board.shape
-    which = 0 if tile is None else (1 if tile == TILE else 2)
+    which = 1 if (tile or tile_for((rows, cols))) == TILE else 2
     if _entry is None:
         _entry = _build.load("byte_tiled", _SIGNATURES).gol_byte_tiled_step_tile
     entry = _entry

@@ -49,6 +49,7 @@ import torch
 from ..obs import device as _device
 from ..models import CONWAY
 from . import _build, _tiles
+from .byte_tiled import SMALL_TILE, TILE, tile_for
 from .bitpack import byte_launch_cost
 from .sparse import WIRE_TILE_COLS, WIRE_TILE_ROWS, wire_tile_grid
 
@@ -56,12 +57,9 @@ from .sparse import WIRE_TILE_COLS, WIRE_TILE_ROWS, wire_tile_grid
 MAX_TURNS = 32
 
 #: the kernel's tiles in cells (rows, cols), csrc/strip_steps.cu: the
-#: byte-tile kernel's two (ops/byte_tiled.py::TILE, SMALL_TILE), the small
-#: one for an output with fewer than ``MIN_BLOCKS`` wide tiles. Each nests
-#: in one wire tile, so a CTA's output is one dirty flag.
-TILE = (64, 256)
-SMALL_TILE = (16, 64)
-MIN_BLOCKS = 132
+#: byte-tile kernel's two, chosen for each launch's output as that kernel's
+#: are (``tile_for``). Each nests in one wire tile, so a CTA's output is one
+#: dirty flag.
 
 #: adler32's modulus
 MOD = 65521
@@ -296,7 +294,8 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
     counts, grid and sums zeroed; fresh ones when None), which is
     returned; none may share memory with the inputs, which are never
     written. On the card the counts are int32 and the sums congruent
-    modulo ``MOD`` to the plain version's. ``tile`` forces ``TILE`` or
+    modulo ``MOD`` to the plain version's. Each launch runs on
+    ``tile_for``'s tile for its output unless ``tile`` forces ``TILE`` or
     ``SMALL_TILE``; ``ctas`` caps the kernel's persistent grid."""
     k = int(k)
     _check_parts(top, strip, bottom, k)
@@ -328,7 +327,6 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
         raise ValueError(f"the strip kernel has tiles {TILE} and {SMALL_TILE}, got {tile}")
     if ctas is not None and int(ctas) < 1:
         raise ValueError(f"ctas caps the grid at >= 1 CTAs, got {ctas}")
-    which = 0 if tile is None else (1 if tile == TILE else 2)
     dev = strip.device
     entry = _entry_fn()
     bands = into.bands if attest and into.bands.numel() else None
@@ -341,6 +339,7 @@ def strip_batch(top: torch.Tensor, strip: torch.Tensor, bottom: torch.Tensor, k:
             rest = k - done - step  # halo lines left after this launch
             dst = into.strip if rest == 0 else torch.empty((h + 2 * rest, width),
                                                            dtype=torch.uint8, device=dev)
+            which = 1 if (tile or tile_for((h + 2 * rest, width))) == TILE else 2
             started = _device.begin(dev, timing)
             err = entry(parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
                         strip.data_ptr(), dst.data_ptr(), width, step, h, k, done,

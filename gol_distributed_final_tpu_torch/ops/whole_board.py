@@ -25,14 +25,16 @@ over a thread block cluster, each block on its own SM, with K5's
 band-and-halo scheme (csrc/byte_board.cu). Between two meetings of the
 cluster a block runs its turns in one of two loops: the register loop,
 its band in registers and its neighbours' words by warp shuffles, for a
-line of at most 32 words, else the shared-memory loop. ``cluster_plan`` mirrors the kernel
-source's plan, the measured choice of blocks, halo depth and loop; a
-cluster launch the card refuses runs on one block instead. The batches of
-``ops/batch_board.py`` and the history mode stay on one block a board.
+line of at most 32 words, else the shared-memory loop. ``cluster_plan``
+is the one place the route is chosen: the measured choice of blocks, halo
+depth, loop and the register loop's block, which every launch hands the
+library whole; the library runs it, and a cluster launch the card refuses
+runs on one block instead. The batches of ``ops/batch_board.py`` and the
+history mode stay on one block a board, on the library's own block plan.
 The cluster route's launches are timed under their own site,
-``CLUSTER_SITE``, and counted apart (``cluster_launches``,
-``register_launches``, and ``gol_whole_board_launches_total{route}`` with
-metrics on: "block", "cluster" or "cluster_registers").
+``CLUSTER_SITE``, and counted by route under
+``gol_whole_board_launches_total{route}`` with metrics on: "block",
+"cluster" or "cluster_registers".
 
 ``step_n`` takes the plain version (``bit_step_n`` plus ``row_popcounts``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
@@ -49,6 +51,7 @@ the step launches' counts do not move.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -67,37 +70,44 @@ from .stencil import CONWAY_BIRTH_MASK, CONWAY_SURVIVE_MASK
 H100_SMEM_OPTIN = 232_448
 
 #: kernel launches made by ``step_n``; ``plain_calls`` counts the times it
-#: took the plain version (CPU tensors) instead; ``cluster_launches`` the
-#: launches among ``launches`` that ran on a cluster, ``register_launches``
-#: those among them that ran the register loop
+#: took the plain version (CPU tensors) instead
 launches = 0
 plain_calls = 0
-cluster_launches = 0
-register_launches = 0
 
-#: the cluster route's plan (csrc/whole_board.cu: kMaxCluster,
-#: kMinClusterWords, kMinBand, kHaloDepth; pick_cluster, where the sweep
-#: on an H100 that set them is written): one block up to 128^2 (512 words),
-#: a cluster from 160^2 (800 words), bands of at least 12 lines; the
-#: shared-memory loop's halo depth
+#: the cluster route's plan (``cluster_plan``). Measured on an H100
+#: (chip_smoke.py --k1-sweep), a counted 4096-turn launch in ms, one block
+#: against the plan's cluster in the shared-memory loop: 512^2 6.39 / 2.02
+#: (16 blocks; 8: 2.45, 4: 3.30, 2: 4.43), 960^2 18.90 / 3.57 (16), 256^2
+#: 2.37 / 1.42 (16), 224^2 2.75 / 1.37 (16, bands of 14 lines), 192^2 1.41
+#: / 1.33 (16, bands of 12; 8: 1.36), 160^2 1.50 / 1.22 (8; 16, bands of
+#: 10: 1.35), 128^2 0.95 / 1.14 (8): one block up to 128^2 (512 words), a
+#: cluster from 160^2 (800 words), bands of 12 lines or more, at most 16
+#: blocks (past the portable 8). Halo depths of 8 and 32 and about 256 or
+#: 1024 runs a block were at best 1% faster than 16.
 MAX_CLUSTER = 16
 MIN_CLUSTER_WORDS = 768
 MIN_BAND = 12
 HALO_DEPTH = 16
 
-#: the register loop's plan (csrc/whole_board.cu: kRegMaxWords, kRegLines,
-#: kRegLinesWide, kRegDepth; plan_lines): lines of at most 32 words,
-#: REG_LINES lines a thread (REG_LINES_WIDE where that block would pass
-#: REG_MAX_THREADS), halo depth REG_DEPTH
+#: the register loop's plan: the same clusters and depth, 4 lines a thread,
+#: or 8 where that block would pass ``register_threads(4)``. Measured on an
+#: H100 (chip_smoke.py --k1-sweep), a counted 4096-turn launch in ms, the
+#: shared-memory loop against the register loop on the plan's cluster:
+#: 512^2 2.03 / 1.00 (axis 1: 2.05 / 1.01; 8 lines a thread 0.97-1.02, 2
+#: lines 1.19; depth 32 1.03-1.05, depth 8 1.31), 960^2 3.57 / 1.95 (8 lines
+#: a thread), 640 x 384 2.19 / 1.29 (axis 1: 2.06 / 1.14), 256^2 1.40 /
+#: 0.78, 224^2 1.35 / 0.86, 192^2 1.33 / 0.84, 160^2 1.23 / 0.81 (8 blocks).
+#: 2 lines a thread was the better at 160^2 in one sweep and 30% the worse
+#: in the next; 4 is the best or within 5% of it on every board.
+REG_LINES = (4, 8)
+
+#: what the library compiles in (csrc/whole_board.cu), which the plan must
+#: respect: a register loop's line on one warp's lanes (kRegMaxWords), its
+#: lines a thread (the instantiations of R), and its largest block, which
+#: leaves a thread up to 128 registers (kRegMaxThreads) and up to 168 with
+#: 8 lines a thread (kRegMaxThreadsWide)
 REG_MAX_WORDS = 32
-REG_LINES = 4
-REG_LINES_WIDE = 8
-REG_DEPTH = 16
-#: the register loop's lines a thread that the kernel compiles in
 REG_LINE_CHOICES = (2, 4, 8)
-#: the register loop's largest block, which leaves a thread up to 128
-#: registers (kRegMaxThreads), and up to 168 with REG_LINES_WIDE lines a
-#: thread (kRegMaxThreadsWide)
 REG_MAX_THREADS = 512
 REG_MAX_THREADS_WIDE = 384
 
@@ -122,8 +132,7 @@ _SIGNATURES = {
     "gol_whole_board_step_as": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p,
     ],
     "gol_whole_board_history": [
@@ -165,13 +174,15 @@ def launch(packed, out, counts, n, word_axis, birth_mask, survive_mask, site) ->
 
 
 class Route(NamedTuple):
-    """A single board's route: ``blocks`` (1: one block), and on a cluster
-    its halo ``depth`` and its loop, ``lines`` a thread in the register
-    loop or 0 for the shared-memory loop."""
+    """A single board's route, all the library needs to launch it:
+    ``blocks`` (1: one block), and on a cluster its halo ``depth``, its
+    loop, ``lines`` a thread in the register loop or 0 for the
+    shared-memory loop, and the register loop's ``warps`` a block."""
 
     blocks: int
     depth: int = 0
     lines: int = 0
+    warps: int = 0
 
     @property
     def name(self) -> str:
@@ -182,28 +193,26 @@ class Route(NamedTuple):
 
 
 def launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask, site,
-               cluster=0, depth=0, lines=-1) -> Route:
+               route: Route | None = None) -> Route:
     """One launch for one contiguous int32 board ``[rows, cols]`` (the
-    callers check it), on the route ``cluster`` gives: 0 the kernel's pick
-    (``cluster_plan``), 1 one block, 2, 4, 8 or 16 a cluster of that many
-    blocks, with ``depth`` halo lines (0: the loop's) and ``lines`` the loop
-    (-1: the plan's for the band, 0 the shared-memory loop, one of
-    ``REG_LINE_CHOICES`` the register loop), which is how the routes are
-    checked and timed against each other. Returns the route that ran: one
-    block where the card refused the cluster. Raises on a refused launch.
-    With metrics on the launch is timed under ``site``, or
+    callers check it) on ``route``, ``cluster_plan``'s by default; a route
+    given is how the routes are checked and timed against each other.
+    Returns the route that ran: one block where the card refused the
+    cluster. Raises on a refused launch, and on a route the library cannot
+    run. With metrics on the launch is timed under ``site``, or
     ``CLUSTER_SITE`` on a cluster."""
-    global launches, cluster_launches, register_launches
+    global launches
     rows, cols = packed.shape
+    if route is None:
+        route = cluster_plan((rows, cols), word_axis)
     common, dead_only, live_only = rule_masks(birth_mask, survive_mask)
-    ran = (ctypes.c_int * 3)()
+    ran = (ctypes.c_int * 4)(*route)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream()
         started = _device.begin(packed.device, stream)
         err = _lib().gol_whole_board_step_as(
             packed.data_ptr(), out.data_ptr(), None if counts is None else counts.data_ptr(),
-            rows, cols, word_axis, n, common, dead_only, live_only, cluster, depth, lines,
-            ran, stream.cuda_stream,
+            rows, cols, word_axis, n, common, dead_only, live_only, ran, stream.cuda_stream,
         )
         _build.check(err, "whole-board kernel launch")
         route = Route(*ran)
@@ -212,18 +221,14 @@ def launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask, site
                         *bit_launch_cost(packed.numel(), n, birth_mask, survive_mask,
                                          0 if counts is None else 4 * rows))
     launches += 1
-    cluster_launches += route.blocks > 1
-    register_launches += route.name == "cluster_registers"
     if _metrics.enabled():
         _ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route.name).inc()
     return route
 
 
 def reset_counts() -> None:
-    global launches, plain_calls, cluster_launches, register_launches
-    global history_launches, history_plain_calls
-    launches = plain_calls = cluster_launches = register_launches = 0
-    history_launches = history_plain_calls = 0
+    global launches, plain_calls, history_launches, history_plain_calls
+    launches = plain_calls = history_launches = history_plain_calls = 0
 
 
 def _lines(shape: tuple[int, int], word_axis: int) -> tuple[int, int]:
@@ -232,38 +237,57 @@ def _lines(shape: tuple[int, int], word_axis: int) -> tuple[int, int]:
     return (shape[0], shape[1]) if word_axis == 0 else (shape[1], shape[0])
 
 
+def register_threads(lines: int) -> int:
+    """The register loop's largest block at ``lines`` lines a thread, the
+    library's ``__launch_bounds__``."""
+    return REG_MAX_THREADS if lines <= 4 else REG_MAX_THREADS_WIDE
+
+
 def register_warps(words: int, slots: int, lines: int) -> int:
     """Warps of the register loop's block for ``slots`` lines of ``words``
     words: stacks of ``lines`` lines, ``32 // words`` a warp; 0 where the
-    line is wider than a warp or the block would pass ``REG_MAX_THREADS``
-    (``REG_MAX_THREADS_WIDE`` for ``REG_LINES_WIDE`` lines a thread)."""
+    line is wider than a warp or the block would pass
+    ``register_threads(lines)``."""
     if words > REG_MAX_WORDS or lines < 1:
         return 0
     warps = -(-slots // (32 // words * lines))
-    limit = REG_MAX_THREADS if lines < REG_LINES_WIDE else REG_MAX_THREADS_WIDE
-    return warps if 32 * warps <= limit else 0
+    return warps if 32 * warps <= register_threads(lines) else 0
 
 
-def plan_lines(words: int, band: int, depth: int) -> int:
-    """The register loop's lines a thread for bands of ``band`` lines of
-    ``words`` words at halo depth ``depth``: ``REG_LINES``, or
-    ``REG_LINES_WIDE`` where that block would pass ``REG_MAX_THREADS``; 0,
-    the shared-memory loop, where neither fits."""
-    for lines in (REG_LINES, REG_LINES_WIDE):
-        if register_warps(words, band + 2 * depth, lines):
-            return lines
-    return 0
+def cluster_route(shape: tuple[int, int], word_axis: int, blocks: int, depth: int,
+                  lines: int = 0) -> Route:
+    """The route on a cluster of ``blocks`` blocks at halo ``depth``,
+    clamped to the band, in the shared-memory loop (``lines`` 0) or the
+    register loop at ``lines`` lines a thread, with the register loop's
+    block: 0 warps where none holds the band and its halo, a route the
+    library refuses."""
+    words, total = _lines(shape, word_axis)
+    band = total // blocks
+    depth = min(depth, band)
+    return Route(blocks, depth, lines, register_warps(words, band + 2 * depth, lines))
 
 
+def loop_route(shape: tuple[int, int], word_axis: int, blocks: int,
+               depth: int = HALO_DEPTH) -> Route:
+    """The plan's loop on a cluster of ``blocks`` blocks at halo ``depth``:
+    the register loop at the first of ``REG_LINES`` lines a thread whose
+    block holds the band and its halo, else the shared-memory loop."""
+    for lines in REG_LINES:
+        route = cluster_route(shape, word_axis, blocks, depth, lines)
+        if route.warps:
+            return route
+    return cluster_route(shape, word_axis, blocks, depth)
+
+
+@functools.lru_cache(maxsize=None)
 def cluster_plan(shape: tuple[int, int], word_axis: int = 0) -> Route:
-    """The ``Route`` the kernel picks for one packed board of ``shape``:
-    one block under ``MIN_CLUSTER_WORDS`` words, else the largest of
+    """The ``Route`` of one packed board of ``shape``, the only place it is
+    chosen: one block under ``MIN_CLUSTER_WORDS`` words, else the largest of
     ``MAX_CLUSTER``, ..., 4, 2 blocks that divides the lines into bands of
     at least ``MIN_BAND`` lines whose copies, halos of ``HALO_DEPTH``
-    included, take no more shared memory than the whole board's, else one
-    block. On a cluster, the register loop where ``plan_lines`` gives it
-    lines, at depth ``REG_DEPTH``, else the shared-memory loop at depth
-    ``HALO_DEPTH``; either depth clamped to the band."""
+    included, take no more shared memory than the whole board's, in
+    ``loop_route``'s loop, else one block. Memoised: a session's launches
+    plan once."""
     words, lines = _lines(shape, word_axis)
     if words * lines >= MIN_CLUSTER_WORDS:
         cluster = MAX_CLUSTER
@@ -271,10 +295,7 @@ def cluster_plan(shape: tuple[int, int], word_axis: int = 0) -> Route:
             band = lines // cluster
             if (lines % cluster == 0 and band >= MIN_BAND
                     and band + 2 * min(HALO_DEPTH, band) <= lines):
-                per_thread = plan_lines(words, band, min(REG_DEPTH, band))
-                if per_thread:
-                    return Route(cluster, min(REG_DEPTH, band), per_thread)
-                return Route(cluster, min(HALO_DEPTH, band))
+                return loop_route(shape, word_axis, cluster)
             cluster //= 2
     return Route(1)
 
@@ -368,7 +389,7 @@ def step_n(
     """n turns of an int32 bitboard ``[rows, cols]``; with ``counted`` also
     its ``int32[rows]`` row popcounts, as ``(board, counts)``. The input is
     never written. ``site`` is the telemetry site the one-block launch is
-    timed under (obs/device.py); the route is the kernel's pick
+    timed under (obs/device.py); the route is ``cluster_plan``'s
     (``launch_one``)."""
     global plain_calls
     n = int(n)

@@ -135,8 +135,13 @@ def test_byte_board_routes_by_shape(shape, form, cluster):
     assert byte_board.cluster_size(shape) == cluster
     if form == "bytes":
         assert shape[0] % 32 and shape[1] % 32
+        assert byte_board.launch_plan(shape) == (form, 1, 0)
         return
     words, lines = byte_board._lines(shape, form)
+    # the launch's plan, which the gate reads too
+    depth = 0 if cluster == 1 else min(byte_board.HALO_DEPTH, lines // cluster)
+    assert byte_board.launch_plan(shape) == (form, cluster, depth)
+    assert byte_board.smem_bytes(shape) == 2 * 4 * (lines // cluster + 2 * depth) * words
     assert words * 32 == (shape[0] if form == "bits-rows" else shape[1])
     assert lines % cluster == 0
     assert (cluster > 1) == (words * lines >= byte_board.MIN_CLUSTER_WORDS)
@@ -246,7 +251,6 @@ def test_byte_tiled_constants_match_the_kernel_source():
     consts = _constants("byte_tiled.cu")
     assert (consts["kTileR"], consts["kTileC"]) == byte_tiled.TILE
     assert (consts["kSmallTileR"], consts["kSmallTileC"]) == byte_tiled.SMALL_TILE
-    assert consts["kMinBlocks"] == byte_tiled.MIN_BLOCKS
     assert consts["kMaxTurns"] == byte_tiled.MAX_TURNS
     assert consts["kMaxGridY"] == byte_tiled.MAX_GRID_ROWS
     # whole words wide, and one halo word covers a launch's turns
@@ -255,13 +259,14 @@ def test_byte_tiled_constants_match_the_kernel_source():
 
 
 def test_byte_board_constants_match_the_kernel_source():
-    consts = _constants("byte_board.cu")
-    assert consts["kMaxCluster"] == byte_board.MAX_CLUSTER == 8  # the portable limit
-    assert consts["kMinClusterWords"] == byte_board.MIN_CLUSTER_WORDS
-    assert consts["kHaloDepth"] == byte_board.HALO_DEPTH
+    """The forms' numbers are the kernel's, and every cluster the plan may
+    give is instantiated (8, the portable limit, the largest)."""
     src = (pathlib.Path(byte_board.__file__).parents[1] / "csrc" / "byte_board.cu").read_text()
     forms = re.search(r"enum Form \{ kBitsCols = 0, kBitsRows = 1, kBytes = 2 \};", src)
     assert forms and byte_board.FORMS == ("bits-cols", "bits-rows", "bytes")
+    clusters = {int(c) for c in re.findall(r"launch_bits<(\d+)>", src)}
+    assert clusters == {1, 2, 4, 8, 16}
+    assert byte_board.MAX_CLUSTER == 8
 
 
 def test_byte_tiles_pick_the_tile_by_the_boards_size():

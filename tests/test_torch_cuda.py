@@ -11,6 +11,7 @@ jax, without the repository's conftest:
 Game of Life is integer-exact: equality, tolerance none.
 """
 
+import contextlib
 import csv
 import pathlib
 import time
@@ -24,7 +25,8 @@ from gol_distributed_final_tpu_torch.engine import Engine, EngineConfig
 from gol_distributed_final_tpu_torch.io.pgm import read_pgm
 from gol_distributed_final_tpu_torch.models import life
 from gol_distributed_final_tpu_torch.ops import (
-    batch_board, bitpack, byte_board, byte_tiled, fused, pallas_stencil, tiled, whole_board,
+    _build, batch_board, bitpack, byte_board, byte_tiled, fused, pallas_stencil, tiled,
+    whole_board,
 )
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -183,12 +185,37 @@ def _assert_counted_equal(got, want):
 
 def _on_one_block(packed, n, word_axis, birth_mask=life.CONWAY.birth_mask,
                   survive_mask=life.CONWAY.survive_mask):
-    """K1's counted one-block route, whatever the plan picks."""
+    """K1's counted one-block route, whatever the plan gives."""
     out = torch.empty_like(packed)
     counts = torch.empty(packed.shape[0], dtype=torch.int32, device=packed.device)
     assert whole_board.launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask,
-                                  "pallas.vmem_bit", 1).blocks == 1
+                                  "pallas.vmem_bit", whole_board.Route(1)).blocks == 1
     return out, counts
+
+
+@contextlib.contextmanager
+def _metrics_on():
+    from gol_distributed_final_tpu_torch.obs import metrics as obs_metrics
+
+    _obs_off()
+    obs_metrics.enable()
+    try:
+        yield
+    finally:
+        _obs_off()
+
+
+def _route_counts():
+    """K1's single-board launches so far by route, under metrics
+    (``gol_whole_board_launches_total{route}``)."""
+    from gol_distributed_final_tpu_torch.obs import instruments as ins
+
+    return {route: int(ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route).value)
+            for route in ("block", "cluster", "cluster_registers")}
+
+
+def _routes_since(before):
+    return {route: count - before[route] for route, count in _route_counts().items()}
 
 
 @pytest.mark.cuda
@@ -203,23 +230,22 @@ def test_whole_board_cluster_route_matches_plain_and_one_block(cuda_device, shap
     plan = whole_board.cluster_plan(shape, word_axis)
     assert plan.blocks > 1
     assert plan.name == ("cluster" if shape == (40, 640) else "cluster_registers")
-    registers = int(plan.name == "cluster_registers")
-    for rule in ALL_RULES:
-        masks = (rule.birth_mask, rule.survive_mask)
-        for n in _route_turns(plan.depth):
-            before = (whole_board.launches, whole_board.cluster_launches,
-                      whole_board.register_launches)
-            got = whole_board.step_n(packed, n, word_axis, *masks, counted=True)
-            uncounted = whole_board.step_n(packed, n, word_axis, *masks)
-            block = _on_one_block(packed, n, word_axis, *masks)
-            want = whole_board.step_n_plain(packed, n, word_axis, *masks)
-            torch.cuda.synchronize()
-            assert (whole_board.launches, whole_board.cluster_launches,
-                    whole_board.register_launches) == \
-                (before[0] + 3, before[1] + 2, before[2] + 2 * registers), (rule.name, n)
-            _assert_counted_equal(got, want)
-            _assert_counted_equal(block, want)
-            assert torch.equal(uncounted, want[0]), (rule.name, n)
+    routes = {"block": 1, "cluster": 0, "cluster_registers": 0, plan.name: 2}
+    with _metrics_on():
+        for rule in ALL_RULES:
+            masks = (rule.birth_mask, rule.survive_mask)
+            for n in _route_turns(plan.depth):
+                before = (whole_board.launches, _route_counts())
+                got = whole_board.step_n(packed, n, word_axis, *masks, counted=True)
+                uncounted = whole_board.step_n(packed, n, word_axis, *masks)
+                block = _on_one_block(packed, n, word_axis, *masks)
+                want = whole_board.step_n_plain(packed, n, word_axis, *masks)
+                torch.cuda.synchronize()
+                assert whole_board.launches == before[0] + 3, (rule.name, n)
+                assert _routes_since(before[1]) == routes, (rule.name, n)
+                _assert_counted_equal(got, want)
+                _assert_counted_equal(block, want)
+                assert torch.equal(uncounted, want[0]), (rule.name, n)
 
 
 @pytest.mark.cuda
@@ -231,18 +257,18 @@ def test_whole_board_cluster_route_on_the_image(cuda_device, word_axis):
         golden = {int(r["completed_turns"]): int(r["alive_cells"]) for r in csv.DictReader(f)}
     packed = bitpack.pack(read_pgm(REPO_ROOT / "images" / "512x512.pgm"), word_axis,
                           cuda_device)
-    depth = whole_board.cluster_plan(tuple(packed.shape), word_axis)[1]
-    before = whole_board.cluster_launches
-    for n in _route_turns(depth):
-        got = whole_board.step_n(packed, n, word_axis, counted=True)
-        block = _on_one_block(packed, n, word_axis)
-        want = whole_board.step_n_plain(packed, n, word_axis)
-        torch.cuda.synchronize()
-        _assert_counted_equal(got, want)
-        _assert_counted_equal(block, want)
-        if n:
-            assert int(got[1].sum()) == golden[n]
-    assert whole_board.cluster_launches == before + len(_route_turns(depth))
+    plan = whole_board.cluster_plan(tuple(packed.shape), word_axis)
+    with _metrics_on():
+        for n in _route_turns(plan.depth):
+            got = whole_board.step_n(packed, n, word_axis, counted=True)
+            block = _on_one_block(packed, n, word_axis)
+            want = whole_board.step_n_plain(packed, n, word_axis)
+            torch.cuda.synchronize()
+            _assert_counted_equal(got, want)
+            _assert_counted_equal(block, want)
+            if n:
+                assert int(got[1].sum()) == golden[n]
+        assert _route_counts()[plan.name] == len(_route_turns(plan.depth))
 
 
 @pytest.mark.cuda
@@ -252,23 +278,25 @@ def test_whole_board_cluster_route_on_the_image(cuda_device, word_axis):
 @pytest.mark.parametrize("lines", [0, -1])
 def test_whole_board_forced_clusters_match_plain(cuda_device, shape, word_axis, cluster, depth,
                                                  lines):
-    """Every cluster size at halo depths the plan does not pick (clamped to
-    a band thinner than the depth), on the blocks asked for, in the
+    """Every cluster size at halo depths the plan does not choose (clamped
+    to a band thinner than the depth), on the blocks asked for, in the
     shared-memory loop (lines 0) and in the loop the plan gives the band
-    (-1: the register loop where a block of 16 warps holds it)."""
+    (-1, ``loop_route``: the register loop where a block of 16 warps holds
+    it)."""
     packed = _words(shape, cluster + depth, cuda_device)
-    words, lines_total = (shape if word_axis == 0 else shape[::-1])
-    band = lines_total // cluster
-    registers = lines != 0 and whole_board.plan_lines(words, band, min(depth, band)) > 0
+    if lines:
+        route = whole_board.loop_route(shape, word_axis, cluster, depth)
+    else:
+        route = whole_board.cluster_route(shape, word_axis, cluster, depth)
     out = torch.empty_like(packed)
     counts = torch.empty(shape[0], dtype=torch.int32, device=cuda_device)
     for n in _route_turns(depth):
-        route = whole_board.launch_one(packed, out, counts, n, word_axis,
-                                       life.CONWAY.birth_mask, life.CONWAY.survive_mask,
-                                       "pallas.vmem_bit", cluster, depth, lines)
+        ran = whole_board.launch_one(packed, out, counts, n, word_axis,
+                                     life.CONWAY.birth_mask, life.CONWAY.survive_mask,
+                                     "pallas.vmem_bit", route)
         torch.cuda.synchronize()
-        assert route.blocks == cluster
-        assert route.name == ("cluster_registers" if registers else "cluster")
+        assert ran == route and route.blocks == cluster
+        assert route.name == ("cluster_registers" if lines and route.warps else "cluster")
         _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, n, word_axis))
 
 
@@ -290,25 +318,25 @@ def test_whole_board_register_loop_forced_routes_match_plain(cuda_device, shape,
     across the cluster's phase edges, Conway and a run-time rule; a route
     the board's block cannot hold is refused."""
     blocks, depth, per_thread = route
-    words, lines = (shape if word_axis == 0 else shape[::-1])
-    depth = min(depth, lines // blocks)
+    lines = shape[1] if word_axis == 0 else shape[0]
     packed = _words(shape, sum(route) + word_axis, cuda_device)
     out = torch.empty_like(packed)
     counts = torch.empty(shape[0], dtype=torch.int32, device=cuda_device)
-    if lines % blocks or not whole_board.register_warps(words, lines // blocks + 2 * depth,
-                                                         per_thread):
+    forced = whole_board.cluster_route(shape, word_axis, blocks, depth, per_thread)
+    depth = forced.depth
+    if lines % blocks or not forced.warps:
         with pytest.raises(RuntimeError, match="CUDA error"):
             whole_board.launch_one(packed, out, counts, 5, word_axis, 8, 12, "pallas.vmem_bit",
-                                   *route)
+                                   forced)
         return
     turns = {0, 1, 2, depth - 1, depth, depth + 1, 2 * depth + 3, 100, 4096}
     for rule in (life.CONWAY, ALL_RULES[-1]):
         masks = (rule.birth_mask, rule.survive_mask)
         for n in sorted(turns):
             ran = whole_board.launch_one(packed, out, counts, n, word_axis, *masks,
-                                         "pallas.vmem_bit", *route)
+                                         "pallas.vmem_bit", forced)
             torch.cuda.synchronize()
-            assert ran == whole_board.Route(blocks, depth, per_thread)
+            assert ran == forced
             _assert_counted_equal((out, counts),
                                   whole_board.step_n_plain(packed, n, word_axis, *masks))
 
@@ -348,13 +376,17 @@ def test_whole_board_refused_cluster_runs_on_one_block(cuda_device):
     out = torch.empty_like(packed)
     counts = torch.empty(16, dtype=torch.int32, device=cuda_device)
     args = (life.CONWAY.birth_mask, life.CONWAY.survive_mask, "pallas.vmem_bit")
-    before = whole_board.cluster_launches
-    for lines in (-1, 0):  # the register loop and the shared-memory loop
-        assert whole_board.launch_one(packed, out, counts, 37, 0, *args, 32, 0, lines) == \
-            whole_board.Route(1)
-        torch.cuda.synchronize()
-        _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
-    assert whole_board.cluster_launches == before
+    # the register loop and the shared-memory loop
+    refused = (whole_board.loop_route((16, 512), 0, 32), whole_board.cluster_route(
+        (16, 512), 0, 32, whole_board.HALO_DEPTH))
+    assert refused[0].name == "cluster_registers" and refused[1].name == "cluster"
+    with _metrics_on():
+        for route in refused:
+            assert whole_board.launch_one(packed, out, counts, 37, 0, *args, route) == \
+                whole_board.Route(1)
+            torch.cuda.synchronize()
+            _assert_counted_equal((out, counts), whole_board.step_n_plain(packed, 37, 0))
+        assert _route_counts() == {"block": 2, "cluster": 0, "cluster_registers": 0}
     assert whole_board.launch_one(packed, out, counts, 37, 0, *args) == \
         whole_board.cluster_plan((16, 512))
     torch.cuda.synchronize()
@@ -368,14 +400,19 @@ def test_whole_board_refused_cluster_runs_on_one_block(cuda_device):
     ((100, 24), 0), ((1, 1), 0), ((30, 960), 0), ((40, 640), 0), ((640, 40), 1),
 ])
 def test_whole_board_kernel_picks_the_plan(cuda_device, shape, word_axis):
-    """The kernel's own pick is the Python mirror's, on the card: blocks,
-    depth and loop."""
+    """A launch runs the plan's route and reports it, on the card: blocks,
+    depth, loop and warps, whether the plan is left to the launch or handed
+    to it, and the board equals the plain version."""
     packed = _words(shape, 3, cuda_device)
-    ran = whole_board.launch_one(packed, torch.empty_like(packed), None, 3, word_axis,
-                                 life.CONWAY.birth_mask, life.CONWAY.survive_mask,
-                                 "pallas.vmem_bit")
-    torch.cuda.synchronize()
-    assert ran == whole_board.cluster_plan(shape, word_axis)
+    plan = whole_board.cluster_plan(shape, word_axis)
+    want = whole_board.step_n_plain(packed, 3, word_axis)[0]
+    for route in (None, plan):
+        out = torch.empty_like(packed)
+        ran = whole_board.launch_one(packed, out, None, 3, word_axis, life.CONWAY.birth_mask,
+                                     life.CONWAY.survive_mask, "pallas.vmem_bit", route)
+        torch.cuda.synchronize()
+        assert ran == plan
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -390,10 +427,10 @@ def test_whole_board_route_shows_in_the_kernels_name(cuda_device):
                             ("whole_board_cluster_registers_kernel",))
     assert names and all(f"whole_board_cluster_registers_kernel<0, {lines}, StaticRule" in n
                          for n in names), names
-    before = (whole_board.launches, whole_board.cluster_launches)
+    before = whole_board.launches
     names = _traced_kernels(lambda: batch_board.step_n(two, 3), ("whole_board_kernel",))
     assert names and all("whole_board_kernel<0" in n for n in names), names
-    assert (whole_board.launches, whole_board.cluster_launches) == before
+    assert whole_board.launches == before
 
 
 @pytest.mark.cuda
@@ -639,8 +676,8 @@ def test_a_refused_cluster_launch_raises(cuda_device):
     """A cluster of 16 blocks is past the portable limit: the card refuses
     the launch, the wrapper raises and counts nothing, and the next launch
     runs. A cluster that does not divide the lines, a form the shape
-    cannot take and a board too large for a block's shared memory raise
-    likewise."""
+    cannot take, a board too large for a block's shared memory and a halo
+    depth the kernel cannot run are refused likewise."""
     board = _bytes((512, 512), 2, cuda_device)
     before = _launches()
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -653,6 +690,14 @@ def test_a_refused_cluster_launch_raises(cuda_device):
         byte_board.step_n(_bytes((1024, 1024), 2, cuda_device), 3, cluster=1)  # 256 KiB
     with pytest.raises(ValueError, match="form must be"):
         byte_board.step_n(board, 3, form="words")
+    # the library runs the halo depth it is handed and refuses one it
+    # cannot: a halo on one block, none on a cluster, one past the band
+    entry = _build.load("byte_board", byte_board._SIGNATURES).gol_byte_board_step_as
+    out, stream = torch.empty_like(board), torch.cuda.current_stream().cuda_stream
+    for cluster, depth in ((1, 16), (8, 0), (8, 65)):
+        assert entry(board.data_ptr(), out.data_ptr(), 512, 512, 3, 8, 12, 0, cluster, depth,
+                     stream) == 1  # cudaErrorInvalidValue
+    assert byte_board.launch_plan((512, 512)) == ("bits-cols", 8, 16)
     torch.cuda.synchronize()
     assert _delta(before) == {}
     assert torch.equal(byte_board.step_n(board, 3, form="bits-cols"),

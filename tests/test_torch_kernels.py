@@ -73,33 +73,35 @@ def test_whole_board_gate_is_the_cards_shared_memory():
 
 #: packed shape, word axis, and the route the plan gives: (blocks, halo
 #: depth, lines a thread in the register loop or 0 for the shared-memory
-#: loop)
+#: loop, the register loop's warps a block)
 CLUSTER_PLANS = [
-    ((16, 512), 0, (16, 16, 4)), ((512, 16), 1, (16, 16, 4)),  # 512^2: bands of 32 lines
-    ((8, 256), 0, (16, 16, 4)), ((256, 8), 1, (16, 16, 4)),    # 256^2: bands of 16 lines
-    ((4, 128), 0, (1, 0, 0)), ((128, 4), 1, (1, 0, 0)),        # 128^2: 512 words, one block
-    ((20, 384), 0, (16, 16, 4)), ((640, 12), 1, (16, 16, 4)),  # 640 x 384 in both packings
-    ((5, 160), 0, (8, 16, 4)),                    # 160 lines: 16 bands of 10 too thin
-    ((6, 192), 0, (16, 12, 4)), ((7, 224), 0, (16, 14, 4)),  # bands thinner than the depth
-    ((30, 960), 0, (16, 16, 8)),                  # 960^2: one line column a warp; 4 lines: 23 warps
-    ((29, 1000), 0, (8, 16, 0)),                  # 1000 lines: 8 divides; 157 slots: 20 warps
-    ((40, 640), 0, (16, 16, 0)), ((640, 40), 1, (16, 16, 0)),  # 40 words: past a warp
-    ((1500, 4), 0, (1, 0, 0)), ((4, 1500), 1, (1, 0, 0)),  # 4 lines: no band holds a halo
-    ((100, 24), 0, (1, 0, 0)),                    # 2 bands of 12 and halos: past the board
-    ((1, 1), 0, (1, 0, 0)),
+    ((16, 512), 0, (16, 16, 4, 8)), ((512, 16), 1, (16, 16, 4, 8)),  # 512^2: bands of 32 lines
+    ((8, 256), 0, (16, 16, 4, 3)), ((256, 8), 1, (16, 16, 4, 3)),    # 256^2: bands of 16 lines
+    ((4, 128), 0, (1, 0, 0, 0)), ((128, 4), 1, (1, 0, 0, 0)),        # 128^2: 512 words, one block
+    ((20, 384), 0, (16, 16, 4, 14)), ((640, 12), 1, (16, 16, 4, 9)),  # 640 x 384 in both packings
+    ((5, 160), 0, (8, 16, 4, 3)),                 # 160 lines: 16 bands of 10 too thin
+    ((6, 192), 0, (16, 12, 4, 2)), ((7, 224), 0, (16, 14, 4, 3)),  # bands thinner than the depth
+    ((30, 960), 0, (16, 16, 8, 12)),              # 960^2: one line column a warp; 4 lines: 23 warps
+    ((29, 1000), 0, (8, 16, 0, 0)),               # 1000 lines: 8 divides; 157 slots: 20 warps
+    ((40, 640), 0, (16, 16, 0, 0)), ((640, 40), 1, (16, 16, 0, 0)),  # 40 words: past a warp
+    ((1500, 4), 0, (1, 0, 0, 0)), ((4, 1500), 1, (1, 0, 0, 0)),  # 4 lines: no band holds a halo
+    ((100, 24), 0, (1, 0, 0, 0)),                 # 2 bands of 12 and halos: past the board
+    ((1, 1), 0, (1, 0, 0, 0)),
 ]
 
 
 @pytest.mark.parametrize("shape,word_axis,plan", CLUSTER_PLANS)
 def test_cluster_plan_bands_and_phases(shape, word_axis, plan):
-    """The mirror of the kernel's pick: the blocks, halo depth and loop,
-    bands that split the lines evenly, each with room for its halo, every
-    band's two copies with halos within one block's shared memory, and the
-    register loop wherever a line fits a warp and a block of at most 16
-    warps holds the band and its halo."""
+    """The plan, the one place a single board's route is chosen: the
+    blocks, halo depth, loop and the register loop's block, bands that
+    split the lines evenly, each with room for its halo, every band's two
+    copies with halos within one block's shared memory, and the register
+    loop wherever a line fits a warp and a block of at most 16 warps holds
+    the band and its halo. Memoised: the same route for every launch."""
     route = whole_board.cluster_plan(shape, word_axis)
     assert route == plan
-    blocks, depth, lines_a_thread = plan
+    assert whole_board.cluster_plan(shape, word_axis) is route
+    blocks, depth, lines_a_thread, warps = plan
     words, lines = (shape if word_axis == 0 else shape[::-1])
     bands = whole_board.bands(shape, word_axis, blocks)
     assert [first for first, _ in bands] == [b * lines // blocks for b in range(blocks)]
@@ -110,22 +112,22 @@ def test_cluster_plan_bands_and_phases(shape, word_axis, plan):
     band = lines // blocks
     assert words * lines >= whole_board.MIN_CLUSTER_WORDS
     assert band >= whole_board.MIN_BAND
-    assert 2 * 4 * (band + 2 * min(whole_board.HALO_DEPTH, band)) * words <= \
-        whole_board.smem_bytes(shape)
+    assert depth == min(whole_board.HALO_DEPTH, band)
+    assert 2 * 4 * (band + 2 * depth) * words <= whole_board.smem_bytes(shape)
+    assert route == whole_board.loop_route(shape, word_axis, blocks)
     if lines_a_thread == 0:
         # the shared-memory loop: the line is wider than a warp, or no block
         # of the register loop holds the band and its halo
         assert route.name == "cluster"
-        assert depth == min(whole_board.HALO_DEPTH, band)
-        reg_slots = band + 2 * min(whole_board.REG_DEPTH, band)
+        assert warps == 0
         assert words > whole_board.REG_MAX_WORDS or not any(
-            whole_board.register_warps(words, reg_slots, n) for n in whole_board.REG_LINE_CHOICES)
+            whole_board.register_warps(words, band + 2 * depth, n)
+            for n in whole_board.REG_LINE_CHOICES)
         return
     assert route.name == "cluster_registers"
     assert lines_a_thread in whole_board.REG_LINE_CHOICES
-    assert depth == min(whole_board.REG_DEPTH, band)
-    warps = whole_board.register_warps(words, band + 2 * depth, lines_a_thread)
-    assert 0 < 32 * warps <= whole_board.REG_MAX_THREADS
+    assert warps == whole_board.register_warps(words, band + 2 * depth, lines_a_thread)
+    assert 0 < 32 * warps <= whole_board.register_threads(lines_a_thread)
     assert warps * 32 // words * lines_a_thread >= band + 2 * depth
 
 
@@ -164,34 +166,23 @@ def test_cluster_phases_end_with_the_short_one(n, depth, want):
 
 
 def test_cluster_plan_matches_the_kernel_source():
-    """ops/whole_board.py's plan mirrors csrc/whole_board.cu's constants,
-    and both say the same rule: the cluster, then the loop by the line's
-    words, the register loop's lines a thread by the block's size."""
+    """The plan respects what csrc/whole_board.cu compiles in: the register
+    loop's lines a thread are its instantiations of R, a line lies on one
+    warp's lanes, and each R's block stays within the thread limits its
+    ``__launch_bounds__`` take."""
     src = (pathlib.Path(whole_board.__file__).parents[1] / "csrc" / "whole_board.cu").read_text()
-    names = ("kMaxCluster|kMinClusterWords|kMinBand|kHaloDepth|kRegMaxWords|kRegMaxThreads|"
-             "kRegLines|kRegLinesWide|kRegMaxThreadsWide|kRegDepth")
-    consts = {k: int(v) for k, v in re.findall(rf"constexpr int ({names}) = (\d+);", src)}
-    assert consts == {"kMaxCluster": whole_board.MAX_CLUSTER,
-                      "kMinClusterWords": whole_board.MIN_CLUSTER_WORDS,
-                      "kMinBand": whole_board.MIN_BAND, "kHaloDepth": whole_board.HALO_DEPTH,
-                      "kRegMaxWords": whole_board.REG_MAX_WORDS,
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kRegMaxWords|kRegMaxThreads|kRegMaxThreadsWide) = (\d+);", src)}
+    assert consts == {"kRegMaxWords": whole_board.REG_MAX_WORDS,
                       "kRegMaxThreads": whole_board.REG_MAX_THREADS,
-                      "kRegLines": whole_board.REG_LINES,
-                      "kRegLinesWide": whole_board.REG_LINES_WIDE,
-                      "kRegMaxThreadsWide": whole_board.REG_MAX_THREADS_WIDE,
-                      "kRegDepth": whole_board.REG_DEPTH}
-    assert "P) * Q < kMinClusterWords" in src
-    assert "band >= kMinBand && band + 2 * std::min(kHaloDepth, band) <= Q" in src
-    assert "if (P > kRegMaxWords || lines < 1) return 0;" in src
-    assert "const int per_warp = 32 / P * lines;" in src
-    assert "return warps * 32 <= register_threads(lines) ? warps : 0;" in src
-    assert "return R < kRegLinesWide ? kRegMaxThreads : kRegMaxThreadsWide;" in src
-    assert "for (int lines : {kRegLines, kRegLinesWide}) {" in src
-    assert "if (register_warps(P, band + 2 * depth, lines) > 0) return lines;" in src
-    assert "plan_lines(P, band, std::min(depth > 0 ? depth : kRegDepth, band))" in src
+                      "kRegMaxThreadsWide": whole_board.REG_MAX_THREADS_WIDE}
     compiled = {int(v) for v in re.findall(
         r"launch_cluster_registers<WORD_AXIS, (\d+)>", src)}
     assert compiled == set(whole_board.REG_LINE_CHOICES)
+    assert set(whole_board.REG_LINES) <= compiled
+    limits = {r: whole_board.register_threads(r) for r in whole_board.REG_LINE_CHOICES}
+    assert limits == {2: whole_board.REG_MAX_THREADS, 4: whole_board.REG_MAX_THREADS,
+                      8: whole_board.REG_MAX_THREADS_WIDE}
 
 
 # -- K1's register loop, emulated: the kernel's schedule in numpy ------------
@@ -232,7 +223,7 @@ def _register_loop(packed, n, word_axis, masks, route):
     """The register loop's schedule as csrc/whole_board.cu runs it, on
     numpy: the band and halo of each of the cluster's blocks cut into
     stacks of ``route.lines`` lines, ``32 // P`` line columns a warp (the
-    block holds ``register_warps`` warps); a turn makes every stack's line
+    block holds ``route.warps`` warps); a turn makes every stack's line
     sums, takes the lines above and below it from the warp's neighbouring
     column, or at a warp's end from the neighbouring warp's edge sums, or
     at the block's ends from its own stack (garbage the halo absorbs); a
@@ -241,14 +232,13 @@ def _register_loop(packed, n, word_axis, masks, route):
     from the neighbours' spare copies of their bands, copies written in
     turn. Lines past the slots hold zeros. Returns the board, packed as it
     came."""
-    blocks, depth, per_thread = route
+    blocks, depth, per_thread, warps = route
     lines_np = np.asarray(packed).astype(np.uint32)
     lines_np = lines_np.T.copy() if word_axis == 0 else lines_np.copy()
     Q, P = lines_np.shape
     band, cols = Q // blocks, 32 // P
     slots = band + 2 * depth
-    warps = whole_board.register_warps(P, slots, per_thread)
-    assert warps > 0
+    assert warps > 0 and warps * cols * per_thread >= slots
     span = cols * per_thread
     # the slot of line r of the stack at (warp, column)
     first = np.arange(warps)[:, None] * span + np.arange(cols)[None, :] * per_thread
@@ -313,13 +303,12 @@ def _register_routes(shape, word_axis):
     cluster: every compiled lines a thread at the plan's depth and at 8 and
     32 (clamped to the band), where the block holds them."""
     plan = whole_board.cluster_plan(shape, word_axis)
-    words = shape[0] if word_axis == 0 else shape[1]
-    band = (shape[1] if word_axis == 0 else shape[0]) // plan.blocks
     routes = {plan}
-    for depth in {plan.depth, min(8, band), min(32, band)}:
+    for depth in (plan.depth, 8, 32):
         for per_thread in whole_board.REG_LINE_CHOICES:
-            if whole_board.register_warps(words, band + 2 * depth, per_thread):
-                routes.add(whole_board.Route(plan.blocks, depth, per_thread))
+            route = whole_board.cluster_route(shape, word_axis, plan.blocks, depth, per_thread)
+            if route.warps:
+                routes.add(route)
     return sorted(routes)
 
 
@@ -348,18 +337,19 @@ def test_register_loop_schedule_matches_plain(shape, word_axis, rule):
 
 class _StubLibrary:
     """The kernel library's entry points, recording their calls: the
-    single-board entry runs the board on the blocks the plan gives, or on
-    one block where ``refuse`` says the card refused the cluster."""
+    single-board entry records the route it is handed and runs the board
+    on it, or on one block where ``refuse`` says the card refused the
+    cluster."""
 
     def __init__(self, refuse=False):
         self.refuse = refuse
         self.calls = []
 
     def gol_whole_board_step_as(self, src, dst, counts, rows, cols, word_axis, n, common,
-                                dead_only, live_only, cluster, depth, lines, ran, stream):
-        self.calls.append(("one", rows, cols, word_axis, n, cluster, depth, lines))
-        picked = whole_board.cluster_plan((rows, cols), word_axis)
-        ran[:] = (1, 0, 0) if self.refuse else picked
+                                dead_only, live_only, route, stream):
+        self.calls.append(("one", rows, cols, word_axis, n, *route))
+        if self.refuse:
+            route[:] = (1, 0, 0, 0)
         return 0
 
     def gol_whole_board_step(self, src, dst, counts, batch, rows, cols, word_axis, n, common,
@@ -407,14 +397,13 @@ def _routes():
     ((4, 128), 0, False), ((16, 512), 0, True), ((40, 640), 0, False),
 ])
 def test_single_board_route_with_the_library_stubbed(stub_library, shape, word_axis, refuse):
-    """A batch of one under the gate asks the kernel to pick (cluster 0,
-    depth 0, the plan's loop) and takes the cluster route
-    where the plan gives more than one block: counted in
-    ``cluster_launches``, in ``register_launches`` and under route
+    """A batch of one under the gate hands the library the plan's route
+    whole (blocks, depth, loop and warps) and takes the cluster route where
+    the plan gives more than one block: counted under route
     "cluster_registers" for the register loop, under "cluster" for the
     shared-memory loop, timed under ``CLUSTER_SITE``. A board the plan
     keeps on one block, and a cluster the card refuses, take one block,
-    timed under the caller's site."""
+    timed under the caller's site; the launch returns the route that ran."""
     from gol_distributed_final_tpu_torch.obs import device as obs_device
 
     stub = stub_library(refuse)
@@ -423,13 +412,13 @@ def test_single_board_route_with_the_library_stubbed(stub_library, shape, word_a
     whole_board.reset_counts()
     route = whole_board.launch_one(board, torch.empty_like(board), counts, 100, word_axis,
                                    8, 12, "pallas.fused_bit")
-    assert stub.calls == [("one", *shape, word_axis, 100, 0, 0, -1)]
-    want = whole_board.Route(1) if refuse else whole_board.cluster_plan(shape, word_axis)
+    plan = whole_board.cluster_plan(shape, word_axis)
+    assert stub.calls == [("one", *shape, word_axis, 100, *plan)]
+    want = whole_board.Route(1) if refuse else plan
     assert route == want
     on_cluster = want.blocks > 1
     registers = want.name == "cluster_registers"
-    assert (whole_board.launches, whole_board.cluster_launches,
-            whole_board.register_launches) == (1, int(on_cluster), int(registers))
+    assert whole_board.launches == 1
     assert _routes() == {"block": float(not on_cluster),
                          "cluster": float(on_cluster and not registers),
                          "cluster_registers": float(registers)}
@@ -450,8 +439,7 @@ def test_a_batch_above_one_takes_one_block_with_the_library_stubbed(stub_library
                        "pallas.fused_bit_batch")
     assert whole_board.cluster_plan((16, 512), 0).blocks > 1
     assert stub.calls == [("batch", 4, 16, 512, 0, 64)]
-    assert (whole_board.launches, whole_board.cluster_launches,
-            whole_board.register_launches) == (0, 0, 0)
+    assert whole_board.launches == 0
     assert _routes() == {"block": 0.0, "cluster": 0.0, "cluster_registers": 0.0}
     assert set(obs_device.dispatch_stats()) == {"pallas.fused_bit_batch"}
 
