@@ -100,12 +100,13 @@ builds K1 and times its single board on every route at 512^2, 256^2,
 128^2 and 640 x 384 (both word axes), and 160^2, 192^2, 224^2 and 960^2
 (word axis 0): one block; the shared-memory loop on clusters of 2, 4, 8
 and 16 blocks at halo depths 8, 16 and 32; the register loop on clusters
-of 8 and 16 at depths 8, 16, 32 and 48 and 2, 4 and 8 lines a thread;
-each held first against the plain version (n in 0, 1, d - 1, d, d + 1,
-100); on standard output the register loop's registers and
-spills, one JSON line a route, and for each board the plan's time
-against the shared-memory loop's plan and the fastest routes, the
-measurement behind ``whole_board.cluster_plan``.
+of 8 and 16 at depths 8, 10, 12, 16, 20, 24 and 32 (each clamped to the
+band) and 2, 4 and 8 lines a thread; each held first against the plain
+version (n in 0, 1, d - 1, d, d + 1, 100), then timed, 100 turns by the
+profiler's device time and 4096 by events; on standard output the
+register loop's registers and spills, one JSON line a route, and for
+each board the plan's time against the shared-memory loop's plan and the
+fastest routes, the measurement behind ``whole_board.cluster_plan``.
 
     python3 chip_smoke.py --workers-times [TREE]
 
@@ -640,15 +641,15 @@ def workers_times(tree: str) -> int:
 
 #: K1's sweep: the boards (packed shape, word axis) and the routes: the
 #: shared-memory loop on clusters of 2-16 blocks at three depths, the
-#: register loop on clusters of 8 and 16 at four depths and every compiled
-#: lines a thread
+#: register loop on clusters of 8 and 16 at seven depths (each clamped to
+#: the band) and every compiled lines a thread
 K1_SWEEP_BOARDS = (((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((256, 8), 1),
                    ((4, 128), 0), ((128, 4), 1), ((20, 384), 0), ((640, 12), 1),
                    ((5, 160), 0), ((6, 192), 0), ((7, 224), 0), ((30, 960), 0))
 K1_SWEEP_CLUSTERS = (2, 4, 8, 16)
 K1_SWEEP_DEPTHS = (8, 16, 32)
 K1_SWEEP_REG_CLUSTERS = (8, 16)
-K1_SWEEP_REG_DEPTHS = (8, 16, 32, 48)
+K1_SWEEP_REG_DEPTHS = (8, 10, 12, 16, 20, 24, 32)
 
 
 def k1_sweep_routes(whole_board, shape, axis) -> list:
@@ -670,10 +671,12 @@ def k1_sweep_routes(whole_board, shape, axis) -> list:
 
 def k1_sweep() -> int:
     """K1's single board on every route of the sweep (module docstring):
-    each route held against the plain version, then timed by CUDA events
-    around back-to-back counted launches of 100 and 4096 turns; per board
-    the fastest routes, the plan's, and the shared-memory loop's on the
-    plan's cluster at depth 16, or the band (``smem`` below)."""
+    each route held against the plain version, then timed: a counted
+    launch of 100 turns by the profiler's device time (events there time
+    the host's launch rate), of 4096 turns by CUDA events around
+    back-to-back launches; per board the fastest routes, the plan's, and
+    the shared-memory loop's on the plan's cluster at depth 16, or the band
+    (``smem`` below)."""
     import numpy as np
     import torch
 
@@ -722,9 +725,11 @@ def k1_sweep() -> int:
                       "differs from the plain version")
             row = {"shape": list(shape), "axis": axis, "route": list(route),
                    "ran": list(used), "plan": route == plan, "card": card}
-            for n, reps in ((100, 50), (4096, 5)):
-                row[f"ms_n{n}"] = cuda_ms(lambda: whole_board.launch_one(
-                    packed, out, counts, n, axis, 8, 12, "pallas.vmem_bit", route), reps=reps)
+            row["ms_n100"] = device_ms(lambda: whole_board.launch_one(
+                packed, out, counts, 100, axis, 8, 12, "pallas.vmem_bit", route),
+                r"whole_board\w*_kernel", reps=20)[0]
+            row["ms_n4096"] = cuda_ms(lambda: whole_board.launch_one(
+                packed, out, counts, 4096, axis, 8, 12, "pallas.vmem_bit", route), reps=5)
             rows.append(row)
             mine.append(row)
             print(json.dumps(row))

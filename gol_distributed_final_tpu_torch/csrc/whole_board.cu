@@ -53,9 +53,9 @@
 // card, so a lone board is cut into bands over a thread block cluster of C
 // blocks, each on its own SM, with K5's band-and-halo scheme (byte_board.cu's
 // bit form). Block b holds the band of Q / C lines from b * Q / C (the axis
-// that is not packed) plus d halo lines on each side. Every d turns the
-// cluster meets and each block reads its neighbours' band edges through
-// distributed shared memory; a last phase of n % d turns. The torus closes
+// that is not packed) plus d halo lines on each side. Every d turns each
+// block takes its neighbours' band edges through distributed shared memory
+// (a meeting); a last phase of n % d turns. The torus closes
 // across the lines through the ring, along the packed axis inside each
 // block. The first halo is read from device memory; each block writes its
 // own band once. In shared memory a line's words lie side by side in both
@@ -79,16 +79,34 @@
 //   column, and at a warp's ends from the neighbouring warps' edge line
 //   sums in shared memory, double-buffered by the turn's parity, so the
 //   turn needs one __syncthreads(). A warp whose lines have all left the
-//   phase's cone steps nothing. The cluster meets once a phase: each block
-//   writes its band into one of two copies in turn, so a neighbour's read
-//   of one copy lies before that block's next write of it. Edited copies
-//   on the H100 chose this hand-off between warps over ones with no
-//   block-wide barrier (PERF.md): at 512^2 each warp meeting its two
-//   neighbours at named barriers of 64 threads measured 8% slower a
-//   launch, mbarriers 15-20%, turn counts in shared memory with release
-//   and acquire 30%, and warp halos refreshed every 2 or 4 turns, with no
-//   trade between, 30% or more; with no hand-off at all (a wrong result)
-//   the loop was 20% faster, so the barrier is not what a turn costs.
+//   phase's cone steps nothing. Edited copies on the H100 chose this
+//   hand-off between warps over ones with no block-wide barrier (PERF.md):
+//   at 512^2 each warp meeting its two neighbours at named barriers of 64
+//   threads measured 8% slower a launch, mbarriers 15-20%, turn counts in
+//   shared memory with release and acquire 30%, and warp halos refreshed
+//   every 2 or 4 turns, with no trade between, 30% or more; with no
+//   hand-off at all (a wrong result) the loop was 20% faster, so the
+//   barrier is not what a turn costs.
+//   Between phases a block meets only its two neighbours: the threads
+//   holding the band's first and last d lines push them into the halo
+//   slots of the block above and the block below through distributed
+//   shared memory (st.async, four lines a 16-byte store where they lie
+//   aligned, each store counted on the receiver's mbarrier), and each
+//   block waits on its own mbarrier for its 2 d lines of halo, then loads
+//   them from its own shared memory. No block waits for the rest of the
+//   cluster, and no remote read follows the wait: at 512^2 a meeting took
+//   0.36 us against 0.89 for a cluster barrier and remote reads, and plain
+//   remote stores with one remote mbarrier arrival a warp were slower
+//   than either (PERF.md). The halo slots and the mbarriers are
+//   double-buffered by the meeting's parity, which is enough: a block
+//   pushes at meeting m + 2 only after stepping the phase that needed its
+//   neighbour's push of meeting m + 1, and that neighbour pushed it only
+//   after loading its halo of meeting m from the same slots. So a sender
+//   is at most one meeting ahead of its receiver, and every push into a
+//   block is waited for by that block before it leaves the loop; a split
+//   cluster barrier after the last meeting keeps every block resident
+//   until every push has landed. On a cluster of 2 both neighbours are one
+//   block, which takes both pushes.
 // - The shared-memory loop (whole_board_cluster_kernel), for a line past a
 //   warp or a band no block of at most kRegMaxThreads holds: two copies
 //   of the slots, one __syncthreads() between turns, each turn walking
@@ -143,6 +161,12 @@ constexpr int kRegMaxThreadsWide = 384;  // and with 8 lines a thread: 168 regis
 // their sums, under any rule, with no spills (ops/whole_board.py::
 // register_threads).
 constexpr int register_threads(int R) { return R <= 4 ? kRegMaxThreads : kRegMaxThreadsWide; }
+
+// The words between two packed indices' halo lines in the register loop's
+// halo slots: `depth` in whole 16 bytes, an odd count of them.
+__host__ __device__ constexpr int halo_pitch(int depth) {
+    return ((depth + 3) / 4 | 1) * 4;
+}
 
 // One thread's share of a board: the lines [j0, j0 + len) at packed index
 // i, as word offsets into a board copy.
@@ -566,6 +590,56 @@ __device__ __forceinline__ void turn(uint32_t (&x)[R], const Stack& k, bool idle
     for (int r = 0; r < R; ++r) x[r] = next[r];
 }
 
+// The meeting's primitives: `local` addresses are in this block's shared
+// window, `remote` ones in the cluster's (mapa).
+__device__ __forceinline__ unsigned cluster_address(unsigned local, int rank) {
+    unsigned remote;
+    asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+    return remote;
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+// One word into another block's shared memory, counted as 4 bytes on its
+// mbarrier at `remote_bar`; and four consecutive words at a 16-byte
+// aligned address, counted as 16.
+__device__ __forceinline__ void push(unsigned remote, uint32_t word, unsigned remote_bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+                 ::"r"(remote), "r"(word), "r"(remote_bar)
+                 : "memory");
+}
+
+__device__ __forceinline__ void push4(unsigned remote, uint32_t a, uint32_t b, uint32_t c,
+                                      uint32_t d, unsigned remote_bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+        ::"r"(remote), "r"(a), "r"(b), "r"(c), "r"(d), "r"(remote_bar)
+        : "memory");
+}
+
+// The block's one arrival on its own mbarrier for a meeting, expecting
+// `bytes` of pushes (they may land before it: the phase cannot complete
+// without the arrival).
+__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+    unsigned done;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
 }  // namespace regs
 
 // A band of one board on a cluster of `cluster` blocks, the register loop
@@ -586,16 +660,28 @@ whole_board_cluster_registers_kernel(const uint32_t* __restrict__ in, uint32_t* 
     const int line0 = rank * band;
     const int slots = band + 2 * depth;
     const int warps = blockDim.x >> 5;
-    // two copies of the slots, written in turn at the cluster's meetings
-    // (so one meeting a phase keeps every read of a neighbour's copy before
-    // that neighbour writes it again); then, for each of two parities, the
+    // the meetings' two mbarriers (one a parity); for each parity the halo
+    // slots the neighbours push into, the top `depth` lines then the
+    // bottom, each packed index's lines side by side `pitch` words apart
+    // (the depth in whole 16 bytes, an odd count of them: a thread's four
+    // aligned lines go in one 16-byte push, and eight lanes' pushes to one
+    // line fall in distinct banks); the slots, loaded at the start and
+    // holding the band at the end; then, for each of two parities, the
     // warps' edge sums and the lanes' scratch slots
-    const int copy_words = slots * P;
-    uint32_t* edges = smem + 2 * copy_words;
+    const int pitch = halo_pitch(depth);
+    const int halo_words = pitch * P;
+    uint32_t* halos = smem + 4;
+    uint32_t* copy = halos + 4 * halo_words;
+    uint32_t* edges = copy + slots * P;
     const int stride = 4 * warps * P + 64;
-    bands::load_slots<WORD_AXIS>(in, smem, cols, P, Q, line0, depth, slots);
-    // every block of the cluster is running before any reads another's
-    // shared memory
+    const unsigned bar = regs::shared_address(smem);
+    if (threadIdx.x == 0) {
+        regs::bar_init(bar);
+        regs::bar_init(bar + 8);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    bands::load_slots<WORD_AXIS>(in, copy, cols, P, Q, line0, depth, slots);
+    // every block's mbarriers are ready before any block pushes
     group.sync();
 
     const regs::Stack k = regs::make_stack(R, P, edges, stride);
@@ -603,12 +689,14 @@ whole_board_cluster_registers_kernel(const uint32_t* __restrict__ in, uint32_t* 
 #pragma unroll
     for (int r = 0; r < R; ++r) {
         const int s = k.first + r;
-        x[r] = k.live && s < slots ? smem[s * P + k.i] : 0u;
+        x[r] = k.live && s < slots ? copy[s * P + k.i] : 0u;
     }
+    // the warps that hold halo slots wait for the pushes; the others go on
+    const bool takes_halo = k.warp_first < depth || k.warp_last >= depth + band;
 
-    int meeting = 1;  // the copy a meeting writes is smem + (meeting & 1) * copy_words
+    int meeting = 0;
     int t = 0;
-    bool arrived = false;  // the last meeting's reads are done: a cluster barrier arrival
+    bool arrived = false;  // the last meeting's pushes are in: a cluster barrier arrival
     for (int left = n; left > 0;) {
         // A phase of r <= depth turns: after turn s the slots from lo =
         // depth - r + s to slots - lo are right, so after the phase at least
@@ -628,49 +716,85 @@ whole_board_cluster_registers_kernel(const uint32_t* __restrict__ in, uint32_t* 
             }
         }
         if (left > 0) {
-            // The cluster meets once: the band into the spare copy, which no
-            // other block reads this phase; then the halo lines, the block
-            // above's last `depth` band lines and the block below's first,
-            // through distributed shared memory, every load issued before
-            // any is used.
-            uint32_t* spare = smem + (meeting & 1) * copy_words;
+            // The block meets its two neighbours (the header comment): its
+            // band's first `depth` lines pushed into the bottom halo slots
+            // of the block above, its last into the top halo slots of the
+            // block below, those of the meeting's parity, each push counted
+            // on that block's mbarrier of the parity; then its own halo
+            // awaited and loaded. The remote addresses are made here, not
+            // held through the turns.
+            const int parity = meeting & 1;
+            const int above = rank == 0 ? cluster - 1 : rank - 1;
+            const int below = rank + 1 == cluster ? 0 : rank + 1;
+            const unsigned mine =
+                regs::shared_address(halos + 2 * halo_words * parity + k.i * pitch);
+            const unsigned up_halo = regs::cluster_address(mine + 4 * halo_words, above);
+            const unsigned dn_halo = regs::cluster_address(mine, below);
+            const unsigned up_bar = regs::cluster_address(bar + 8 * parity, above);
+            const unsigned dn_bar = regs::cluster_address(bar + 8 * parity, below);
+            // by four lines where they lie whole and aligned in the halo
+            // slots, else line by line
+            constexpr int G = R < 4 ? 1 : 4;
 #pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const int slot = k.first + j;
-                if (k.live && slot >= depth && slot < depth + band) spare[slot * P + k.i] = x[j];
+            for (int g = 0; g < R; g += G) {
+                const int s0 = k.first + g;
+                bool up4 = false, dn4 = false;
+                if constexpr (G == 4) {
+                    up4 = (s0 - depth) % 4 == 0 && s0 >= depth && s0 + 4 <= 2 * depth;
+                    dn4 = (s0 - band) % 4 == 0 && s0 >= band && s0 + 4 <= band + depth;
+                    if (k.live && up4) {
+                        regs::push4(up_halo + 4 * (s0 - depth), x[g], x[g + 1], x[g + 2], x[g + 3],
+                                    up_bar);
+                    }
+                    if (k.live && dn4) {
+                        regs::push4(dn_halo + 4 * (s0 - band), x[g], x[g + 1], x[g + 2], x[g + 3],
+                                    dn_bar);
+                    }
+                }
+#pragma unroll
+                for (int j = g; j < g + G; ++j) {
+                    const int slot = k.first + j;
+                    if (k.live && !up4 && slot >= depth && slot < 2 * depth) {
+                        regs::push(up_halo + 4 * (slot - depth), x[j], up_bar);
+                    }
+                    if (k.live && !dn4 && slot >= band && slot < band + depth) {
+                        regs::push(dn_halo + 4 * (slot - band), x[j], dn_bar);
+                    }
+                }
             }
-            group.sync();
-            const uint32_t* above = group.map_shared_rank(spare, rank == 0 ? cluster - 1 : rank - 1);
-            const uint32_t* below = group.map_shared_rank(spare, rank + 1 == cluster ? 0 : rank + 1);
+            if (threadIdx.x == 0) regs::bar_expect(bar + 8 * parity, 4 * 2 * depth * P);
+            if (takes_halo) {
+                // each mbarrier completes every other meeting
+                regs::bar_wait(bar + 8 * parity, (meeting >> 1) & 1);
+                const uint32_t* top = halos + 2 * halo_words * parity;
 #pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const int slot = k.first + j;
-                const uint32_t* from = slot < depth ? above + (band + slot) * P
-                                                    : below + (slot - band) * P;
-                if (k.live && (slot < depth || (slot >= depth + band && slot < slots))) {
-                    x[j] = from[k.i];
+                for (int j = 0; j < R; ++j) {
+                    const int slot = k.first + j;
+                    if (k.live && slot < depth) x[j] = top[k.i * pitch + slot];
+                    if (k.live && slot >= depth + band && slot < slots) {
+                        x[j] = top[halo_words + k.i * pitch + slot - depth - band];
+                    }
                 }
             }
             ++meeting;
             if (left <= depth) {
-                // the last meeting: no block leaves before every block has
-                // read its halo (the wait below)
+                // the last meeting: no block leaves before every push into
+                // every block has landed (the wait below)
                 asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
                 arrived = true;
             }
         }
     }
     if (arrived) asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-    // the band into the spare copy, which no other block reads, and the
-    // edge area for the row popcounts' parts
-    uint32_t* own = smem + (meeting & 1) * copy_words;
+    // the band into the slots, which no other block reads, and the edge
+    // area for the row popcounts' parts
 #pragma unroll
     for (int j = 0; j < R; ++j) {
         const int slot = k.first + j;
-        if (k.live && slot >= depth && slot < depth + band) own[slot * P + k.i] = x[j];
+        if (k.live && slot >= depth && slot < depth + band) copy[slot * P + k.i] = x[j];
     }
     __syncthreads();
-    bands::store_band<WORD_AXIS>(own + depth * P, reinterpret_cast<int32_t*>(edges), out,
+    bands::store_band<WORD_AXIS>(copy + depth * P, reinterpret_cast<int32_t*>(edges), out,
                                  row_counts, cols, P, band, line0, rank, cluster, group);
 }
 
@@ -836,9 +960,12 @@ cudaError_t launch_cluster_registers(const void* in, void* out, void* row_counts
     const int P = WORD_AXIS == 0 ? rows : cols;
     const int Q = WORD_AXIS == 0 ? cols : rows;
     const int slots = Q / cluster + 2 * depth;
-    // two copies of the slots; for each of two parities the warps' edge
-    // sums (two words, two sides) and the lanes' scratch slots
-    const size_t smem = (2 * static_cast<size_t>(slots) * P + 2 * (4 * warps * P + 64)) *
+    // two mbarriers (4 words); the halo slots of two parities; the slots;
+    // for each of two parities the warps' edge sums (two words, two sides)
+    // and the lanes' scratch slots
+    const size_t smem = (4 + 4 * static_cast<size_t>(halo_pitch(depth)) * P +
+                         static_cast<size_t>(slots) * P +
+                         2 * (4 * warps * P + 64)) *
                         sizeof(uint32_t);
     return launch_on_cluster(whole_board_cluster_registers_kernel<WORD_AXIS, R, Rule>, opted,
                              wide, cluster, 32 * warps, smem, stream,

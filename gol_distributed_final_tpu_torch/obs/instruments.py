@@ -550,6 +550,15 @@ WHOLE_BOARD_LAUNCHES_TOTAL = _R.counter(
     "stepped in shared memory (cluster) or in registers (cluster_registers).",
     labelnames=("route",),
 )
+WHOLE_BOARD_MEETINGS_TOTAL = _R.counter(
+    "gol_whole_board_meetings_total",
+    "Meetings between the phases of the whole-board kernel's cluster "
+    "launches for a single board (ops/whole_board.py::step_n), where each "
+    "block takes its neighbours' band edges as its halo: one fewer than the "
+    "launch's phases of halo-depth turns, by the route that ran (cluster or "
+    "cluster_registers).",
+    labelnames=("route",),
+)
 STRIP_ROWS_SKIPPED_TOTAL = _R.counter(
     "gol_strip_rows_skipped_total",
     "Row-steps the resident worker's dead-band skip did NOT compute "

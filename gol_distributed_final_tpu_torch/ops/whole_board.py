@@ -34,7 +34,8 @@ history mode stay on one block a board, on the library's own block plan.
 The cluster route's launches are timed under their own site,
 ``CLUSTER_SITE``, and counted by route under
 ``gol_whole_board_launches_total{route}`` with metrics on: "block",
-"cluster" or "cluster_registers".
+"cluster" or "cluster_registers"; a cluster launch's meetings (``meetings``)
+under ``gol_whole_board_meetings_total{route}``.
 
 ``step_n`` takes the plain version (``bit_step_n`` plus ``row_popcounts``)
 only for a tensor on the CPU. For a CUDA tensor it launches the kernel or
@@ -98,7 +99,15 @@ HALO_DEPTH = 16
 #: a thread), 640 x 384 2.19 / 1.29 (axis 1: 2.06 / 1.14), 256^2 1.40 /
 #: 0.78, 224^2 1.35 / 0.86, 192^2 1.33 / 0.84, 160^2 1.23 / 0.81 (8 blocks).
 #: 2 lines a thread was the better at 160^2 in one sweep and 30% the worse
-#: in the next; 4 is the best or within 5% of it on every board.
+#: in the next; 4 is the best or within 5% of it on every board. Since each
+#: block meets only its two neighbours between phases (pushes into their
+#: halo slots, a wait on its own mbarrier): 512^2 0.88 (axis 1: 0.89), 960^2
+#: 1.87, 640 x 384 1.17 (axis 1: 1.00), 256^2 0.68, 224^2 0.75, 192^2 0.72,
+#: 160^2 0.70 (8 blocks), each 4-15% under the cluster-wide meeting. The
+#: depth stays 16 (the band where thinner): depths 8, 10, 12, 20, 24 and 32
+#: were slower at 512^2 (12: 0.93), 960^2 and 256^2; 12 was 5% faster at
+#: 640 x 384 in both packings and 20 3% at 160^2, which no rule by the band
+#: separates from 512^2.
 REG_LINES = (4, 8)
 
 #: what the library compiles in (csrc/whole_board.cu), which the plan must
@@ -223,6 +232,8 @@ def launch_one(packed, out, counts, n, word_axis, birth_mask, survive_mask, site
     launches += 1
     if _metrics.enabled():
         _ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route.name).inc()
+        if route.blocks > 1:
+            _ins.WHOLE_BOARD_MEETINGS_TOTAL.labels(route.name).inc(meetings(n, route.depth))
     return route
 
 
@@ -317,6 +328,12 @@ def phases(n: int, depth: int) -> list[int]:
     if depth == 0:
         return [n] if n else []
     return [depth] * (n // depth) + ([n % depth] if n % depth else [])
+
+
+def meetings(n: int, depth: int) -> int:
+    """The cluster's meetings in a launch of n turns at halo ``depth``: one
+    between each two phases (``gol_whole_board_meetings_total``)."""
+    return max(len(phases(n, depth)) - 1, 0)
 
 
 def smem_bytes(shape: tuple[int, int]) -> int:

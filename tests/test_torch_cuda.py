@@ -301,10 +301,12 @@ def test_whole_board_forced_clusters_match_plain(cuda_device, shape, word_axis, 
 
 
 #: the register loop forced off the plan: (blocks, depth, lines a thread)
-#: at every compiled lines a thread, other depths and other clusters; some
-#: need more than 16 warps on some boards, and are refused there
+#: at every compiled lines a thread, the sweep's depths and other clusters;
+#: some need more than 16 warps on some boards, and are refused there
 FORCED_REGISTER_ROUTES = [(16, 16, 2), (16, 16, 8), (16, 8, 4), (16, 32, 4), (16, 32, 2),
-                          (8, 48, 4), (8, 16, 8), (4, 16, 8), (2, 8, 8)]
+                          (8, 48, 4), (8, 16, 8), (4, 16, 8), (2, 8, 8),
+                          (16, 10, 4), (16, 12, 4), (16, 12, 2), (8, 10, 8), (8, 12, 4),
+                          (4, 10, 4), (4, 12, 8), (2, 10, 4), (2, 12, 4)]
 
 
 @pytest.mark.cuda
@@ -339,6 +341,86 @@ def test_whole_board_register_loop_forced_routes_match_plain(cuda_device, shape,
             assert ran == forced
             _assert_counted_equal((out, counts),
                                   whole_board.step_n_plain(packed, n, word_axis, *masks))
+
+
+def _plain_chunks(packed, n, word_axis, birth_mask, survive_mask, turns=64):
+    """The plain version's boards after each n turns, forever: ``turns``
+    of its turns captured once in a CUDA graph and replayed, so a soak of
+    hundreds of thousands of turns takes seconds a launch, not minutes."""
+    src = packed.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up a capture wants, off the capturing stream
+        bitpack.bit_step_n(src, turns, word_axis, birth_mask, survive_mask)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dst = bitpack.bit_step_n(src, turns, word_axis, birth_mask, survive_mask)
+    assert n % turns == 0
+    while True:
+        for _ in range(n // turns):
+            graph.replay()
+            src.copy_(dst)
+        yield src.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,word_axis,rule", [((16, 512), 0, life.CONWAY),
+                                                  ((6, 192), 0, life.HIGHLIFE)],
+                         ids=["512^2-conway", "192^2-highlife"])
+def test_whole_board_register_loop_soak_matches_plain(cuda_device, shape, word_axis, rule):
+    """64 chained 4096-turn launches of the plan's register loop on one
+    stream, each launch's board and row counts equal to the plain version
+    after the same turns: a meeting that read a halo before its push
+    landed, or a push that overwrote a halo not yet read, shows over
+    hundreds of thousands of turns where one short launch can miss it."""
+    masks = (rule.birth_mask, rule.survive_mask)
+    packed = _words(shape, 26, cuda_device)
+    plan = whole_board.cluster_plan(shape, word_axis)
+    assert plan.name == "cluster_registers"
+    boards, counts = [], []
+    board = packed
+    for _ in range(64):
+        out = torch.empty_like(board)
+        row_counts = torch.empty(shape[0], dtype=torch.int32, device=cuda_device)
+        assert whole_board.launch_one(board, out, row_counts, 4096, word_axis, *masks,
+                                      "pallas.vmem_bit") == plan
+        boards.append(out)
+        counts.append(row_counts)
+        board = out
+    plain = _plain_chunks(packed, 4096, word_axis, *masks)
+    for launch, (got, got_counts) in enumerate(zip(boards, counts)):
+        want = next(plain)
+        assert torch.equal(got, want), f"launch {launch}: board differs"
+        assert torch.equal(got_counts, bitpack.row_popcounts(want)), f"launch {launch}: counts"
+
+
+@pytest.mark.cuda
+def test_whole_board_meetings_counted_by_route(cuda_device):
+    """With metrics on, each cluster launch of n turns adds its meetings,
+    ``len(phases(n, depth)) - 1``, to
+    ``gol_whole_board_meetings_total{route}`` under the route that ran;
+    a launch on one block adds none."""
+    from gol_distributed_final_tpu_torch.obs import instruments as ins
+
+    boards = {(16, 512): _words((16, 512), 12, cuda_device),
+              (40, 640): _words((40, 640), 13, cuda_device),
+              (4, 128): _words((4, 128), 14, cuda_device)}
+    want = {"block": 0, "cluster": 0, "cluster_registers": 0}
+    with _metrics_on():
+        for shape, packed in boards.items():
+            plan = whole_board.cluster_plan(shape)
+            for n in (0, 1, plan.depth, plan.depth + 1, 100, 4096):
+                whole_board.step_n(packed, n, counted=True)
+                want[plan.name] += len(whole_board.phases(n, plan.depth)) - 1 if n else 0
+        torch.cuda.synchronize()
+        got = {route: int(ins.WHOLE_BOARD_MEETINGS_TOTAL.labels(route).value)
+               for route in want}
+    assert got == want
+    # n = 0, 1 and 16 meet no time, 17 once, 100 six times, 4096 255 times
+    assert want["cluster_registers"] == 262
+    assert want["cluster"] > 0 and want["block"] == 0
 
 
 @pytest.mark.cuda

@@ -160,9 +160,11 @@ def test_route_names_the_loop(shape, word_axis, name):
 ])
 def test_cluster_phases_end_with_the_short_one(n, depth, want):
     """Phases of ``depth`` turns between the cluster's meetings, the last
-    one n % depth; one phase of all n on one block."""
+    one n % depth; one phase of all n on one block. The meetings
+    (``gol_whole_board_meetings_total``) lie between the phases."""
     assert whole_board.phases(n, depth) == want
     assert sum(want) == n
+    assert whole_board.meetings(n, depth) == max(len(want) - 1, 0)
 
 
 def test_cluster_plan_matches_the_kernel_source():
@@ -228,10 +230,13 @@ def _register_loop(packed, n, word_axis, masks, route):
     column, or at a warp's end from the neighbouring warp's edge sums, or
     at the block's ends from its own stack (garbage the halo absorbs); a
     warp outside the phase's cone is idle, its words junk here; every
-    ``depth`` turns the cluster meets once, each block reading its halo
-    from the neighbours' spare copies of their bands, copies written in
-    turn. Lines past the slots hold zeros. Returns the board, packed as it
-    came."""
+    ``depth`` turns each block meets its two neighbours: every block
+    pushes its band's first ``depth`` lines into the bottom halo slots of
+    the block above and its last into the top halo slots of the block
+    below, into the slots of the meeting's parity (one block takes both
+    pushes on a cluster of 2), and then loads its halo from its own slots
+    of that parity, which start as junk. Lines past the slots hold zeros.
+    Returns the board, packed as it came."""
     blocks, depth, per_thread, warps = route
     lines_np = np.asarray(packed).astype(np.uint32)
     lines_np = lines_np.T.copy() if word_axis == 0 else lines_np.copy()
@@ -244,17 +249,18 @@ def _register_loop(packed, n, word_axis, masks, route):
     first = np.arange(warps)[:, None] * span + np.arange(cols)[None, :] * per_thread
     slot = first[:, :, None] + np.arange(per_thread)[None, None, :]
     inside = slot < slots
-    copies = np.zeros((blocks, 2, slots, P), np.uint32)
-    for b in range(blocks):
-        copies[b, 0] = lines_np[(b * band - depth + np.arange(slots)) % Q]
+    loaded = np.stack([lines_np[(b * band - depth + np.arange(slots)) % Q]
+                       for b in range(blocks)])
     x = np.where(inside[None, :, :, :, None],
-                 copies[:, 0][:, np.minimum(slot, slots - 1)], np.uint32(0))
+                 loaded[:, np.minimum(slot, slots - 1)], np.uint32(0))
+    # each block's halo slots: [parity, top or bottom, line, word]
+    halos = np.full((blocks, 2, 2, depth, P), np.uint32(0x5A5A5A5A))
     # the slots of each warp's first and last lines: a warp whose lines all
     # lie two slots or more outside those a turn needs is idle for it, and
     # its words turn to junk here, which no needed line may read
     warp_first = np.arange(warps) * span
     warp_last = warp_first + span - 1
-    meeting, left = 1, n
+    meeting, left = 0, n
     while left > 0:
         r = min(depth, left)
         left -= r
@@ -274,14 +280,16 @@ def _register_loop(packed, n, word_axis, masks, route):
                         (ext0[..., 2:, :], ext1[..., 2:, :]), x)
             x[:, idle] = np.uint32(0xA5A5A5A5) ^ (x[:, idle] << np.uint32(1))
         if left > 0:
-            spare = copies[:, meeting & 1]
-            in_band = inside & (slot >= depth) & (slot < depth + band)
-            spare[:, slot[in_band]] = x[:, in_band]
-            above, below = np.roll(spare, 1, axis=0), np.roll(spare, -1, axis=0)
+            parity = meeting & 1
+            first = (slot >= depth) & (slot < 2 * depth)
+            last = (slot >= band) & (slot < band + depth)
+            for b in range(blocks):
+                halos[(b - 1) % blocks, parity, 1, slot[first] - depth] = x[b][first]
+                halos[(b + 1) % blocks, parity, 0, slot[last] - band] = x[b][last]
             top = slot < depth
             bottom = inside & (slot >= depth + band)
-            x[:, top] = above[:, band + slot[top]]
-            x[:, bottom] = below[:, slot[bottom] - band]
+            x[:, top] = halos[:, parity, 0, slot[top]]
+            x[:, bottom] = halos[:, parity, 1, slot[bottom] - depth - band]
             meeting += 1
     result = np.zeros_like(lines_np)
     in_band = inside & (slot >= depth) & (slot < depth + band)
@@ -298,33 +306,36 @@ REGISTER_BOARDS = [((16, 512), 0), ((512, 16), 1), ((8, 256), 0), ((256, 8), 1),
                    ((7, 224), 0), ((30, 960), 0)]
 
 
-def _register_routes(shape, word_axis):
-    """The plan's route and the register loop's others on the plan's
-    cluster: every compiled lines a thread at the plan's depth and at 8 and
-    32 (clamped to the band), where the block holds them."""
+def _register_routes(shape, word_axis, depth):
+    """The register loop's routes on the plan's cluster at halo ``depth``
+    (clamped to the band; None: the plan's own depth, and the plan's route
+    with them): every compiled lines a thread, where the block holds
+    them."""
     plan = whole_board.cluster_plan(shape, word_axis)
-    routes = {plan}
-    for depth in (plan.depth, 8, 32):
-        for per_thread in whole_board.REG_LINE_CHOICES:
-            route = whole_board.cluster_route(shape, word_axis, plan.blocks, depth, per_thread)
-            if route.warps:
-                routes.add(route)
+    routes = {plan} if depth is None else set()
+    for per_thread in whole_board.REG_LINE_CHOICES:
+        route = whole_board.cluster_route(shape, word_axis, plan.blocks,
+                                          plan.depth if depth is None else depth, per_thread)
+        if route.warps:
+            routes.add(route)
     return sorted(routes)
 
 
+@pytest.mark.parametrize("depth", [None, 8, 10, 12, 32])
 @pytest.mark.parametrize("rule", ["B3/S23", "B36/S125"])
 @pytest.mark.parametrize("shape,word_axis", REGISTER_BOARDS)
-def test_register_loop_schedule_matches_plain(shape, word_axis, rule):
+def test_register_loop_schedule_matches_plain(shape, word_axis, rule, depth):
     """The register loop's schedule, emulated, equals the plain version
     for n across the cluster's phase edges, at every route it may take on
-    the plan's cluster."""
+    the plan's cluster at the plan's halo depth (None) and at the sweep's
+    other depths."""
     trule = tlife.LifeRule.from_rulestring(rule)
     masks = tbit.rule_masks(trule.birth_mask, trule.survive_mask)
     rng = np.random.default_rng(sum(shape) + word_axis)
     packed = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
     state = torch.from_numpy(packed)
     plain = {}
-    for route in _register_routes(shape, word_axis):
+    for route in _register_routes(shape, word_axis, depth):
         assert route.lines in whole_board.REG_LINE_CHOICES
         d = route.depth
         for n in sorted({0, 1, 2, d - 1, d, d + 1, 2 * d + 3, 100}):
@@ -385,10 +396,13 @@ def stub_library(monkeypatch):
     obs_device.reset_dispatch()
 
 
-def _routes():
+def _routes(meetings=False):
+    """K1's single-board launches by route, or with ``meetings`` their
+    meetings (``gol_whole_board_meetings_total{route}``)."""
     from gol_distributed_final_tpu_torch.obs import instruments as ins
 
-    return {route: ins.WHOLE_BOARD_LAUNCHES_TOTAL.labels(route).value
+    counter = ins.WHOLE_BOARD_MEETINGS_TOTAL if meetings else ins.WHOLE_BOARD_LAUNCHES_TOTAL
+    return {route: counter.labels(route).value
             for route in ("block", "cluster", "cluster_registers")}
 
 
@@ -401,9 +415,10 @@ def test_single_board_route_with_the_library_stubbed(stub_library, shape, word_a
     whole (blocks, depth, loop and warps) and takes the cluster route where
     the plan gives more than one block: counted under route
     "cluster_registers" for the register loop, under "cluster" for the
-    shared-memory loop, timed under ``CLUSTER_SITE``. A board the plan
-    keeps on one block, and a cluster the card refuses, take one block,
-    timed under the caller's site; the launch returns the route that ran."""
+    shared-memory loop, timed under ``CLUSTER_SITE``, its meetings counted
+    under the same route. A board the plan keeps on one block, and a
+    cluster the card refuses, take one block, timed under the caller's
+    site, with no meeting; the launch returns the route that ran."""
     from gol_distributed_final_tpu_torch.obs import device as obs_device
 
     stub = stub_library(refuse)
@@ -422,6 +437,11 @@ def test_single_board_route_with_the_library_stubbed(stub_library, shape, word_a
     assert _routes() == {"block": float(not on_cluster),
                          "cluster": float(on_cluster and not registers),
                          "cluster_registers": float(registers)}
+    met = whole_board.meetings(100, want.depth)
+    assert met == (len(whole_board.phases(100, plan.depth)) - 1 if on_cluster else 0)
+    assert _routes(meetings=True) == {
+        "block": 0.0, "cluster": float(met if on_cluster and not registers else 0),
+        "cluster_registers": float(met if registers else 0)}
     site = whole_board.CLUSTER_SITE if on_cluster else "pallas.fused_bit"
     assert set(obs_device.dispatch_stats()) == {site}
 
@@ -441,6 +461,7 @@ def test_a_batch_above_one_takes_one_block_with_the_library_stubbed(stub_library
     assert stub.calls == [("batch", 4, 16, 512, 0, 64)]
     assert whole_board.launches == 0
     assert _routes() == {"block": 0.0, "cluster": 0.0, "cluster_registers": 0.0}
+    assert _routes(meetings=True) == _routes()
     assert set(obs_device.dispatch_stats()) == {"pallas.fused_bit_batch"}
 
 

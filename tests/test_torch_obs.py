@@ -56,7 +56,8 @@ def _catalog(instruments):
 #: wake-ups, since its thread waits on stop instead of polling, and the
 #: whole-board kernel's launches by route, since a single board may run on
 #: a thread block cluster
-_PORT_SERIES = {"gol_controller_ticker_wakeups_total", "gol_whole_board_launches_total"}
+_PORT_SERIES = {"gol_controller_ticker_wakeups_total", "gol_whole_board_launches_total",
+                "gol_whole_board_meetings_total"}
 
 
 def test_series_catalog_equals_the_reference():
