@@ -3,11 +3,13 @@
 ``BENCHMARK.json`` at the root of the checkout lists the cells and the
 metrics. A cell's traffic parameters are ``benchmark/workloads/<cell>.json``
 (its ``driver`` names ``benchmark/traffic/<driver>.py``), its
-configuration is ``benchmark/configs/<config>.json`` (its optional
-``check`` names ``benchmark/checks/<check>.py``), and each metric but
-``setup_s`` is read by ``benchmark/metrics/<metric>.py``. A new cell,
-configuration or metric is new files and new entries; no file here changes
-for it.
+configuration is ``benchmark/configs/<config>.json`` (an ``image`` under
+``benchmark/``, or a seeded ``board``: ``{"kind": "soup", "density": p}``
+or ``{"kind": "cells", "file": "inputs/<name>.cells"}``, a pattern of live
+cells; its optional ``check`` names ``benchmark/checks/<check>.py``), and
+each metric but ``setup_s`` is read by ``benchmark/metrics/<metric>.py``. A
+new cell, configuration or metric is new files and new entries; no file
+here changes for it.
 """
 
 from __future__ import annotations

@@ -32,8 +32,10 @@ class Context:
     """What a traffic driver and a configuration's check get: the cell, the
     seed, the window's length, a directory of its own, the configuration's
     image (None for a seeded board) and ``board`` (its ``board`` entry, None
-    for an image), the broker's address, and ``state`` to keep between
-    ``setup`` and ``window``."""
+    for an image: a seeded soup, ``{"kind": "soup", "density": p}``, or a
+    pattern of live cells, ``{"kind": "cells", "file": path}``), the
+    broker's address, and ``state`` to keep between ``setup`` and
+    ``window``."""
 
     def __init__(self, cell, seed: int, seconds: float, workdir: pathlib.Path, image):
         self.cell = cell
@@ -132,13 +134,18 @@ def _broker(args, cell, device, fault):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+#: the kinds of seeded board: a soup (``harness/soup.py``) and a pattern of
+#: live cells placed by the seed (``harness/boards.py``)
+BOARD_KINDS = ("soup", "cells")
+
+
 def _image(config: dict):
     """The configuration's image, of its ``height x width``; None where its
-    board is a seeded soup (``harness/soup.py``)."""
+    board is seeded, one of ``BOARD_KINDS``."""
     if "image" not in config:
-        if (config.get("board") or {}).get("kind") != "soup":
+        if (config.get("board") or {}).get("kind") not in BOARD_KINDS:
             raise ValueError(f"configuration {config['name']!r} has neither an image "
-                             f"nor a soup board")
+                             f"nor a board of a kind in {BOARD_KINDS}")
         return None
     image = reference.read_pgm(manifest.BENCH / config["image"])
     if image.shape != (config["height"], config["width"]):

@@ -6,7 +6,8 @@ holds it. Boards whose width is a multiple of 64 step as rows of 64-bit
 words, one bit a cell, through a bit-sliced neighbour count (about 45
 NumPy operations a turn, whatever the size); other widths step one byte a
 cell. The tests hold both against the repository's golden files and
-against each other.
+against each other. ``evolve_cells`` steps a set of live cells instead,
+for boards too large to hold whole.
 
 ``wrap=False`` closes the edges (cells outside the board are dead). It
 serves the control, which must come out as not correct, and the light
@@ -225,6 +226,46 @@ def evolve_windows(windows, h: int, w: int, turns: int,
             blocks = blocks[:, :, 64:-64]
             left -= 64
     return [np.ascontiguousarray(b[:, left:left + w]) for b in blocks]
+
+
+#: (dy, dx) of a cell's eight neighbours
+_NEIGHBOURS = np.array([(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dy or dx],
+                       np.int64)
+
+
+def evolve_cells(ys, xs, turns: int, height: int, width: int,
+                 rulestring: str = "B3/S23") -> tuple[np.ndarray, np.ndarray]:
+    """The live cells of a ``height x width`` torus after ``turns`` turns,
+    from the live cells ``(ys[i], xs[i])``, as ``(ys, xs)`` int64 arrays
+    sorted by row, then column.
+
+    Each turn the 8 shifted copies of the live set, modulo the torus, are
+    counted cell by cell (a cell is the key ``y * width + x``, which a
+    65536 x 65536 torus keeps inside int64), and the rule's born and
+    survive sets decide. The work grows with the live cells, not the board:
+    ~0.1 ms a turn at ~120 of them. A rule that gives birth on 0 neighbours
+    fills the empty board, which no set of live cells can hold."""
+    born, survive = parse_rule(rulestring)
+    if 0 in born:
+        raise ValueError(f"{rulestring!r} gives birth on 0 neighbours: no sparse set holds it")
+    born_on = np.isin(np.arange(9), list(born))
+    survives_on = np.isin(np.arange(9), list(survive))
+    ys = np.asarray(ys, np.int64) % height
+    xs = np.asarray(xs, np.int64) % width
+    live = np.unique(ys * width + xs)
+    for _ in range(turns):
+        y, x = np.divmod(live, width)
+        ny = (y[None, :] + _NEIGHBOURS[:, :1]) % height
+        nx = (x[None, :] + _NEIGHBOURS[:, 1:]) % width
+        # each live cell once more, so that one with no live neighbour is seen
+        cells, counts = np.unique(np.concatenate([(ny * width + nx).ravel(), live]),
+                                  return_counts=True)
+        at = np.searchsorted(live, cells)
+        alive = live[np.minimum(at, len(live) - 1)] == cells
+        counts -= alive
+        live = cells[np.where(alive, survives_on[counts], born_on[counts])]
+    y, x = np.divmod(live, width)
+    return y, x
 
 
 def evolve_bytes(board: np.ndarray, turns: int, rulestring: str = "B3/S23") -> np.ndarray:

@@ -20,9 +20,12 @@ def test_every_cell_finds_its_config_driver_and_metrics(data):
         cell = manifest.cell(w["name"], data)
         config = cell.config
         assert config["rule"] and config["width"] >= 1 and config["height"] >= 1
-        # an image, or a seeded soup (harness/soup.py)
+        # an image, a seeded soup (harness/soup.py) or a seeded pattern of
+        # live cells (harness/boards.py)
         if "image" in config:
             assert (manifest.BENCH / config["image"]).is_file()
+        elif config["board"]["kind"] == "cells":
+            assert (manifest.BENCH / config["board"]["file"]).is_file()
         else:
             assert config["board"]["kind"] == "soup" and 0 < config["board"]["density"] < 1
         if "check" in config:

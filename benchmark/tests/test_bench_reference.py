@@ -110,7 +110,7 @@ def test_reference_imports_nothing_of_the_port(root):
     import sys
 
     code = ("import sys; sys.path.insert(0, %r); import benchmark.reference, "
-            "benchmark.harness.soup; "
+            "benchmark.harness.soup, benchmark.harness.boards; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))" % str(root))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True).stdout
